@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one GPU and check it.
+"""Drive the PyTorch + CUDA port's paths once on one GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
 0. device: a CUDA device is visible; print its name and power limit;
-1. build: compile ``csrc/cost_volume.cu`` with nvcc from this checkout;
-2. kernel against plain: the CUDA cost volume and its plain PyTorch twin
-   on the same device tensors, at the full 9-view 1080p size and one odd
-   small shape, with both times from CUDA events;
+1. build: compile ``csrc/{cost_volume,sweep,consistency}.cu`` with nvcc
+   from this checkout, one nvcc each, all started together;
+2. kernels against their plain twins, on the same device tensors, with
+   both times from CUDA events, in turns: the cost volume at the full
+   9-view 1080p size and one odd small shape; the dense sweep, bitwise,
+   at 9x1080x1920 (31 hypotheses, 40 pairs), 2x1080x1920 (64 hypotheses,
+   horizontal pairs) and 9x53x131; the strips consistency kernel on the
+   update and refit candidates of sweep 0 of the 9-view 1080p scene;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
    per-stage device times, MP/s and peak memory;
-4. the card against the port's CPU path, at 3x3 views of 270x480.
+3b. the same stages with the strips consistency engine
+   (``refine.refine(cons_engine="strips")``): timed the same way, and its
+   refined disparity held against phase 3's gather engine;
+3c. the dense plane sweep (``models.plane_sweep.plane_sweep_depth``) on
+   the scene's Lab images: timed the same way, and held against the
+   scene's disparity;
+4. the card against the port's CPU path, at 3x3 views of 270x480, for the
+   slice, the strips path and the dense sweep.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -26,11 +37,16 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-# kernel-vs-plain bounds: the JAX suite's strips-vs-dense bounds
+# cost-volume kernel-vs-plain bounds: the JAX suite's strips-vs-dense bounds
 RTOL, ATOL, WTA_AGREE = 2e-7, 1e-3, 0.999
+# consistency kernel vs its plain twin: the same formula, sums over the
+# samples taken in another order by the twin's reductions
+CONS_RTOL, CONS_ATOL = 1e-5, 1e-6
 FULL_H, FULL_W = 1080, 1920
 TRUE_DISP = 40.0
+KERNELS = ("cost_volume", "sweep", "consistency")
 
 
 def _card() -> str:
@@ -55,6 +71,16 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _in_turns(kernel, plain, k_iters: int, p_iters: int) -> tuple[float, float]:
+    """Kernel and plain ms, each the mean of two windows: kernel, plain,
+    kernel, plain."""
+    k_ms, p_ms = [], []
+    for _ in range(2):
+        k_ms.append(_cuda_ms(kernel, k_iters))
+        p_ms.append(_cuda_ms(plain, p_iters))
+    return sum(k_ms) / 2, sum(p_ms) / 2
+
+
 def _depth_inputs(rgb, settings, device):
     """Port stages up to the cost volume's inputs: (lab, centers, step)."""
     import torch
@@ -70,6 +96,80 @@ def _depth_inputs(rgb, settings, device):
     extent = superpixel.superpixel_extent(labels, spmap.center, geom)
     step = superpixel.extent_step(extent).contiguous()
     return lab.contiguous(), spmap.center.contiguous(), step
+
+
+def _scene(h: int, w: int):
+    from cl_multiview_stereo_tpu_torch import SystemSettings, fronto_parallel_scene
+
+    s = SystemSettings()
+    rgb, _ = fronto_parallel_scene(h, w, 3, 3, disp=TRUE_DISP, bl_ratio=s.bl_ratio)
+    return s, rgb
+
+
+def _sweep_args(s):
+    """The dense sweep's ladder and pairs for settings ``s``."""
+    from cl_multiview_stereo_tpu_torch import build_disp_levels, build_view_subsets
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import build_pairs
+
+    return build_disp_levels(s), build_pairs(*build_view_subsets(s), s.array_width)
+
+
+def _strips_scene(pipe, rgb, timer=None):
+    """The slice's stages with the strips consistency engine in the
+    propagation sweeps (composed as ``tools/probe_cons_strips.py``
+    composes the JAX stages).  Returns (refined state, disp_full)."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch import (
+        RefinementSchedule,
+        SlicParams,
+        build_disp_levels,
+        build_view_subsets,
+    )
+    from cl_multiview_stereo_tpu_torch.ops import cost_volume, fusion, refine, slic, superpixel
+    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+    from cl_multiview_stereo_tpu_torch.utils.timing import maybe_stage
+
+    s, geom, dev = pipe.settings, pipe.geom, pipe.device
+    sched = RefinementSchedule.create(s)
+    subset, counts = build_view_subsets(s)
+    with maybe_stage(timer, "lab"):
+        lab = rgb_to_lab(torch.as_tensor(rgb, device=dev))
+    with maybe_stage(timer, "slic"):
+        labels, spmap = slic.segment(lab, geom, SlicParams.create(s))
+    with maybe_stage(timer, "extent"):
+        extent = superpixel.superpixel_extent(labels, spmap.center, geom)
+    with maybe_stage(timer, "depth_init"):
+        disp_init = cost_volume.initial_depth_estimation(
+            lab, spmap.center, extent, build_disp_levels(s),
+            torch.as_tensor(counts, dtype=torch.int32, device=dev), s.array_width, s.bl_ratio,
+            method="strips", neib_hor=s.neib_hor, neib_ver=s.neib_ver,
+        )
+    with maybe_stage(timer, "context"):
+        flatness = refine.compute_flatness(spmap.color, sched.gamma_eff)
+        ctx = refine.make_context(spmap.center, spmap.color, disp_init, labels, extent, flatness)
+    state = refine.refine(
+        ctx, sched, pairs=refine.pairs_from_subsets(subset, s.array_width),
+        cons_engine="strips", timer=timer,
+    )
+    with maybe_stage(timer, "fusion"):
+        disp_full = fusion.fuse_views(labels, spmap.center, state.d, state.n)
+    return state, disp_full
+
+
+def phase_build() -> None:
+    from cl_multiview_stereo_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        logs = dict(zip(KERNELS, (log for _, log in pool.map(build.build, KERNELS))))
+    for name in KERNELS:
+        build.load(name)
+    print(f"[1] built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        for line in logs[name].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[1] ptxas {name}: {line.strip()}")
 
 
 def phase_kernel_vs_plain(card: str) -> dict:
@@ -109,29 +209,121 @@ def phase_kernel_vs_plain(card: str) -> dict:
         ).float().mean().item()
         if agree < WTA_AGREE:
             raise AssertionError(f"{label}: WTA agreement {agree} < {WTA_AGREE}")
-        # in turns: kernel, plain, kernel, plain
-        k_ms, p_ms = [], []
-        for _ in range(2):
-            k_ms.append(_cuda_ms(lambda: cost_volume.superpixel_cost_volume(*args), 10))
-            p_ms.append(_cuda_ms(lambda: cost_volume.cost_volume_reference(*args), 2))
-        k, p = sum(k_ms) / 2, sum(p_ms) / 2
-        print(f"[2] {label}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
+        k, p = _in_turns(lambda: cost_volume.superpixel_cost_volume(*args),
+                         lambda: cost_volume.cost_volume_reference(*args), 10, 2)
+        print(f"[2] cost_volume {label}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
               f"wta_agree {agree:.6f} kernel {k:.3f} ms plain {p:.3f} ms ({card})")
         rec[label] = dict(max_abs_err=err, wta_agree=agree, ms=k, plain_ms=p)
     return rec["full 9x1080x1920"] | {"max_abs_err": max(r["max_abs_err"] for r in rec.values())}
 
 
-def phase_slice(card: str) -> int:
+def phase_sweep_vs_plain(card: str) -> dict:
     import numpy as np
     import torch
 
-    from cl_multiview_stereo_tpu_torch import SystemSettings, fronto_parallel_scene
+    from cl_multiview_stereo_tpu_torch import SystemSettings
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_reference
+    from cl_multiview_stereo_tpu_torch.ops import sweep
+    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+
+    dev = torch.device("cuda")
+    s_full, rgb = _scene(FULL_H, FULL_W)
+    rng = np.random.default_rng(0)
+    odd = SystemSettings(array_width=3, array_height=3, min_disp=10, max_disp=20, inc=1)
+    cases = [
+        # the slice's scene, the reference ladder (31) and pairs (40)
+        ("full 9x1080x1920 D31 P40", rgb_to_lab(torch.as_tensor(rgb, device=dev)).contiguous(),
+         *_sweep_args(s_full), s_full.bl_ratio),
+        # tools/roofline.py's case: 2 views, D = 64, horizontal pairs
+        ("roofline 2x1080x1920 D64 P2",
+         torch.as_tensor(rng.uniform(0, 100, (2, FULL_H, FULL_W, 3)).astype(np.float32), device=dev),
+         [float(d) for d in range(4, 68)], ((0, 1, 1, 0), (1, 0, -1, 0)), 1.0),
+        ("odd 9x53x131 D11 P40",
+         torch.as_tensor(rng.uniform(0, 100, (9, 53, 131, 3)).astype(np.float32), device=dev),
+         *_sweep_args(odd), odd.bl_ratio),
+    ]
+    rec = {}
+    for label, lab, ladder, pairs, bl in cases:
+        args = (lab, [float(d) for d in ladder], pairs, bl, 2)
+        kd, kc = sweep.plane_sweep(*args)
+        pd, pc = plane_sweep_reference(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(kd, pd) and torch.equal(kc, pc)):
+            bad = int((kd != pd).sum() + (kc != pc).sum())
+            raise AssertionError(f"sweep {label}: kernel and plain differ at {bad} outputs")
+        k, p = _in_turns(lambda: sweep.plane_sweep(*args), lambda: plane_sweep_reference(*args), 3, 1)
+        print(f"[2] sweep {label}: bitwise equal, kernel {k:.3f} ms plain {p:.3f} ms ({card})")
+        rec[label] = dict(ms=k, plain_ms=p)
+    return rec["full 9x1080x1920 D31 P40"] | {"max_abs_err": 0.0}
+
+
+def phase_consistency_vs_plain(card: str) -> dict:
+    import torch
+
+    from cl_multiview_stereo_tpu_torch import RefinementSchedule, build_view_subsets
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+    from cl_multiview_stereo_tpu_torch.ops import consistency, refine
+
+    s, rgb = _scene(FULL_H, FULL_W)
+    pipe = MVSPipeline.create(FULL_W, FULL_H, s, depth_method="strips", device="cuda")
+    art = pipe.run(rgb)
+    sched = RefinementSchedule.create(s)
+    ctx = refine.make_context(
+        art.spmap.center, art.spmap.color, art.disp_init, art.labels, art.extent, art.flatness
+    )
+    kw = dict(gamma=sched.gamma_eff, alpha=sched.alpha_eff, fuse=sched.fuse_eff,
+              bl_ratio=sched.bl_ratio,
+              pairs=refine.pairs_from_subsets(build_view_subsets(s)[0], s.array_width))
+    state0 = refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
+
+    # record the engine's calls of sweep 0 (the update moves, then the refits)
+    calls, engine = [], consistency.consistency_moves
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return engine(*a, **k)
+
+    consistency.consistency_moves = record
+    try:
+        refine.propagate_iteration(
+            ctx, state0, 0, **kw, steps=sched.steps_per_iter[0],
+            step_size=sched.step_size_per_iter[0], cons_engine="strips",
+        )
+    finally:
+        consistency.consistency_moves = engine
+    if len(calls) != 2:
+        raise AssertionError(f"sweep 0 made {len(calls)} consistency calls, expected 2")
+
+    errs, k_tot, p_tot = [], 0.0, 0.0
+    for phase, (a, k) in zip(("update", "refit"), calls):
+        kern = consistency.consistency_moves(*a, **k)
+        plain = consistency.consistency_moves_reference(*a, **k)
+        torch.cuda.synchronize()
+        if not torch.allclose(kern, plain, rtol=CONS_RTOL, atol=CONS_ATOL, equal_nan=True):
+            raise AssertionError(f"consistency {phase}: kernel and plain disagree")
+        both = torch.isfinite(kern) & torch.isfinite(plain)
+        err = (kern - plain).abs()[both].max().item()
+        n_bad = int((~torch.isfinite(kern)).sum())
+        km, pm = _in_turns(lambda: consistency.consistency_moves(*a, **k),
+                           lambda: consistency.consistency_moves_reference(*a, **k), 10, 1)
+        print(f"[2] consistency sweep 0 {phase}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
+              f"non-finite {n_bad} kernel {km:.3f} ms plain {pm:.3f} ms ({card})")
+        errs.append(err)
+        k_tot += km
+        p_tot += pm
+    # per sweep: both phases' calls
+    return dict(max_abs_err=max(errs), ms=k_tot, plain_ms=p_tot)
+
+
+def phase_slice(card: str):
+    import numpy as np
+    import torch
+
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
     from cl_multiview_stereo_tpu_torch.ops import cost_volume
     from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer
 
-    s = SystemSettings()
-    rgb, _ = fronto_parallel_scene(FULL_H, FULL_W, 3, 3, disp=TRUE_DISP, bl_ratio=s.bl_ratio)
+    s, rgb = _scene(FULL_H, FULL_W)
     pipe = MVSPipeline.create(FULL_W, FULL_H, s, depth_method="strips", device="cuda")
     rgb_dev = torch.as_tensor(rgb, device="cuda")
 
@@ -167,6 +359,85 @@ def phase_slice(card: str) -> int:
     print(f"[3] runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
           f"peak {peak / 2**30:.3f} GiB; disp_init near GT {near:.4f}; launches {launches} ({card})")
     print("[3] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
+    return launches, pipe, rgb_dev, art
+
+
+def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.ops import consistency
+    from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer
+
+    t0 = time.perf_counter()
+    _strips_scene(pipe, rgb_dev)
+    torch.cuda.synchronize()
+    print(f"[3b] warm-up run {time.perf_counter() - t0:.3f} s ({card})")
+
+    torch.cuda.reset_peak_memory_stats()
+    consistency.LAUNCHES = 0
+    times, timer = [], None
+    for _ in range(2):
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        state, disp_full = _strips_scene(pipe, rgb_dev, timer)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = consistency.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches < 1:
+        raise AssertionError("the strips path never launched the consistency kernel")
+    if not bool(torch.isfinite(disp_full).all()):
+        raise AssertionError("strips disp_full has non-finite values")
+    agree = float(((state.d - gather_d).abs() <= 1e-3).float().mean())
+    if agree < 0.99:
+        raise AssertionError(f"strips state.d within 1e-3 of the gather engine's on only {agree:.6f}")
+
+    t = min(times)
+    mp_s = 9 * FULL_H * FULL_W / t / 1e6
+    print(f"[3b] strips runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
+          f"peak {peak / 2**30:.3f} GiB; state.d vs gather (1e-3) {agree:.6f}; "
+          f"launches {launches} ({card})")
+    print("[3b] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
+    return launches
+
+
+def phase_dense_sweep(card: str, lab, settings) -> int:
+    import numpy as np
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.ops import sweep
+
+    ladder, pairs = _sweep_args(settings)
+    lab = lab.contiguous()
+    t0 = time.perf_counter()
+    plane_sweep_depth(lab, ladder, pairs, settings.bl_ratio)
+    torch.cuda.synchronize()
+    print(f"[3c] warm-up run {time.perf_counter() - t0:.3f} s ({card})")
+
+    torch.cuda.reset_peak_memory_stats()
+    sweep.LAUNCHES = 0
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        disp, cost = plane_sweep_depth(lab, ladder, pairs, settings.bl_ratio)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = sweep.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches < 1:
+        raise AssertionError("the dense sweep path never launched the sweep kernel")
+    if not bool(torch.isfinite(cost).all()):
+        raise AssertionError("sweep cost has non-finite values")
+    interior = disp[:, 64:-64, 64:-64].cpu().numpy()
+    near = float((np.abs(interior - TRUE_DISP) <= 1.0).mean())
+    if near < 0.9:
+        raise AssertionError(f"sweep disp within 1 of {TRUE_DISP} on only {near:.4f} of interior pixels")
+
+    t = min(times)
+    mp_s = 9 * FULL_H * FULL_W / t / 1e6
+    print(f"[3c] sweep runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
+          f"peak {peak / 2**30:.3f} GiB; disp near GT {near:.4f}; launches {launches} ({card})")
     return launches
 
 
@@ -174,24 +445,34 @@ def phase_card_vs_cpu(card: str) -> None:
     import numpy as np
     import torch
 
-    from cl_multiview_stereo_tpu_torch import SystemSettings, fronto_parallel_scene
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
 
-    s = SystemSettings()
     h, w = 270, 480
-    rgb, _ = fronto_parallel_scene(h, w, 3, 3, disp=TRUE_DISP, bl_ratio=s.bl_ratio)
+    s, rgb = _scene(h, w)
+    ladder, pairs = _sweep_args(s)
     out = {}
     for dev in ("cuda", "cpu"):
-        art = MVSPipeline.create(w, h, s, depth_method="strips", device=dev).run(rgb)
+        pipe = MVSPipeline.create(w, h, s, depth_method="strips", device=dev)
+        art = pipe.run(rgb)
+        _, strips_full = _strips_scene(pipe, rgb)
+        disp, _ = plane_sweep_depth(art.lab.contiguous(), ladder, pairs, s.bl_ratio)
         out[dev] = {k: getattr(art, k).cpu().numpy() for k in ("labels", "disp_init", "disp_full")}
+        out[dev]["strips_full"] = strips_full.cpu().numpy()
+        out[dev]["sweep"] = disp.cpu().numpy()
     g, c = out["cuda"], out["cpu"]
     labels = float((g["labels"] == c["labels"]).mean())
     disp_init = float((g["disp_init"] == c["disp_init"]).mean())
     disp_full = float((np.abs(g["disp_full"] - c["disp_full"]) <= 1e-3).mean())
+    strips_full = float((np.abs(g["strips_full"] - c["strips_full"]) <= 1e-3).mean())
+    sweep_disp = float((g["sweep"] == c["sweep"]).mean())
     print(f"[4] card vs CPU at 9x{h}x{w}: labels {labels:.6f} disp_init {disp_init:.6f} "
-          f"disp_full(1e-3) {disp_full:.6f} ({card})")
+          f"disp_full(1e-3) {disp_full:.6f} strips disp_full(1e-3) {strips_full:.6f} "
+          f"sweep disp {sweep_disp:.6f} ({card})")
     if labels <= 0.995 or disp_init < 0.99 or disp_full < 0.98:
         raise AssertionError("the card's output departs from the port's CPU path")
+    if strips_full < 0.98 or sweep_disp < 0.999:
+        raise AssertionError("the card's strips or sweep output departs from the port's CPU path")
 
 
 def main() -> int:
@@ -202,7 +483,6 @@ def main() -> int:
         return 1
     try:
         from cl_multiview_stereo_tpu_torch.device import require_cuda
-        from cl_multiview_stereo_tpu_torch.kernels import build
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout of the repo ({e})", file=sys.stderr)
         return 1
@@ -211,28 +491,28 @@ def main() -> int:
     card = _card()
     print(f"[0] {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    _, log = build.build("cost_volume")
-    build.load("cost_volume")
-    print(f"[1] built cost_volume in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1] ptxas: {line.strip()}")
-
-    kv = phase_kernel_vs_plain(card)
-    launches = phase_slice(card)
+    phase_build()
+    cv = phase_kernel_vs_plain(card)
+    sw = phase_sweep_vs_plain(card)
+    cons = phase_consistency_vs_plain(card)
+    cv_launches, pipe, rgb_dev, art = phase_slice(card)
+    cons_launches = phase_strips(card, pipe, rgb_dev, art.state.d)
+    sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
 
-    record = {"kernels": [{
-        "name": "cost_volume",
-        "route": "cuda",
-        "source": "cl_multiview_stereo_tpu_torch/csrc/cost_volume.cu",
-        "replaces": "cl_multiview_stereo_tpu/ops/cost_volume.py:46",
-        "launches": launches,
-        "max_abs_err": kv["max_abs_err"],
-        "ms": kv["ms"],
-        "plain_ms": kv["plain_ms"],
-    }]}
+    src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
+    record = {"kernels": [
+        {"name": "cost_volume", "route": "cuda", "source": src("cost_volume"),
+         "replaces": "cl_multiview_stereo_tpu/ops/cost_volume.py:46", "launches": cv_launches,
+         "max_abs_err": cv["max_abs_err"], "ms": cv["ms"], "plain_ms": cv["plain_ms"]},
+        {"name": "sweep", "route": "cuda", "source": src("sweep"),
+         "replaces": "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", "launches": sw_launches,
+         "max_abs_err": sw["max_abs_err"], "ms": sw["ms"], "plain_ms": sw["plain_ms"]},
+        {"name": "consistency", "route": "cuda", "source": src("consistency"),
+         "replaces": "cl_multiview_stereo_tpu/ops/pallas/consistency.py:95",
+         "launches": cons_launches, "max_abs_err": cons["max_abs_err"], "ms": cons["ms"],
+         "plain_ms": cons["plain_ms"]},
+    ]}
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

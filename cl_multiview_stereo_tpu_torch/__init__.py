@@ -3,8 +3,11 @@
 The JAX package ``cl_multiview_stereo_tpu`` beside this one is the
 reference: every module here mirrors the module of the same name there and
 is held against it by ``tests/test_torch_*.py``.  Plain tensor code is
-PyTorch; the strips depth-init cost volume is a hand-written CUDA kernel
-(``csrc/cost_volume.cu``) with a plain PyTorch twin for CPU tensors.
+PyTorch; each Pallas kernel of the reference has a hand-written CUDA
+counterpart with a plain PyTorch twin for CPU tensors: the strips
+depth-init cost volume (``csrc/cost_volume.cu``), the strips consistency
+engine (``csrc/consistency.cu``) and the dense plane sweep
+(``csrc/sweep.cu``).
 
 Only the numpy-only modules of the JAX package are imported
 (``config``, ``testing.synthetic``, ``io.images``), so this package runs

@@ -1,0 +1,117 @@
+"""Dense plane-sweep kernel wrapper (port of
+``cl_multiview_stereo_tpu/ops/pallas/sweep.py``).
+
+:func:`plane_sweep` launches ``csrc/sweep.cu`` on a CUDA tensor; the plain
+twin and the entry point that picks between them are in
+``models/plane_sweep.py``.  The host builds the per-(pair, hypothesis)
+integer shift tables in double precision (:func:`shift_table`, which the
+plain twin uses too) and hands the kernel the pairs grouped by reference
+view; the TPU's padded channel-planar slabs (``pad_images``) have no
+counterpart.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+MAX_RADIUS = 4  # the kernel's shared-memory halo
+
+# Kernel launches since import (or since the caller reset it): chip_smoke.py
+# reads it to show that the sweep path went through the kernel.
+LAUNCHES = 0
+
+
+def shift_window(c: float) -> tuple[int, int]:
+    """(shift, first valid index) of a projection ``i - c`` along one axis.
+
+    The reference truncates the projected coordinate (clcode.cl:1034) and
+    rejects it outside ``(-1, n)``, so pixel i reads ``clamp(i - ceil(c))``
+    and is valid iff ``floor(c) <= i <= n - 1 + ceil(c)``.  ``c`` is the
+    double-precision product the JAX form computes on the host; an f32
+    product can land ``ceil`` on another integer."""
+    return int(math.ceil(c)), int(math.floor(c))
+
+
+def shift_table(ladder: Sequence[float], dvx: float, dvy: float, bl_ratio: float) -> list[tuple[int, int, int, int]]:
+    """Per hypothesis: (shift y, shift x, first valid y, first valid x)."""
+    out = []
+    for d in ladder:
+        sy, loy = shift_window(bl_ratio * d * dvy)
+        sx, lox = shift_window(d * dvx)
+        out.append((sy, sx, loy, lox))
+    return out
+
+
+def pair_tables(
+    ladder: Sequence[float], pairs: Sequence[tuple[int, int, int, int]], bl_ratio: float, n_views: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(start (V+1,), view (P,), shifts (P, D, 4)) int32: the pairs grouped
+    by reference view (CSR, subset order kept within a view) and each
+    pair's (sy, sx, loy, lox) per hypothesis."""
+    for ref, view, _, _ in pairs:
+        if not (0 <= ref < n_views and 0 <= view < n_views):
+            raise ValueError(f"pair ({ref}, {view}) names a view outside 0..{n_views - 1}")
+    order = sorted(range(len(pairs)), key=lambda i: pairs[i][0])
+    counts = np.bincount(np.asarray([p[0] for p in pairs], np.int64), minlength=n_views)
+    start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    view = np.asarray([pairs[i][1] for i in order], np.int32)
+    shifts = np.asarray(
+        [shift_table(ladder, pairs[i][2], pairs[i][3], bl_ratio) for i in order], np.int64
+    ).reshape(len(pairs), len(ladder), 4)
+    if np.abs(shifts).max(initial=0) >= 2**31:
+        raise ValueError("a shift does not fit int32")
+    return start, view, shifts.astype(np.int32)
+
+
+def plane_sweep(
+    lab: torch.Tensor,  # (V, H, W, 3) float32 on CUDA, contiguous
+    ladder: Sequence[float],
+    pairs: Sequence[tuple[int, int, int, int]],
+    bl_ratio: float,
+    window_radius: int = 2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the sweep kernel: (disp, cost), each (V, H, W) float32."""
+    global LAUNCHES
+    from cl_multiview_stereo_tpu_torch.kernels.build import load
+
+    if lab.device.type != "cuda":
+        raise ValueError(f"the sweep kernel needs a CUDA tensor, got one on {lab.device}")
+    if lab.dtype != torch.float32:
+        raise TypeError(f"lab must be float32, got {lab.dtype}")
+    if lab.dim() != 4 or lab.shape[3] != 3:
+        raise ValueError(f"lab has shape {tuple(lab.shape)}, expected (V, H, W, 3)")
+    if not lab.is_contiguous():
+        raise ValueError("lab must be contiguous")
+    if not 0 <= window_radius <= MAX_RADIUS:
+        raise ValueError(f"window_radius {window_radius} outside 0..{MAX_RADIUS}")
+    v, h, w = lab.shape[:3]
+    ladder = [float(d) for d in ladder]
+    start, view, shifts = pair_tables(ladder, pairs, bl_ratio, v)
+    dev = lab.device
+    start_t = torch.as_tensor(start, device=dev)
+    view_t = torch.as_tensor(view, device=dev)
+    shifts_t = torch.as_tensor(shifts, device=dev)
+    ladder_t = torch.as_tensor(np.asarray(ladder, np.float32), device=dev)
+
+    lib = load("sweep")
+    fn = lib.sweep_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    disp = torch.empty((v, h, w), dtype=torch.float32, device=dev)
+    cost = torch.empty((v, h, w), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            lab.data_ptr(), start_t.data_ptr(), view_t.data_ptr(), shifts_t.data_ptr(),
+            ladder_t.data_ptr(), disp.data_ptr(), cost.data_ptr(),
+            v, h, w, len(ladder), window_radius, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sweep kernel launch failed with CUDA error {rc}")
+    LAUNCHES += 1
+    return disp, cost

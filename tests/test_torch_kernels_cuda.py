@@ -8,17 +8,21 @@ This file imports no JAX, so it also runs where JAX is not installed:
 CUDA device every test here skips.
 """
 
+import numpy as np
 import pytest
 import torch
 
 from cl_multiview_stereo_tpu.config import (
     DerivedGeometry,
+    RefinementSchedule,
     SlicParams,
     SystemSettings,
     build_disp_levels,
+    build_view_subsets,
 )
 from cl_multiview_stereo_tpu.testing import synthetic
-from cl_multiview_stereo_tpu_torch.ops import cost_volume, slic, superpixel
+from cl_multiview_stereo_tpu_torch.models import plane_sweep
+from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, refine, slic, superpixel, sweep
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 
 # the JAX suite's bounds for strips against dense (tests/test_depth_init.py)
@@ -76,3 +80,111 @@ def test_cost_volume_wrapper_rejects_bad_input(cuda):
         cost_volume.superpixel_cost_volume(
             lab.transpose(1, 2), centers, step, levels, 2, 1.0
         )
+
+
+def _lab(shape, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.uniform(0, 100, shape).astype(np.float32), device=device)
+
+
+def _sweep_matches(lab, ladder, pairs, bl_ratio):
+    before = sweep.LAUNCHES
+    got = plane_sweep.plane_sweep_depth(lab, ladder, pairs, bl_ratio)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES == before + 1
+    want = plane_sweep.plane_sweep_reference(lab, ladder, pairs, bl_ratio)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", [(1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, 1)])
+def test_sweep_kernel_single_pair_bitwise(cuda, dv):
+    _sweep_matches(_lab((2, 48, 160, 3), 0, cuda), range(5, 13), ((0, 1, dv[0], dv[1]),), 1.0359)
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_odd_multiview_bitwise(cuda):
+    s = SystemSettings(array_width=3, array_height=3, min_disp=10, max_disp=20, inc=1)
+    pairs = plane_sweep.build_pairs(*build_view_subsets(s), s.array_width)
+    _sweep_matches(_lab((9, 53, 131, 3), 1, cuda), range(10, 21), pairs, s.bl_ratio)
+
+
+@pytest.fixture
+def strips_scene(cuda):
+    """tests/test_consistency_strips.py's scene (3x2 views, 48x64,
+    bl_ratio 1.0359), built by the port on the card."""
+    s = SystemSettings(array_width=3, array_height=2, spixl_size=8, min_disp=4, max_disp=11,
+                       inc=1, bl_ratio=1.0359, kernel_size=8, kernel_step=2, no_prop=2)
+    views, _ = synthetic.two_plane_scene(48, 64, array_width=3, array_height=2, disp_bg=5.0,
+                                         disp_fg=9.0, bl_ratio=1.0359, seed=3)
+    geom = DerivedGeometry.create(64, 48, s)
+    lab = rgb_to_lab(torch.as_tensor(views, device=cuda))
+    labels, spmap = slic.segment(lab, geom, SlicParams.create(s))
+    ext = superpixel.superpixel_extent(labels, spmap.center, geom)
+    subset, counts = build_view_subsets(s)
+    disp0 = cost_volume.initial_depth_estimation(
+        lab, spmap.center, ext, build_disp_levels(s), torch.as_tensor(counts, device=cuda),
+        s.array_width, s.bl_ratio,
+    )
+    sched = RefinementSchedule.create(s)
+    fl = refine.compute_flatness(spmap.color, sched.gamma_eff)
+    ctx = refine.make_context(spmap.center, spmap.color, disp0, labels, ext, fl)
+    kw = dict(gamma=sched.gamma_eff, alpha=sched.alpha_eff, fuse=sched.fuse_eff,
+              bl_ratio=sched.bl_ratio, pairs=refine.pairs_from_subsets(subset, s.array_width))
+    reach = dict(steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
+    state = refine.init_state(ctx, **kw, **reach)
+    cache = refine.build_cache(ctx, state.d, state.n, gamma=kw["gamma"], **reach)
+    rng = np.random.default_rng(0)
+    m = 6
+    d_c = state.d[None] + torch.as_tensor(rng.normal(0, 1.5, (m,) + tuple(state.d.shape)),
+                                          dtype=torch.float32, device=cuda)
+    n_c = torch.as_tensor(rng.normal(0, 0.2, (m,) + tuple(state.n.shape)), dtype=torch.float32,
+                          device=cuda)
+    n_c[..., 2] += 1.0
+    n_c = n_c / torch.linalg.norm(n_c, dim=-1, keepdim=True)
+    n_c[4] = torch.tensor([1.0, 0.0, 0.0], device=cuda)  # nz = 0: every sample blows up
+    n_c[5, :, ::2] = torch.tensor([0.6, 0.8, 0.0], device=cuda)
+    return dict(ctx=ctx, cache=cache, kw=kw, d_c=d_c.contiguous(), n_c=n_c.contiguous())
+
+
+@pytest.mark.cuda
+def test_consistency_kernel_matches_reference(strips_scene):
+    sc = strips_scene
+    args = (sc["ctx"], sc["cache"], sc["d_c"], sc["n_c"])
+    before = consistency.LAUNCHES
+    got = consistency.consistency_moves(*args, **sc["kw"])
+    torch.cuda.synchronize()
+    assert consistency.LAUNCHES == before + 1
+    want = consistency.consistency_moves_reference(*args, **sc["kw"])
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert bool((got[4] == np.float32(0.01)).all())
+
+
+@pytest.mark.cuda
+def test_sweep_wrapper_rejects_bad_input(cuda):
+    lab = _lab((2, 24, 40, 3), 2, cuda)
+    args = ([4.0, 5.0], ((0, 1, 1, 0),), 1.0)
+    with pytest.raises(TypeError):
+        sweep.plane_sweep(lab.double(), *args)
+    with pytest.raises(ValueError):
+        sweep.plane_sweep(lab.cpu(), *args)
+    with pytest.raises(ValueError):
+        sweep.plane_sweep(lab.transpose(1, 2), *args)
+    with pytest.raises(ValueError):
+        sweep.plane_sweep(lab, *args, window_radius=5)
+
+
+@pytest.mark.cuda
+def test_consistency_wrapper_rejects_bad_input(strips_scene):
+    sc = strips_scene
+    ctx, cache, d_c, n_c = sc["ctx"], sc["cache"], sc["d_c"], sc["n_c"]
+    with pytest.raises(TypeError):
+        consistency.consistency_moves(ctx, cache, d_c.double(), n_c, **sc["kw"])
+    with pytest.raises(ValueError):
+        consistency.consistency_moves(ctx, cache._replace(ras=cache.ras.cpu()), d_c, n_c, **sc["kw"])
+    with pytest.raises(ValueError):
+        consistency.consistency_moves(ctx, cache, d_c, n_c.transpose(0, 1), **sc["kw"])
+    with pytest.raises(ValueError):
+        consistency.consistency_moves(ctx, cache, d_c.transpose(2, 3).contiguous().transpose(2, 3),
+                                      n_c, **sc["kw"])

@@ -116,8 +116,12 @@ def test_propagate_iteration_matches_jax(scene, it):
         assert close.mean() >= 0.99 and misses <= max(2, size // 100), (it, field, misses)
 
 
-@pytest.mark.parametrize("kw", [{"pair_layout": "view"}, {"cons_engine": "strips"}], ids=str)
+@pytest.mark.parametrize(
+    "kw", [{"pair_layout": "view"}, {"cons_engine": "strips", "pair_layout": "view"}], ids=str
+)
 def test_unported_refine_options_raise(kw):
+    """The view layout is not ported; the strips engines are packed-layout
+    only, as in JAX (refine.py:1063)."""
     sched = RefinementSchedule.create(small_settings())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError if "cons_engine" in kw else NotImplementedError):
         refine.refine(None, sched, pairs=(), **kw)
