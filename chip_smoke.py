@@ -25,7 +25,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the scene's Lab images: timed the same way, and held against the
    scene's disparity;
 4. the card against the port's CPU path, at 3x3 views of 270x480, for the
-   slice, the strips path and the dense sweep.
+   slice, the strips path, the dense sweep, and the pipeline with each
+   other knob on alone and all at once (cross-check, SLIC edge snap and
+   connectivity, gather depth init, view pair layout); and the card's
+   cross-check fusion of the CPU's refined state, bitwise the CPU's;
+5. the CLI path at full size (``cli.main(["run", ...])`` on the scene
+   written as 9 PNGs, default depth method "dense" through the cost-volume
+   kernel, cross-check fusion, PLY and checkpoint): 5a one warm-up and two
+   timed runs, the wall seconds per scene, stage times, peak memory and
+   the disparity recovered; 5b a ``--resume`` from 5a's checkpoint, whose
+   ``disp_full`` must be bitwise 5a's; 5c the SLIC flags
+   (``--set enforce_connectivity=true --set edge_enable=true``), timed as
+   5a; 5d ``pair_layout="view"`` (the packed scorer in the port) bitwise
+   equal to phase 3's packed state,
+   and the gather depth init timed against the kernel's, their WTA
+   agreeing on >= 0.999 of cells.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -33,9 +47,13 @@ The last two lines of standard output are the kernels' JSON record and
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -46,6 +64,9 @@ RTOL, ATOL, WTA_AGREE = 2e-7, 1e-3, 0.999
 CONS_RTOL, CONS_ATOL = 1e-5, 1e-6
 FULL_H, FULL_W = 1080, 1920
 TRUE_DISP = 40.0
+# the port-vs-JAX pipeline bounds (tests/test_torch_pipeline.py): label
+# agreement, disp_init agreement, disp_full within 1e-3
+LABELS_AGREE, INIT_AGREE, FULL_CLOSE = 0.995, 0.99, 0.98
 KERNELS = ("cost_volume", "sweep", "consistency")
 
 
@@ -141,7 +162,7 @@ def _strips_scene(pipe, rgb, timer=None):
         extent = superpixel.superpixel_extent(labels, spmap.center, geom)
     with maybe_stage(timer, "depth_init"):
         disp_init = cost_volume.initial_depth_estimation(
-            lab, spmap.center, extent, build_disp_levels(s),
+            lab, spmap.center, extent, build_disp_levels(s), subset,
             torch.as_tensor(counts, dtype=torch.int32, device=dev), s.array_width, s.bl_ratio,
             method="strips", neib_hor=s.neib_hor, neib_ver=s.neib_ver,
         )
@@ -441,38 +462,226 @@ def phase_dense_sweep(card: str, lab, settings) -> int:
     return launches
 
 
+# phase 4's knob runs: (SystemSettings overrides, MVSPipeline.create
+# keywords), each knob alone and then all at once
+CARD_KNOBS = {
+    "cross_check": ({}, dict(cross_check=True)),
+    "edge_enable": (dict(edge_enable=True), {}),
+    "enforce_connectivity": (dict(enforce_connectivity=True), {}),
+    "gather": ({}, dict(depth_method="gather")),
+    "view": ({}, dict(pair_layout="view")),
+    "all": (dict(edge_enable=True, enforce_connectivity=True),
+            dict(cross_check=True, depth_method="gather", pair_layout="view")),
+}
+
+
 def phase_card_vs_cpu(card: str) -> None:
     import numpy as np
-    import torch
 
+    from cl_multiview_stereo_tpu_torch import RefinementSchedule
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
     from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.ops import fusion
 
     h, w = 270, 480
     s, rgb = _scene(h, w)
     ladder, pairs = _sweep_args(s)
-    out = {}
+    fields = ("labels", "disp_init", "disp_full")
+    out, cpu_state = {}, {}
     for dev in ("cuda", "cpu"):
         pipe = MVSPipeline.create(w, h, s, depth_method="strips", device=dev)
         art = pipe.run(rgb)
         _, strips_full = _strips_scene(pipe, rgb)
         disp, _ = plane_sweep_depth(art.lab.contiguous(), ladder, pairs, s.bl_ratio)
-        out[dev] = {k: getattr(art, k).cpu().numpy() for k in ("labels", "disp_init", "disp_full")}
+        out[dev] = {k: getattr(art, k).cpu().numpy() for k in fields}
         out[dev]["strips_full"] = strips_full.cpu().numpy()
         out[dev]["sweep"] = disp.cpu().numpy()
+        for knob, (overrides, kw) in CARD_KNOBS.items():
+            art_k = MVSPipeline.create(w, h, s.replace(**overrides), device=dev, **kw).run(rgb)
+            out[dev].update({f"{knob}_{k}": getattr(art_k, k).cpu().numpy() for k in fields})
+            if knob == "cross_check" and dev == "cpu":
+                cpu_state = dict(labels=art_k.labels, centers=art_k.spmap.center,
+                                 d=art_k.state.d, n=art_k.state.n)
     g, c = out["cuda"], out["cpu"]
-    labels = float((g["labels"] == c["labels"]).mean())
-    disp_init = float((g["disp_init"] == c["disp_init"]).mean())
-    disp_full = float((np.abs(g["disp_full"] - c["disp_full"]) <= 1e-3).mean())
+
+    def agree(pre: str) -> tuple[float, float, float]:
+        return (float((g[pre + "labels"] == c[pre + "labels"]).mean()),
+                float((g[pre + "disp_init"] == c[pre + "disp_init"]).mean()),
+                float((np.abs(g[pre + "disp_full"] - c[pre + "disp_full"]) <= 1e-3).mean()))
+
+    rows = {"base": agree("")}
+    rows.update({knob: agree(knob + "_") for knob in CARD_KNOBS})
     strips_full = float((np.abs(g["strips_full"] - c["strips_full"]) <= 1e-3).mean())
     sweep_disp = float((g["sweep"] == c["sweep"]).mean())
-    print(f"[4] card vs CPU at 9x{h}x{w}: labels {labels:.6f} disp_init {disp_init:.6f} "
-          f"disp_full(1e-3) {disp_full:.6f} strips disp_full(1e-3) {strips_full:.6f} "
+    print(f"[4] card vs CPU at 9x{h}x{w}: strips disp_full(1e-3) {strips_full:.6f} "
           f"sweep disp {sweep_disp:.6f} ({card})")
-    if labels <= 0.995 or disp_init < 0.99 or disp_full < 0.98:
-        raise AssertionError("the card's output departs from the port's CPU path")
-    if strips_full < 0.98 or sweep_disp < 0.999:
+    for name, (lab_a, init_a, full_a) in rows.items():
+        print(f"[4] card vs CPU at 9x{h}x{w}, {name}: labels {lab_a:.6f} disp_init {init_a:.6f} "
+              f"disp_full(1e-3) {full_a:.6f} ({card})")
+    # the vote's own witness: the card's cross-check fusion of the CPU's
+    # refined state against the CPU's, so that the vote is judged apart
+    # from the refinement's ulps
+    sched = RefinementSchedule.create(s)
+    fused = fusion.fuse_views(
+        *(cpu_state[k].cuda() for k in ("labels", "centers", "d", "n")),
+        array_width=s.array_width, bl_ratio=s.bl_ratio, fuse=sched.fuse_eff, cross_check=True,
+    ).cpu().numpy()
+    want = c["cross_check_disp_full"]
+    same = bool(np.array_equal(fused, want, equal_nan=True))
+    gz, cz = g["cross_check_disp_full"] == 0, want == 0
+    print(f"[4] cross_check: card rejects {float(gz.mean()):.6f}, CPU {float(cz.mean()):.6f}, "
+          f"one side only {float((gz != cz).mean()):.6f}; the card's vote on the CPU's state "
+          f"equals the CPU's bitwise: {same} ({card})")
+    if not same:
+        raise AssertionError("the card's cross-check fusion of the CPU's state departs from the CPU's")
+    for lab_a, init_a, full_a in rows.values():
+        if lab_a <= LABELS_AGREE or init_a < INIT_AGREE or full_a < FULL_CLOSE:
+            raise AssertionError("the card's output departs from the port's CPU path")
+    if strips_full < FULL_CLOSE or sweep_disp < 0.999:
         raise AssertionError("the card's strips or sweep output departs from the port's CPU path")
+
+
+def _write_scene(root: str, rgb) -> str:
+    """The views as PNGs and a list file (the reference's data.txt format)."""
+    from PIL import Image
+
+    names = []
+    for i, im in enumerate(rgb):
+        names.append(f"view_{i}.png")
+        Image.fromarray(im).save(os.path.join(root, names[-1]))
+    lst = os.path.join(root, "data.txt")
+    with open(lst, "w") as f:
+        f.write("".join(n + "\n" for n in names))
+    return lst
+
+
+def _cli(argv: list[str], tag: str) -> tuple[float, dict]:
+    """One ``cli.main(argv)``: (wall seconds, its stage ms).  The CLI's
+    own lines are echoed with ``tag``."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main returned {rc}")
+    stages = {}
+    for line in buf.getvalue().splitlines():
+        print(f"{tag} cli: {line}")
+        if line.startswith("stage ms: "):
+            stages = json.loads(line[len("stage ms: "):])
+    return dt, stages
+
+
+def _disp_checks(npz: str, tag: str):
+    """disp_full of a CLI checkpoint: finite, near the scene's disparity
+    64 px from the border; returns (disp_full, near share, rejected share)."""
+    import numpy as np
+
+    with np.load(npz) as z:
+        disp = z["disp_full"]
+    if disp.shape != (9, FULL_H, FULL_W) or not np.isfinite(disp).all():
+        raise AssertionError(f"{tag}: disp_full of shape {disp.shape} is not finite everywhere")
+    near = float((np.abs(disp[:, 64:-64, 64:-64] - TRUE_DISP) <= 1.0).mean())
+    rejected = float((disp == 0).mean())
+    if near < 0.9:
+        raise AssertionError(f"{tag}: disp_full within 1 of {TRUE_DISP} on only {near:.4f} of interior pixels")
+    return disp, near, rejected
+
+
+def _timed_cli(argv: list[str], tag: str, card: str) -> dict:
+    """One warm-up and two timed CLI runs; the cost-volume launches and the
+    peak memory of the timed runs."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.ops import cost_volume
+
+    dt, _ = _cli(argv, tag)
+    print(f"{tag} warm-up run {dt:.3f} s ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    cost_volume.LAUNCHES = 0
+    times, stages = [], {}
+    for _ in range(2):
+        dt, stages = _cli(argv, tag)
+        times.append(dt)
+    launches = cost_volume.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    if launches < 1:
+        raise AssertionError(f"{tag}: the CLI path never launched the cost-volume kernel")
+    return dict(times=times, stages=stages, launches=launches, peak=peak)
+
+
+def phase_cli(card: str, art3) -> int:
+    """Phase 5; ``art3`` is phase 3's artifacts (strips depth init, packed
+    layout).  Returns the cost-volume launches of 5a's timed runs."""
+    import numpy as np
+    import torch
+
+    from cl_multiview_stereo_tpu_torch import build_disp_levels, build_view_subsets
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+    from cl_multiview_stereo_tpu_torch.ops import cost_volume
+
+    s, rgb = _scene(FULL_H, FULL_W)
+    with tempfile.TemporaryDirectory() as root:
+        lst = _write_scene(root, rgb)
+        base = ["run", lst, "--device", "cuda", "--cross-check", "--checkpoint", "--ply"]
+
+        out_a = os.path.join(root, "a")
+        r = _timed_cli(base + ["--out", out_a], "[5a]", card)
+        disp_a, near, rejected = _disp_checks(os.path.join(out_a, "pipeline_state.npz"), "[5a]")
+        t = min(r["times"])
+        print(f"[5a] CLI runs {[round(x, 4) for x in r['times']]} s; best {t:.4f} s per scene "
+              f"= {9 * FULL_H * FULL_W / t / 1e6:.4f} MP/s; peak {r['peak'] / 2**30:.3f} GiB; "
+              f"disp_full near GT {near:.6f}; vote rejected {rejected:.6f}; "
+              f"cost_volume launches {r['launches']} ({card})")
+        print("[5a] stage ms (last run): " + json.dumps(r["stages"]))
+
+        out_b = os.path.join(root, "b")
+        dt, stages = _cli(base + ["--out", out_b, "--resume", os.path.join(out_a, "pipeline_state.npz")],
+                          "[5b]")
+        disp_b, _, _ = _disp_checks(os.path.join(out_b, "pipeline_state.npz"), "[5b]")
+        if not np.array_equal(disp_b, disp_a):
+            raise AssertionError(f"[5b] resumed disp_full differs at {int((disp_b != disp_a).sum())} pixels")
+        print(f"[5b] resume from the post-refinement checkpoint: {dt:.4f} s, disp_full bitwise "
+              f"equal to 5a; stage ms {json.dumps(stages)} ({card})")
+
+        out_c = os.path.join(root, "c")
+        r_c = _timed_cli(base + ["--out", out_c, "--set", "enforce_connectivity=true",
+                                 "--set", "edge_enable=true"], "[5c]", card)
+        _, near_c, rejected_c = _disp_checks(os.path.join(out_c, "pipeline_state.npz"), "[5c]")
+        t = min(r_c["times"])
+        print(f"[5c] SLIC flags: CLI runs {[round(x, 4) for x in r_c['times']]} s; best {t:.4f} s "
+              f"per scene; peak {r_c['peak'] / 2**30:.3f} GiB; disp_full near GT {near_c:.6f}; "
+              f"vote rejected {rejected_c:.6f} ({card})")
+        print("[5c] stage ms (last run): " + json.dumps(r_c["stages"]))
+
+    rgb_dev = torch.as_tensor(rgb, device="cuda")
+    view = MVSPipeline.create(FULL_W, FULL_H, s, depth_method="strips", pair_layout="view",
+                              device="cuda").run(rgb_dev)
+    for f in ("d", "sm", "cs", "n"):
+        if not torch.equal(getattr(view.state, f), getattr(art3.state, f)):
+            raise AssertionError(f"[5d] pair_layout='view' state.{f} differs from the packed layout")
+    print(f"[5d] pair_layout='view': refined state bitwise equal to phase 3's packed state ({card})")
+
+    levels = build_disp_levels(s)
+    subset, counts = build_view_subsets(s)
+    counts = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
+    args = (art3.lab, art3.spmap.center, art3.extent, levels, subset, counts, s.array_width, s.bl_ratio)
+    kern = cost_volume.initial_depth_estimation(*args, method="dense")
+    gath = cost_volume.initial_depth_estimation(*args, method="gather")
+    agree = float((kern == gath).float().mean())
+    if agree < 0.999:
+        raise AssertionError(f"[5d] gather depth init agrees with the kernel's on only {agree:.6f}")
+    k_ms, g_ms = _in_turns(lambda: cost_volume.initial_depth_estimation(*args, method="dense"),
+                           lambda: cost_volume.initial_depth_estimation(*args, method="gather"), 5, 2)
+    print(f"[5d] depth init at 9x{FULL_H}x{FULL_W}: kernel (dense) {k_ms:.3f} ms, gather form "
+          f"{g_ms:.3f} ms, WTA agreement {agree:.6f} ({card})")
+    return r["launches"]
 
 
 def main() -> int:
@@ -495,10 +704,11 @@ def main() -> int:
     cv = phase_kernel_vs_plain(card)
     sw = phase_sweep_vs_plain(card)
     cons = phase_consistency_vs_plain(card)
-    cv_launches, pipe, rgb_dev, art = phase_slice(card)
+    _, pipe, rgb_dev, art = phase_slice(card)
     cons_launches = phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
+    cv_launches = phase_cli(card, art)
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
     record = {"kernels": [

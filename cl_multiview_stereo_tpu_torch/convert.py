@@ -7,10 +7,10 @@ key them) into the port with explicit dtypes, so that a port stage can be
 fed the JAX stage's own inputs and judged apart from upstream ulps.
 
 Keys: ``labels`` (V, H, W); ``center`` (V, Mh, Mw, 2); ``color``
-(V, Mh, Mw, 3); ``count`` (V, Mh, Mw); ``disp_init`` (V, Mh, Mw);
-``state_d``/``state_sm``/``state_cs`` (V, Mh, Mw); ``state_n``
-(V, Mh, Mw, 3); and, for ``make_context``, the artifact names ``extent``
-(V, Mh, Mw, 8) and ``flatness`` (V, Mh, Mw, 2).
+(V, Mh, Mw, 3); ``count`` (V, Mh, Mw), optional as in the JAX pipeline's
+re-entry; ``disp_init`` (V, Mh, Mw); ``state_d``/``state_sm``/``state_cs``
+(V, Mh, Mw); ``state_n`` (V, Mh, Mw, 3); and, for ``make_context``, the
+artifact names ``extent`` (V, Mh, Mw, 8) and ``flatness`` (V, Mh, Mw, 2).
 """
 
 from __future__ import annotations
@@ -34,14 +34,15 @@ def labels(ck: Mapping, device) -> torch.Tensor:
 
 
 def superpixel_map(ck: Mapping, device) -> slic.SuperpixelMap:
-    """``center``/``color``/``count``; ``disp`` starts at zero, as the JAX
-    pipeline re-enters it."""
+    """``center``/``color``/``count``; a missing ``count`` and ``disp``
+    start at zero, as the JAX pipeline re-enters them."""
     center = tensor(ck["center"], torch.float32, device)
+    zeros = torch.zeros(center.shape[:3], dtype=torch.float32, device=device)
     return slic.SuperpixelMap(
         center=center,
         color=tensor(ck["color"], torch.float32, device),
-        count=tensor(ck["count"], torch.float32, device),
-        disp=torch.zeros(center.shape[:3], dtype=torch.float32, device=device),
+        count=tensor(ck["count"], torch.float32, device) if "count" in ck else zeros,
+        disp=zeros.clone(),
     )
 
 
@@ -56,6 +57,23 @@ def refine_state(ck: Mapping, device) -> refine.RefineState:
         cs=tensor(ck["state_cs"], torch.float32, device),
         n=tensor(ck["state_n"], torch.float32, device),
     )
+
+
+def checkpoint(ck: Mapping, device) -> dict:
+    """The stage groups of a checkpoint (``MVSPipeline._validate_checkpoint``'s),
+    each converted once and only when the JAX pipeline's re-entry takes it:
+    ``labels`` and ``spmap`` when ``labels`` and ``center`` are there,
+    ``disp_init``, and ``state`` when ``state_d`` is there.  Other keys
+    (``disp_full``, which fusion recomputes) are left out."""
+    out = {}
+    if "labels" in ck and "center" in ck:
+        out["labels"] = labels(ck, device)
+        out["spmap"] = superpixel_map(ck, device)
+    if "disp_init" in ck:
+        out["disp_init"] = disp_init(ck, device)
+    if "state_d" in ck:
+        out["state"] = refine_state(ck, device)
+    return out
 
 
 def context_inputs(ck: Mapping, device) -> dict[str, torch.Tensor]:

@@ -3,6 +3,7 @@
 
   RGB -> Lab -> SLIC -> superpixel extent -> plane-sweep depth init ->
   flatness -> state init -> PatchMatch propagation x no_prop -> fusion
+  (plane rasterization [+ the cross-view vote])
 
 All state stays on ``device``; the host touches only the input images and
 whatever the caller pulls from the returned artifacts.
@@ -24,6 +25,7 @@ from cl_multiview_stereo_tpu.config import (
     build_disp_levels,
     build_view_subsets,
 )
+from cl_multiview_stereo_tpu_torch import convert
 from cl_multiview_stereo_tpu_torch.ops import cost_volume, fusion, refine, slic, superpixel
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer, maybe_stage
@@ -51,8 +53,12 @@ class MVSPipeline:
     device: torch.device
     cross_check: bool = False
     # "strips" and "dense" are one function in the port (the CUDA cost
-    # volume); "gather" is not ported yet
+    # volume); "gather" is the JAX module's direct gather form, plain
+    # PyTorch.  JAX's dense_wide_rows (off under pair_layout="view") only
+    # lays the dense form out for TPU memory and has no counterpart here.
     depth_method: str = "dense"
+    # "packed" or "view": JAX's refinement pair axis layouts, bitwise
+    # equal; the port scores either with the packed scorer
     pair_layout: str = "packed"
     # static (ref, view, dvx, dvy) pair list; None = camera-grid deltas
     pair_deltas: tuple | None = None
@@ -68,12 +74,8 @@ class MVSPipeline:
         **kw,
     ) -> "MVSPipeline":
         s = settings or SystemSettings()
-        if kw.get("depth_method", "dense") not in ("dense", "strips"):
-            raise NotImplementedError(f"depth_method={kw['depth_method']!r} is not ported yet")
-        if kw.get("cross_check", False):
-            raise NotImplementedError("cross_check=True is not ported yet")
-        if kw.get("pair_layout", "packed") != "packed":
-            raise NotImplementedError(f"pair_layout={kw['pair_layout']!r} is not ported yet")
+        cost_volume.check_method(kw.get("depth_method", "dense"))
+        refine.check_options(pair_layout=kw.get("pair_layout", "packed"))
         return cls(
             settings=s,
             geom=DerivedGeometry.create(img_w, img_h, s),
@@ -82,10 +84,18 @@ class MVSPipeline:
         )
 
     def run(
-        self, rgb: np.ndarray | torch.Tensor, timer: StageTimer | None = None
+        self,
+        rgb: np.ndarray | torch.Tensor,
+        timer: StageTimer | None = None,
+        _ckpt: dict | None = None,
     ) -> PipelineArtifacts:
         """Full pipeline on a (V, H, W, 3) uint8 RGB camera-array batch.
-        ``timer`` (CUDA only) records each stage's device time."""
+        ``timer`` (CUDA only) records each stage's device time.
+
+        ``_ckpt``: an optional checkpoint dict (``utils.artifacts.load_checkpoint``;
+        ``resume()`` is the public wrapper).  Lab and the extent are always
+        recomputed; each later stage group is taken from the checkpoint
+        when the whole group is there, as the JAX pipeline re-enters."""
         s = self.settings
         geom = self.geom
         dev = self.device
@@ -93,20 +103,27 @@ class MVSPipeline:
         disp_levels = build_disp_levels(s)
         view_subset_np, subset_num_np = build_view_subsets(s)
         subset_num = torch.as_tensor(subset_num_np, dtype=torch.int32, device=dev)
+        ck = convert.checkpoint(_ckpt or {}, dev)
         rgb = torch.as_tensor(rgb, device=dev)
 
         with maybe_stage(timer, "lab"):
             lab = rgb_to_lab(rgb)
-        with maybe_stage(timer, "slic"):
-            labels, spmap = slic.segment(lab, geom, SlicParams.create(s))
+        if "spmap" in ck:
+            labels, spmap = ck["labels"], ck["spmap"]
+        else:
+            with maybe_stage(timer, "slic"):
+                labels, spmap = slic.segment(lab, geom, SlicParams.create(s))
         with maybe_stage(timer, "extent"):
             extent = superpixel.superpixel_extent(labels, spmap.center, geom)
-        with maybe_stage(timer, "depth_init"):
-            disp_init = cost_volume.initial_depth_estimation(
-                lab, spmap.center, extent, disp_levels, subset_num,
-                s.array_width, s.bl_ratio, method=self.depth_method,
-                neib_hor=s.neib_hor, neib_ver=s.neib_ver,
-            )
+        if "disp_init" in ck:
+            disp_init = ck["disp_init"]
+        else:
+            with maybe_stage(timer, "depth_init"):
+                disp_init = cost_volume.initial_depth_estimation(
+                    lab, spmap.center, extent, disp_levels, view_subset_np, subset_num,
+                    s.array_width, s.bl_ratio, method=self.depth_method,
+                    neib_hor=s.neib_hor, neib_ver=s.neib_ver,
+                )
         with maybe_stage(timer, "context"):
             flatness = refine.compute_flatness(spmap.color, sched.gamma_eff)
             ctx = refine.make_context(
@@ -116,12 +133,16 @@ class MVSPipeline:
             pairs = self.pair_deltas
         else:
             pairs = refine.pairs_from_subsets(view_subset_np, s.array_width)
-        state = refine.refine(
-            ctx, sched, pairs=pairs, pair_layout=self.pair_layout, timer=timer,
-        )
+        if "state" in ck:
+            state = ck["state"]
+        else:
+            state = refine.refine(
+                ctx, sched, pairs=pairs, pair_layout=self.pair_layout, timer=timer,
+            )
         with maybe_stage(timer, "fusion"):
             disp_full = fusion.fuse_views(
-                labels, spmap.center, state.d, state.n, cross_check=self.cross_check
+                labels, spmap.center, state.d, state.n, array_width=s.array_width,
+                bl_ratio=s.bl_ratio, fuse=sched.fuse_eff, cross_check=self.cross_check,
             )
         return PipelineArtifacts(
             lab=lab,
@@ -133,3 +154,64 @@ class MVSPipeline:
             state=state,
             disp_full=disp_full,
         )
+
+    def resume(
+        self,
+        rgb: np.ndarray | torch.Tensor,
+        checkpoint_path: str,
+        timer: StageTimer | None = None,
+    ) -> PipelineArtifacts:
+        """Re-enter the pipeline from a saved checkpoint
+        (``utils.artifacts.save_checkpoint``, CLI ``--checkpoint``; the JAX
+        package writes the same keys): the deepest stage whose outputs the
+        npz holds is skipped, everything after it recomputes.  With a full
+        post-refinement checkpoint only fusion runs; with a post-SLIC one
+        (labels/center/color) depth init onward runs."""
+        from cl_multiview_stereo_tpu_torch.utils.artifacts import load_checkpoint
+
+        ck = load_checkpoint(checkpoint_path)
+        self._validate_checkpoint(ck, checkpoint_path)
+        return self.run(rgb, timer=timer, _ckpt=ck)
+
+    def _validate_checkpoint(self, ck: dict, path: str) -> None:
+        """Fail fast on partial key groups or arrays from a different
+        scene/config: a stage re-enters only when its WHOLE output group is
+        present, and every present array must match this pipeline's static
+        geometry."""
+        g = self.geom
+        v, mh, mw, h, w = g.view_num, g.map_h, g.map_w, g.img_h, g.img_w
+        groups = {
+            "SLIC": (("labels", (v, h, w)), ("center", (v, mh, mw, 2)),
+                     ("color", (v, mh, mw, 3))),
+            "depth-init": (("disp_init", (v, mh, mw)),),
+            "refinement": (("state_d", (v, mh, mw)), ("state_sm", (v, mh, mw)),
+                           ("state_cs", (v, mh, mw)), ("state_n", (v, mh, mw, 3))),
+        }
+        for stage, keys in groups.items():
+            present = [k for k, _ in keys if k in ck]
+            if present and len(present) < len(keys):
+                missing = [k for k, _ in keys if k not in ck]
+                raise ValueError(
+                    f"checkpoint '{path}': partial {stage} group — has "
+                    f"{present}, missing {missing}; cannot resume this stage"
+                )
+            for k, shape in keys:
+                if k in ck and tuple(np.shape(ck[k])) != shape:
+                    raise ValueError(
+                        f"checkpoint '{path}': '{k}' has shape "
+                        f"{tuple(np.shape(ck[k]))} but this pipeline "
+                        f"(views={v}, {w}x{h}, map {mw}x{mh}) expects {shape} "
+                        f"— wrong scene or settings?"
+                    )
+
+    def run_from_list(self, list_path: str) -> PipelineArtifacts:
+        """Load the image list (the reference's ``data.txt`` format) and run."""
+        from cl_multiview_stereo_tpu.io.images import load_image_array
+
+        rgb = load_image_array(list_path, self.settings.view_num)
+        if rgb.shape[2] != self.geom.img_w or rgb.shape[1] != self.geom.img_h:
+            raise ValueError(
+                f"images are {rgb.shape[2]}x{rgb.shape[1]}, pipeline built for "
+                f"{self.geom.img_w}x{self.geom.img_h}"
+            )
+        return self.run(rgb)

@@ -13,6 +13,13 @@ launches ``csrc/cost_volume.cu`` (or raises), on a CPU tensor it runs
 :func:`cost_volume_reference`, the same function in plain PyTorch.  The
 JAX module's "strips" and "dense" forms compute this one function (they
 differ only in TPU staging), so both methods go to the kernel.
+
+:func:`cost_volume_gather` is the JAX module's direct per-sample gather
+form (``method="gather"``), plain PyTorch on every device.  It is another
+function: it truncates ``float(x) - shift`` where the kernel takes
+``x - ceil(shift)``, tests validity on the truncated integers, and walks
+the -1 padded neighbour table; JAX's own suite bounds its WTA agreement
+with the dense form at 0.999.
 """
 
 from __future__ import annotations
@@ -181,6 +188,69 @@ def superpixel_cost_volume(
     return _launch(lab, centers, step, dl, array_width, bl_ratio, neib_hor, neib_ver)
 
 
+def cost_volume_gather(
+    lab: torch.Tensor,  # (V, H, W, 3)
+    centers: torch.Tensor,  # (V, Mh, Mw, 2)
+    step: torch.Tensor,  # (V, Mh, Mw, 2)
+    disp_levels: Sequence[float] | np.ndarray | torch.Tensor,
+    view_subset: np.ndarray | torch.Tensor,  # (V, max_n) int, -1 padded
+    array_width: int,
+    bl_ratio: float,
+) -> torch.Tensor:
+    """The gather form of the cost volume (JAX ``superpixel_cost_volume``),
+    (V, D, Mh, Mw) float32; ``_BIG`` for views with no neighbour.
+
+    Per neighbour slot and hypothesis the shifts are f32 products
+    ``d * dvx`` and ``(bl * d) * dvy``; each sample's projected position is
+    ``trunc(float(x) - shift)``, valid when the truncated integers lie in
+    the image; samples add in (i outer, j inner) order from 0 and slots
+    reduce by ``min``."""
+    v, h, w = lab.shape[:3]
+    mh, mw = centers.shape[1:3]
+    dev = lab.device
+    dl = torch.as_tensor(disp_levels, dtype=torch.float32, device=dev)
+    n_d = dl.shape[0]
+    subset = torch.as_tensor(np.asarray(view_subset), dtype=torch.int64, device=dev)
+    flat = lab.reshape(v * h * w, 3)
+    vid = torch.arange(v, dtype=torch.int64, device=dev)
+    views = subset.clamp(0, v - 1)  # (V, max_n)
+    dvx = (views % array_width - (vid % array_width)[:, None]).to(torch.float32)
+    dvy = (views // array_width - (vid // array_width)[:, None]).to(torch.float32)
+    bl_d = float(np.float32(bl_ratio)) * dl  # (D,)
+
+    cx, cy = centers[..., 0], centers[..., 1]
+    sx, sy = step[..., 0], step[..., 1]
+    samples = []  # (xr, yr, ref_ok, ref colour), i outer, j inner
+    for i in range(-2, 3):
+        xr = (cx + float(i) * sx).to(torch.int64)  # C truncation
+        for j in range(-2, 3):
+            yr = (cy + float(j) * sy).to(torch.int64)
+            ref_ok = (xr >= 0) & (yr >= 0) & (xr < w) & (yr < h)
+            ref_idx = (vid[:, None, None] * h + yr.clamp(0, h - 1)) * w + xr.clamp(0, w - 1)
+            samples.append((xr[:, None], yr[:, None], ref_ok[:, None], flat[ref_idx][:, None]))
+
+    vol = torch.full((v, n_d, mh, mw), _BIG, dtype=torch.float32, device=dev)
+    for k in range(subset.shape[1]):
+        shift_x = (dl[None, :] * dvx[:, k, None])[:, :, None, None]  # (V, D, 1, 1)
+        shift_y = (bl_d[None, :] * dvy[:, k, None])[:, :, None, None]
+        nbr = views[:, k, None, None, None]
+        acc = torch.zeros((v, n_d, mh, mw), dtype=torch.float32, device=dev)
+        for xr, yr, ref_ok, ref in samples:
+            xp = (xr.to(torch.float32) - shift_x).to(torch.int64)  # C truncation
+            yp = (yr.to(torch.float32) - shift_y).to(torch.int64)
+            ok = ref_ok & (xp >= 0) & (yp >= 0) & (xp < w) & (yp < h)
+            q = flat[(nbr * h + yp.clamp(0, h - 1)) * w + xp.clamp(0, w - 1)]
+            sad = (
+                torch.abs(ref[..., 0] - q[..., 0])
+                + torch.abs(ref[..., 1] - q[..., 1])
+                + torch.abs(ref[..., 2] - q[..., 2])
+            )
+            acc = acc + torch.where(ok, sad, _OOB_PENALTY)
+        slot_ok = (subset[:, k] >= 0)[:, None, None, None]
+        vol = torch.minimum(vol, torch.where(slot_ok, acc, _BIG))
+    return vol
+
+
 def wta_disparity(
     vol: torch.Tensor,
     disp_levels: Sequence[float] | np.ndarray | torch.Tensor,
@@ -195,11 +265,20 @@ def wta_disparity(
     return torch.where(has_views[:, None, None], disp, 0.0)
 
 
+DEPTH_METHODS = ("dense", "strips", "gather")
+
+
+def check_method(method: str) -> None:
+    if method not in DEPTH_METHODS:
+        raise ValueError(f"unknown depth method {method!r}; expected one of {DEPTH_METHODS}")
+
+
 def initial_depth_estimation(
     lab: torch.Tensor,
     centers: torch.Tensor,
     extent: torch.Tensor,
     disp_levels,
+    view_subset,
     subset_num: torch.Tensor,
     array_width: int,
     bl_ratio: float,
@@ -209,15 +288,20 @@ def initial_depth_estimation(
 ) -> torch.Tensor:
     """Extent -> adaptive step -> cost volume -> WTA; (V, Mh, Mw) float32.
 
-    ``method``: ``"strips"`` and ``"dense"`` are one function here and both
-    run the kernel; ``"gather"`` is not ported yet.  The neighbour views
-    follow from the camera-grid deltas within ``neib_hor``/``neib_ver``.
+    ``method``: ``"strips"`` and ``"dense"`` are one function here and run
+    the kernel, with the neighbour views of the camera-grid deltas within
+    ``neib_hor``/``neib_ver``; ``"gather"`` runs :func:`cost_volume_gather`
+    over the -1 padded ``view_subset`` table (V, max_n), as in JAX.
     """
-    if method not in ("strips", "dense"):
-        raise NotImplementedError(f"depth method {method!r} is not ported yet")
+    check_method(method)
     step = extent_step(extent).contiguous()
-    vol = superpixel_cost_volume(
-        lab.contiguous(), centers.contiguous(), step, disp_levels,
-        array_width, bl_ratio, neib_hor, neib_ver,
-    )
+    if method == "gather":
+        vol = cost_volume_gather(
+            lab, centers, step, disp_levels, view_subset, array_width, bl_ratio
+        )
+    else:
+        vol = superpixel_cost_volume(
+            lab.contiguous(), centers.contiguous(), step, disp_levels,
+            array_width, bl_ratio, neib_hor, neib_ver,
+        )
     return wta_disparity(vol, disp_levels, subset_num)

@@ -1,15 +1,28 @@
 """Fusion (port of ``cl_multiview_stereo_tpu/ops/fusion.py``).
 
-``spixl_to_image`` (``clcode.cl:1906-1931``): each pixel takes the refined
-plane of the superpixel that owns it.  The owner is read with a direct
-label gather; the JAX module's ``select_cell_lookup`` avoids that gather
-on the TPU and is bitwise equal to it.  Only ``cross_check=False``, what
-the shipping reference produces, is ported.
+* ``spixl_to_image`` (``clcode.cl:1906-1931``): each pixel takes the
+  refined plane of the superpixel that owns it.  The owner is read with a
+  direct label gather; the JAX module's ``select_cell_lookup`` avoids that
+  gather on the TPU and is bitwise equal to it.
+* ``project_to_reference_inv`` (cl:1995-2034): occlusion-aware inverse warp,
+  the largest disparity over the other views, probed with the evolving
+  maximum in view-index order.
+* ``remove_view_inconsistency`` (cl:2037-2101): the stability vote; the
+  largest stable candidate disparity wins.
+
+``cross_check=False`` reproduces what the shipping reference produces;
+``True`` adds the intended warp + vote, as in the JAX module.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def cl_round(x: torch.Tensor) -> torch.Tensor:
+    """OpenCL round(): half away from zero (torch.round rounds half to even)."""
+    return torch.where(x >= 0, torch.floor(x + 0.5), torch.ceil(x - 0.5))
 
 
 def gather_cells(labels: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
@@ -45,11 +58,116 @@ def rasterize_planes(
     return plane_disparity(gather_cells(labels, pack))
 
 
-def fuse_views(
-    labels, centers, state_d, state_n, *, cross_check: bool = False
+def _probe(
+    img: torch.Tensor, xf: torch.Tensor, yf: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Read ``img`` (H, W) at integer-valued float coordinates: (values,
+    in-image mask).  JAX casts the coordinates to int32 first, which on XLA
+    maps NaN to 0 and saturates +-inf; NaN becomes 0 here and the bounds
+    test is made on the float, so no undefined cast is reached and the
+    CPU and the card agree."""
+    h, w = img.shape
+    xf = torch.where(torch.isnan(xf), 0.0, xf)
+    yf = torch.where(torch.isnan(yf), 0.0, yf)
+    inb = (xf >= 0) & (yf >= 0) & (xf < w) & (yf < h)
+    idx = yf.clamp(0, h - 1).to(torch.int64) * w + xf.clamp(0, w - 1).to(torch.int64)
+    return img.reshape(-1)[idx], inb
+
+
+def _f32(x: float) -> float:
+    """A Python float rounded to float32, as JAX rounds a weak-typed scalar."""
+    return float(np.float32(x))
+
+
+def project_to_reference_inv(
+    disp_full: torch.Tensor,  # (V, H, W)
+    array_width: int,
+    bl_ratio: float,
 ) -> torch.Tensor:
-    """Fusion stage: plane rasterization.  ``cross_check=True`` (the warp +
-    stability vote) is not ported yet."""
-    if cross_check:
-        raise NotImplementedError("fusion cross_check=True is not ported yet")
-    return rasterize_planes(labels, centers, state_d, state_n)
+    """Occlusion-aware inverse warp for every reference view at once
+    (cl:1995-2034): the probe chain runs over the source views in index
+    order and shifts by the evolving maximum."""
+    v, h, w = disp_full.shape
+    dev = disp_full.device
+    bl = _f32(bl_ratio)
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    ref = torch.arange(v, device=dev)[:, None, None]
+    min_disp = disp_full
+    for i in range(v):
+        dx = (ref % array_width - i % array_width).to(torch.float32)
+        dy = (ref // array_width - i // array_width).to(torch.float32)
+        xp = px - cl_round(min_disp * dx)
+        yp = py - cl_round((bl * min_disp) * dy)
+        probe, inb = _probe(disp_full[i], xp, yp)
+        better = inb & (min_disp < probe) & (ref != i)
+        min_disp = torch.where(better, probe, min_disp)
+    return min_disp
+
+
+def remove_view_inconsistency(
+    disp_proj: torch.Tensor,  # (V, H, W) warped-to-reference maps
+    disp_full: torch.Tensor,  # (V, H, W) unwarped per-view maps
+    array_width: int,
+    bl_ratio: float,
+    fuse: float,
+) -> torch.Tensor:
+    """Stability vote (cl:2037-2101) for every reference view.  Warped maps
+    vote ``> fuse -> -1`` / ``<= fuse -> +1``; cross-view lookups vote
+    ``> fuse -> -1`` / ``< fuse -> +1`` and abstain on equality.  Candidates
+    run in view order; the winner is the largest d with stability >= 0."""
+    v, h, w = disp_proj.shape
+    dev = disp_proj.device
+    bl = _f32(bl_ratio)
+    fuse = _f32(fuse)
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    ref = torch.arange(v, device=dev)[:, None, None]
+    cam_ref_x = (ref % array_width).to(torch.float32)
+    cam_ref_y = (ref // array_width).to(torch.float32)
+    d_est = torch.zeros((v, h, w), dtype=torch.float32, device=dev)
+    for i in range(v):
+        d = disp_proj[i]  # candidate from view i, the same for every ref
+        # vote 1: agreement among the warped maps at the same pixel (the
+        # votes are small integers, so their order of addition is exact)
+        stab1 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        for j in range(v):
+            d_check = disp_proj[j]
+            vote = torch.where(torch.abs(d_check - d) > fuse, -1.0, 1.0)
+            stab1 = stab1 + torch.where(d_check != 0, vote, 0.0)
+        stability = stab1.expand(v, h, w)
+        d = d.expand(v, h, w)
+        # vote 2: cross-view lookups in the unwarped maps
+        for j in range(v):
+            xj = px - cl_round(d * (float(j % array_width) - cam_ref_x))
+            yj = py - cl_round((bl * d) * (float(j // array_width) - cam_ref_y))
+            d_check, inb = _probe(disp_full[j], xj, yj)
+            diff = torch.abs(d_check - d)
+            vote = torch.where(diff > fuse, -1.0, 0.0) + torch.where(diff < fuse, 1.0, 0.0)
+            stability = stability + torch.where(inb, vote, 0.0)
+        take = (d != 0) & (stability >= 0) & ((d_est == 0) | (d_est < d))
+        d_est = torch.where(take, d, d_est)
+    return d_est
+
+
+def fuse_views(
+    labels,
+    centers,
+    state_d,
+    state_n,
+    *,
+    array_width: int | None = None,
+    bl_ratio: float | None = None,
+    fuse: float | None = None,
+    cross_check: bool = False,
+) -> torch.Tensor:
+    """Fusion stage: plane rasterization, then, with ``cross_check=True``,
+    the warp + stability vote, which needs ``array_width``, ``bl_ratio``
+    and ``fuse``."""
+    disp_full = rasterize_planes(labels, centers, state_d, state_n)
+    if not cross_check:
+        return disp_full
+    if array_width is None or bl_ratio is None or fuse is None:
+        raise ValueError("cross_check=True needs array_width, bl_ratio and fuse")
+    disp_proj = project_to_reference_inv(disp_full, array_width, bl_ratio)
+    return remove_view_inconsistency(disp_proj, disp_full, array_width, bl_ratio, fuse)

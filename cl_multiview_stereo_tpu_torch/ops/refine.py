@@ -8,12 +8,16 @@ candidate moves are scored in batches, and the acceptance chain then runs
 over the precomputed scores in the reference's move order.
 
 The JAX ``lax.scan`` chains are Python loops here; the batch of moves
-scored together is the explicit ``score_chunk`` argument.  Only the
-``"packed"`` pair layout is ported.  Consistency is scored by the
-``"gather"`` engine (:func:`consistency_from_cache`, per move batch) or by
-the ``"strips"`` engine (``ops/consistency.py``, all moves of a phase at
-once, a CUDA kernel on the card); ``"strips_xla"`` names the same function
-as ``"strips"``, since its lane resolve differs from Pallas only on a TPU.
+scored together is the explicit ``score_chunk`` argument.  The gather
+engine scores the static pair list as one packed batch.  JAX's other pair
+layout, ``"view"``, regroups the pairs into per-view slots so that its
+temporaries shard with a view mesh, and is bitwise equal to packed; on
+one device :func:`refine` accepts it and runs the packed scorer.
+Consistency is scored by the ``"gather"`` engine
+(:func:`consistency_from_cache`, per move batch) or by the ``"strips"``
+engine (``ops/consistency.py``, all moves of a phase at once, a CUDA
+kernel on the card); ``"strips_xla"`` names the same function as
+``"strips"``, since its lane resolve differs from Pallas only on a TPU.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cl_multiview_stereo_tpu_torch.ops.fusion import gather_cells, plane_disparity
+from cl_multiview_stereo_tpu_torch.ops.fusion import cl_round, gather_cells, plane_disparity
 from cl_multiview_stereo_tpu_torch.ops.superpixel import consistency_samples
 from cl_multiview_stereo_tpu_torch.utils.timing import maybe_stage
 
@@ -39,6 +43,7 @@ _FLT_MIN = float(torch.finfo(torch.float32).tiny)
 # temporaries to about C x 50 MB each at 1080p x 9 views.
 SCORE_CHUNK = 4
 CONS_ENGINES = ("gather", "strips", "strips_xla")
+PAIR_LAYOUTS = ("packed", "view")
 
 
 class RefineState(NamedTuple):
@@ -251,11 +256,6 @@ def smoothness_from_cache(cache: IterCache, d0, n0, *, alpha: float) -> torch.Te
     return torch.where(cache.wn > 0, _ftz(sm / cache.wn), _EPS_SM)
 
 
-def _cl_round(x: torch.Tensor) -> torch.Tensor:
-    """OpenCL round(): half away from zero (torch.round rounds half to even)."""
-    return torch.where(x >= 0, torch.floor(x + 0.5), torch.ceil(x - 0.5))
-
-
 def pairs_from_subsets(view_subset, array_width: int) -> tuple:
     """Static (ref, view, dvx, dvy) pair list from a -1 padded (V, max_n)
     subset table, in the reference's enumeration order (pipeline.cpp:130-142)."""
@@ -325,11 +325,15 @@ def consistency_from_cache(
     finite = torch.isfinite(dip) if blown_up_outside else None
     if finite is not None:
         dip = torch.where(finite, dip, 0.0)
-    xp = sx[refs] - _cl_round(dip * dvx).to(torch.int64)
-    yp = sy[refs] - _cl_round(bl_ratio * dip * dvy).to(torch.int64)
+    # A NaN shift (an nz = 0 plane) reads as XLA casts it to int, 0; the
+    # bounds test is made on the float, so +-inf leaves the image on the
+    # CPU and the card alike (as in ``fusion._probe``).
+    xp = sx[refs].to(torch.float32) - torch.nan_to_num(cl_round(dip * dvx), nan=0.0)
+    yp = sy[refs].to(torch.float32) - torch.nan_to_num(cl_round(bl_ratio * dip * dvy), nan=0.0)
     inb = (xp >= 0) & (yp >= 0) & (xp < w) & (yp < h)
     inbf = (inb if finite is None else inb & finite).to(torch.float32)
-    flat = nbrs[:, None, None, None] * (h * w) + yp.clamp(0, h - 1) * w + xp.clamp(0, w - 1)
+    flat = (nbrs[:, None, None, None] * (h * w) + yp.clamp(0, h - 1).to(torch.int64) * w
+            + xp.clamp(0, w - 1).to(torch.int64))
     del xp, yp
     g = cache.ras[flat]  # (B, P, Mh, 9, Mw, 4)
     del flat
@@ -481,8 +485,7 @@ def propagate_iteration(
     candidate planes against the frozen input state
     (depth_refinement.cpp:744-753).  ``cons_engine``: see the module
     docstring; smoothness is scored in ``score_chunk`` batches either way."""
-    if cons_engine not in CONS_ENGINES:
-        raise ValueError(f"unknown cons_engine {cons_engine!r}; expected one of {CONS_ENGINES}")
+    check_options(cons_engine)
     mh, mw = state_in.d.shape[1:]
     greedy = it < 4  # cl:1663 / cl:1713
     cache = build_cache(
@@ -554,6 +557,17 @@ def propagate_iteration(
     return RefineState(d=d0, sm=sm0, cs=cs0, n=n0)
 
 
+def check_options(cons_engine: str = "gather", pair_layout: str = "packed") -> None:
+    """Refuse an unknown engine or layout, and the strips engines under
+    the view layout (JAX refine.py:1063)."""
+    if cons_engine not in CONS_ENGINES:
+        raise ValueError(f"unknown cons_engine {cons_engine!r}; expected one of {CONS_ENGINES}")
+    if pair_layout not in PAIR_LAYOUTS:
+        raise ValueError(f"unknown pair_layout {pair_layout!r}; expected one of {PAIR_LAYOUTS}")
+    if cons_engine != "gather" and pair_layout == "view":
+        raise ValueError("the strips engines are packed-layout only")
+
+
 def refine(
     ctx: RefineContext,
     schedule,
@@ -567,14 +581,12 @@ def refine(
     """Init state, then ``no_prop`` Jacobi sweeps with decaying reach
     (depth_refinement.cpp:105-106, 767-769).  ``cons_engine`` picks the
     propagation sweeps' consistency engine; the init state is scored by
-    the gather form under every engine, as in JAX.  ``timer``: an optional
-    ``utils.timing.StageTimer`` for the init and propagate stages."""
-    if cons_engine not in CONS_ENGINES:
-        raise ValueError(f"unknown cons_engine {cons_engine!r}; expected one of {CONS_ENGINES}")
-    if cons_engine != "gather" and pair_layout == "view":
-        raise ValueError("the strips engines are packed-layout only")
-    if pair_layout != "packed":
-        raise NotImplementedError(f"pair_layout={pair_layout!r} is not ported yet")
+    the gather form under every engine, as in JAX.  ``pair_layout``
+    ("packed" or "view", gather engine only) is JAX's pair axis layout:
+    the two give the same bits, and the packed scorer runs for either.
+    ``timer``: an optional ``utils.timing.StageTimer`` for the init and
+    propagate stages."""
+    check_options(cons_engine, pair_layout)
     kw = dict(
         gamma=schedule.gamma_eff,
         alpha=schedule.alpha_eff,

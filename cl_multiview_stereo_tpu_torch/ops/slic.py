@@ -7,7 +7,9 @@ Same sequence and quirks as the JAX module (``clcode.cl:259-773``):
 * candidates are scanned in the reference's loop order and a strict ``<``
   keeps the first minimum;
 * the update counts only members inside the cluster's 3S x 3S window and
-  zeroes clusters that lost every member.
+  zeroes clusters that lost every member;
+* the optional edge snap of the seeds (``edge_enable``) and the twice
+  applied connectivity vote (``enforce_connectivity``).
 
 The candidate clusters are read with a direct gather instead of the JAX
 module's upsampled cell maps, which existed only to avoid TPU gathers.  The
@@ -162,6 +164,100 @@ def update_cluster_centers(
     return SuperpixelMap(center=center, color=color, count=count, disp=spmap.disp)
 
 
+def _shifted(a: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
+    """out[v, y, x] = a[v, clamp(y + dy), clamp(x + dx)]: border-replicate
+    reads of a (V, H, W, ...) tensor."""
+    h, w = a.shape[1:3]
+    rows = (torch.arange(h, device=a.device) + dy).clamp(0, h - 1)
+    cols = (torch.arange(w, device=a.device) + dx).clamp(0, w - 1)
+    return a[:, rows][:, :, cols]
+
+
+def compute_edges(lab: torch.Tensor) -> torch.Tensor:
+    """Edge magnitude of the edge-snap path (``edge_compute_alternative``,
+    clcode.cl:161-195, with the JAX module's two intended-semantics fixes:
+    the classic skip-centre Sobel, and a separate edge image): 3x3 Sobel on
+    Lab with border-replicate reads, ``sqrt(sum_ch(DX^2 + DY^2))``.
+
+    The taps are added in the JAX module's order and the three channels
+    one after another, so the order of every sum is fixed.  ``lab``
+    (V, H, W, 3) -> (V, H, W) float32."""
+    def at(dx: int, dy: int) -> torch.Tensor:
+        return _shifted(lab, dx, dy)
+
+    dxc = (
+        -at(-1, -1) + at(1, -1) - 2.0 * at(-1, 0) + 2.0 * at(1, 0)
+        - at(-1, 1) + at(1, 1)
+    )
+    dyc = (
+        -at(-1, -1) - 2.0 * at(0, -1) - at(1, -1)
+        + at(-1, 1) + 2.0 * at(0, 1) + at(1, 1)
+    )
+    sq = dxc * dxc + dyc * dyc
+    return torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
+
+
+# Ring scan order of ``apply_edge_alternative`` (clcode.cl:215), (dx, dy).
+_EDGE_RING = ((-1, 0), (-1, -1), (0, -1), (1, -1), (1, 0), (1, 1), (0, 1), (-1, 1))
+
+
+def apply_edge_snap(lab: torch.Tensor, edges: torch.Tensor, spmap: SuperpixelMap) -> SuperpixelMap:
+    """Edge snap (``apply_edge_alternative``, clcode.cl:204-248): each
+    centre moves to the lowest-edge pixel among its 8 neighbours (a running
+    strict ``<`` in ring order, so the first minimum wins) and takes that
+    pixel's Lab colour.  ``edges`` (V, H, W)."""
+    v, h, w = edges.shape
+    flat_e = edges.reshape(v, h * w)
+    cx = spmap.center[..., 0].to(torch.int64)  # C truncation
+    cy = spmap.center[..., 1].to(torch.int64)
+
+    def read(x, y):
+        idx = (y.clamp(0, h - 1) * w + x.clamp(0, w - 1)).reshape(v, -1)
+        return torch.gather(flat_e, 1, idx).reshape(x.shape)
+
+    best_edge = read(cx, cy)
+    best_x, best_y = cx, cy
+    changed = torch.zeros(cx.shape, dtype=torch.bool, device=cx.device)
+    for dx, dy in _EDGE_RING:
+        nx, ny = cx + dx, cy + dy
+        inb = (nx >= 0) & (ny >= 0) & (nx < w) & (ny < h)
+        ne = read(nx, ny)
+        take = inb & (ne < best_edge)
+        best_edge = torch.where(take, ne, best_edge)
+        best_x = torch.where(take, nx, best_x)
+        best_y = torch.where(take, ny, best_y)
+        changed = changed | take
+    vid = torch.arange(v, device=cx.device)[:, None, None]
+    new_color = lab[vid, best_y.clamp(0, h - 1), best_x.clamp(0, w - 1)]
+    center = torch.where(
+        changed[..., None], torch.stack([best_x, best_y], dim=-1).to(torch.float32), spmap.center
+    )
+    color = torch.where(changed[..., None], new_color, spmap.color)
+    return SuperpixelMap(center=center, color=color, count=spmap.count, disp=spmap.disp)
+
+
+def suppress_local_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Connectivity vote (clcode.cl:676-711): a pixel whose 5x5
+    neighbourhood holds >= 16 labels other than its own adopts the last
+    such label of the scan (rows j outer, columns i inner).  The 2-px
+    border passes through.  ``segment`` applies it twice, the reference's
+    ping-pong (clSLIC.cpp:390-410)."""
+    v, h, w = labels.shape
+    diff_count = torch.zeros((v, h, w), dtype=torch.int32, device=labels.device)
+    diff_label = torch.full((v, h, w), -1, dtype=labels.dtype, device=labels.device)
+    for j in range(-2, 3):
+        for i in range(-2, 3):
+            # wraps only at the border, which passes through
+            nl = torch.roll(labels, shifts=(-j, -i), dims=(1, 2))
+            ne = nl != labels
+            diff_count = diff_count + ne.to(torch.int32)
+            diff_label = torch.where(ne, nl, diff_label)
+    col = torch.arange(w, device=labels.device)[None, None, :]
+    row = torch.arange(h, device=labels.device)[None, :, None]
+    interior = (col > 1) & (row > 1) & (col < w - 2) & (row < h - 2)
+    return torch.where(interior & (diff_count >= 16), diff_label, labels)
+
+
 def segment(
     lab: torch.Tensor, geom: DerivedGeometry, p: SlicParams
 ) -> tuple[torch.Tensor, SuperpixelMap]:
@@ -169,13 +265,13 @@ def segment(
 
     Returns (labels (V, H, W) int32, SuperpixelMap).
     """
-    if p.edge_enable:
-        raise NotImplementedError("SLIC edge_enable is not ported yet")
-    if p.enforce_connectivity:
-        raise NotImplementedError("SLIC enforce_connectivity is not ported yet")
     spmap = init_cluster_centers(lab, geom)
+    if p.edge_enable:
+        spmap = apply_edge_snap(lab, compute_edges(lab), spmap)
     labels = find_center_association(lab, spmap, geom, p)
     for _ in range(p.no_iter):
         spmap = update_cluster_centers(lab, labels, spmap, geom)
         labels = find_center_association(lab, spmap, geom, p)
+    if p.enforce_connectivity:
+        labels = suppress_local_labels(suppress_local_labels(labels))
     return labels, spmap

@@ -1,6 +1,7 @@
 """Depth-init cost volume: the port's plain twin against the JAX strips
 form (which runs the Pallas ``_win_extract_kernel`` in interpret mode on
-the CPU) and the JAX dense form.  The CUDA kernel against the twin is in
+the CPU) and the JAX dense form, and the port's gather form against JAX's
+gather form and the scalar mirror.  The CUDA kernel against the twin is in
 test_torch_kernels_cuda.py."""
 
 import numpy as np
@@ -17,7 +18,7 @@ from cl_multiview_stereo_tpu.ops import cost_volume as jcv
 from cl_multiview_stereo_tpu.ops import slic as jslic
 from cl_multiview_stereo_tpu.ops import superpixel as jsp
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
-from cl_multiview_stereo_tpu.testing import synthetic
+from cl_multiview_stereo_tpu.testing import mirror, synthetic
 from cl_multiview_stereo_tpu_torch.kernels import build
 from cl_multiview_stereo_tpu_torch.ops import cost_volume
 from torch_parity import n, small_settings, t
@@ -93,18 +94,61 @@ def test_initial_depth_estimation_matches_jax(scene):
     s = scene["s"]
     levels = build_disp_levels(s)
     subset, counts = build_view_subsets(s)
-    want = np.asarray(jcv.initial_depth_estimation(
-        scene["lab"], scene["center"], scene["ext"], levels, subset, counts,
-        s.array_width, s.bl_ratio, method="strips",
-    ))
-    for method in ("strips", "dense"):
-        got = n(cost_volume.initial_depth_estimation(
-            t(scene["lab"]), t(scene["center"]), t(scene["ext"], torch.int32), levels,
-            t(counts, torch.int32), s.array_width, s.bl_ratio, method=method,
+    args = (t(scene["lab"]), t(scene["center"]), t(scene["ext"], torch.int32), levels, subset,
+            t(counts, torch.int32), s.array_width, s.bl_ratio)
+    for method in ("strips", "gather"):
+        want = np.asarray(jcv.initial_depth_estimation(
+            scene["lab"], scene["center"], scene["ext"], levels, subset, counts,
+            s.array_width, s.bl_ratio, method=method,
         ))
-        assert (got == want).mean() > WTA_AGREE, method
-    with pytest.raises(NotImplementedError):
+        for port_method in (("strips", "dense") if method == "strips" else ("gather",)):
+            got = n(cost_volume.initial_depth_estimation(*args, method=port_method))
+            assert (got == want).mean() > WTA_AGREE, port_method
+
+
+@pytest.mark.parametrize("bl_ratio", [1.0, 1.0359, 0.97])
+def test_gather_volume_matches_jax(scene, bl_ratio):
+    """The gather form against JAX's: the volume within rtol=1e-6,
+    atol=1e-4 and the WTA on >= 0.999 of cells."""
+    s = scene["s"]
+    levels = build_disp_levels(s)
+    subset, _ = build_view_subsets(s)
+    want = np.asarray(jcv.superpixel_cost_volume(
+        scene["lab"], scene["center"], scene["step"], levels, subset, s.array_width, bl_ratio
+    ))
+    got = n(cost_volume.cost_volume_gather(
+        t(scene["lab"]), t(scene["center"]), t(scene["step"]), levels, subset,
+        s.array_width, bl_ratio,
+    ))
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
+    agree = (_wta(got, levels) == _wta(want, levels)).mean()
+    assert agree >= WTA_AGREE, f"WTA agreement {agree}"
+
+
+def test_gather_depth_init_matches_mirror(scene):
+    """Against the float64 scalar mirror: the bound of
+    tests/test_depth_init.py (WTA agreement > 0.98)."""
+    s = scene["s"]
+    levels = build_disp_levels(s)
+    subset, counts = build_view_subsets(s)
+    got = n(cost_volume.initial_depth_estimation(
+        t(scene["lab"]), t(scene["center"]), t(scene["ext"], torch.int32), levels, subset,
+        t(counts, torch.int32), s.array_width, s.bl_ratio, method="gather",
+    ))
+    want = mirror.initial_depth_estimation_v2(
+        scene["lab"], scene["center"], scene["ext"], levels, subset, counts,
+        s.array_width, s.bl_ratio,
+    )
+    agree = (got == want).mean()
+    assert agree > 0.98, f"mirror agreement {agree}"
+
+
+def test_unknown_depth_method_raises(scene):
+    s = scene["s"]
+    with pytest.raises(ValueError, match="depth method"):
         cost_volume.initial_depth_estimation(
-            t(scene["lab"]), t(scene["center"]), t(scene["ext"], torch.int32), levels,
-            t(counts, torch.int32), s.array_width, s.bl_ratio, method="gather",
+            t(scene["lab"]), t(scene["center"]), t(scene["ext"], torch.int32),
+            build_disp_levels(s), *build_view_subsets(s), s.array_width, s.bl_ratio,
+            method="sparse",
         )

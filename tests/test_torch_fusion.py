@@ -41,8 +41,3 @@ def test_rasterize_matches_jax(planes, jax_form):
     # (1.25e-6 at most on this scene), which rtol alone cannot hold.
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=5e-6)
 
-
-def test_cross_check_raises(planes):
-    labels, center, d, nrm = planes
-    with pytest.raises(NotImplementedError):
-        fusion.fuse_views(t(labels, torch.int32), t(center), t(d), t(nrm), cross_check=True)

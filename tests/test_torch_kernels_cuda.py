@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain twins, on a card.
+"""The port's CUDA kernels against their plain twins, and the cross-check
+fusion against its CPU run, on a card.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -22,7 +23,7 @@ from cl_multiview_stereo_tpu.config import (
 )
 from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch.models import plane_sweep
-from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, refine, slic, superpixel, sweep
+from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, fusion, refine, slic, superpixel, sweep
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 
 # the JAX suite's bounds for strips against dense (tests/test_depth_init.py)
@@ -123,7 +124,7 @@ def strips_scene(cuda):
     ext = superpixel.superpixel_extent(labels, spmap.center, geom)
     subset, counts = build_view_subsets(s)
     disp0 = cost_volume.initial_depth_estimation(
-        lab, spmap.center, ext, build_disp_levels(s), torch.as_tensor(counts, device=cuda),
+        lab, spmap.center, ext, build_disp_levels(s), subset, torch.as_tensor(counts, device=cuda),
         s.array_width, s.bl_ratio,
     )
     sched = RefinementSchedule.create(s)
@@ -188,3 +189,39 @@ def test_consistency_wrapper_rejects_bad_input(strips_scene):
     with pytest.raises(ValueError):
         consistency.consistency_moves(ctx, cache, d_c.transpose(2, 3).contiguous().transpose(2, 3),
                                       n_c, **sc["kw"])
+
+
+@pytest.mark.cuda
+def test_cross_check_fusion_card_equals_cpu(cuda):
+    """Fusion with the cross-check vote at 4x48x64: the card's eager ops
+    give the CPU run's bits, non-finite pixels (nz = 0 planes) included."""
+    s = SystemSettings(array_width=2, array_height=2, min_disp=4, max_disp=11, bl_ratio=1.0359)
+    views, _ = synthetic.two_plane_scene(48, 64, array_width=2, array_height=2, disp_bg=5.0,
+                                         disp_fg=9.0, bl_ratio=s.bl_ratio, seed=7)
+    geom = DerivedGeometry.create(64, 48, s)
+    labels, spmap = slic.segment(rgb_to_lab(torch.as_tensor(views)), geom, SlicParams.create(s))
+    rng = np.random.default_rng(3)
+    d = torch.as_tensor(rng.uniform(4, 11, (4, geom.map_h, geom.map_w)).astype(np.float32))
+    nrm = torch.as_tensor(rng.normal(0, 0.05, (4, geom.map_h, geom.map_w, 3)).astype(np.float32))
+    nrm[..., 2] = 1.0
+    nrm[:, 1, 2:5] = torch.tensor([1.0, 0.0, 0.0])
+    kw = dict(array_width=2, bl_ratio=s.bl_ratio, fuse=0.5 * s.fuse, cross_check=True)
+    want = fusion.fuse_views(labels, spmap.center, d, nrm, **kw)
+    got = fusion.fuse_views(labels.to(cuda), spmap.center.to(cuda), d.to(cuda), nrm.to(cuda), **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, equal_nan=True)
+    assert (want == 0).any() and not bool(torch.isfinite(want).all())
+
+
+@pytest.mark.cuda
+def test_gather_consistency_card_equals_cpu(strips_scene):
+    """The gather engine (plain PyTorch) on the strips scene's candidates,
+    nz = 0 ones included: an NaN shift reads the sample's own pixel and
+    +-inf leaves the image on both devices, so the card gives the CPU's
+    scores."""
+    sc = strips_scene
+    ctx, cache = sc["ctx"], sc["cache"]
+    got = refine.consistency_from_cache(ctx, cache, sc["d_c"], sc["n_c"], **sc["kw"])
+    to_cpu = lambda tup: type(tup)(*(x.cpu() for x in tup))  # noqa: E731
+    want = refine.consistency_from_cache(to_cpu(ctx), to_cpu(cache), sc["d_c"].cpu(),
+                                         sc["n_c"].cpu(), **sc["kw"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)

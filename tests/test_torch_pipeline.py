@@ -58,13 +58,52 @@ def test_dense_method_is_the_same_function(runs):
     np.testing.assert_array_equal(n(dense.disp_full), n(port.disp_full))
 
 
-@pytest.mark.parametrize(
-    "kw", [{"depth_method": "gather"}, {"cross_check": True}, {"pair_layout": "view"}],
-    ids=lambda kw: next(iter(kw)),
-)
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        MVSPipeline.create(64, 48, small_settings(), device=CPU, **kw)
+# one case per knob of the JAX MVSPipeline beyond the defaults:
+# (SystemSettings overrides, MVSPipeline.create keywords)
+KNOBS = {
+    "cross_check": ({}, {"cross_check": True}),
+    "edge_enable": ({"edge_enable": True}, {}),
+    "enforce_connectivity": ({"enforce_connectivity": True}, {}),
+    "gather": ({}, {"depth_method": "gather"}),
+    "view": ({}, {"pair_layout": "view"}),
+}
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+def test_pipeline_knob_matches_jax(knob):
+    """Each knob against the JAX pipeline at test_pipeline_matches_jax's
+    bounds."""
+    overrides, kw = KNOBS[knob]
+    s = small_settings(**overrides)
+    views, _ = synthetic.two_plane_scene(
+        48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0, seed=11
+    )
+    port = MVSPipeline.create(64, 48, s, device=CPU, **kw).run(views)
+    ref = JaxPipeline.create(64, 48, s, **kw).run(views)
+    assert (n(port.labels) == np.asarray(ref.labels)).mean() > 0.995
+    agree = (n(port.disp_init) == np.asarray(ref.disp_init)).mean()
+    assert agree >= 0.99, f"disp_init agreement {agree}"
+    d, dj = n(port.disp_full), np.asarray(ref.disp_full)
+    close = (np.abs(d - dj) <= 1e-3).mean()
+    assert close >= 0.98, f"disp_full within 1e-3 on {close}"
+    if knob == "cross_check":
+        assert (d == 0).any(), "the vote rejected nothing"
+    if knob == "enforce_connectivity":
+        # the vote moves labels two cells from their home cell, past the
+        # one-cell reach of plain SLIC; the port's direct label gathers
+        # (fusion.gather_cells, refine._rasterize_flat, the extent walk)
+        # take any label, where the JAX lookups need label_radius=3
+        labels = n(port.labels)
+        home_x = np.arange(64)[None, None, :] // s.spixl_size
+        home_y = np.arange(48)[None, :, None] // s.spixl_size
+        reach = max(np.abs(labels % 8 - home_x).max(), np.abs(labels // 8 - home_y).max())
+        assert reach > 1, reach
+
+
+def test_create_rejects_unknown_knobs():
+    for kw in ({"depth_method": "sparse"}, {"pair_layout": "diagonal"}):
+        with pytest.raises(ValueError):
+            MVSPipeline.create(64, 48, small_settings(), device=CPU, **kw)
 
 
 def test_convert_gives_explicit_dtypes():

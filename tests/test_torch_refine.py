@@ -116,12 +116,49 @@ def test_propagate_iteration_matches_jax(scene, it):
         assert close.mean() >= 0.99 and misses <= max(2, size // 100), (it, field, misses)
 
 
+def test_consistency_matches_jax_view_layout(scene):
+    """The port's one gather scorer against JAX's view layout (per-view
+    slots, bitwise equal to JAX's packed form), on candidate planes with
+    random normals and on nz = 0 ones, at test_init_state_matches_jax's
+    bounds; both sides start from JAX's init state."""
+    sched, kw, jstate = scene["sched"], scene["kw"], scene["jstate"]
+    reach = dict(steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
+    d, nrm = np.asarray(jstate.d), np.asarray(jstate.n)
+    jcache = jref.build_cache(scene["jctx"], jstate.d, jstate.n, gamma=kw["gamma"], **reach)
+    cache = refine.build_cache(scene["ctx"], t(d), t(nrm), gamma=kw["gamma"], **reach)
+    rng = np.random.default_rng(4)
+    n_c = rng.normal(0, 0.05, nrm.shape).astype(np.float32)
+    n_c[..., 2] += 1.0
+    n_c /= np.linalg.norm(n_c, axis=-1, keepdims=True)
+    n_flat = n_c.copy()
+    n_flat[:, ::2] = (1.0, 0.0, 0.0)  # nz = 0: non-finite candidate disparities
+    for cand in (n_c, n_flat):
+        got = n(refine.consistency_from_cache(scene["ctx"], cache, t(d)[None], t(cand)[None], **kw))[0]
+        want = np.asarray(jref.consistency_from_cache(
+            scene["jctx"], jcache, jstate.d, cand, pair_layout="view", **kw
+        ))
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_refine_view_layout_matches_jax(scene):
+    """``refine(pair_layout="view")`` (the packed scorer in the port)
+    against JAX's full view-layout refinement, init state and no_prop = 5
+    sweeps, at test_torch_pipeline.py's disp_full bound (within 1e-3 on
+    >= 0.98 of superpixels)."""
+    sched, pairs = scene["sched"], scene["kw"]["pairs"]
+    got = refine.refine(scene["ctx"], sched, pairs=pairs, pair_layout="view")
+    want = jref.refine(scene["jctx"], sched, pairs=pairs, pair_layout="view")
+    for field in ("d", "sm", "cs"):
+        close = (np.abs(n(getattr(got, field)) - np.asarray(getattr(want, field))) <= 1e-3).mean()
+        assert close >= 0.98, (field, close)
+
+
 @pytest.mark.parametrize(
-    "kw", [{"pair_layout": "view"}, {"cons_engine": "strips", "pair_layout": "view"}], ids=str
+    "kw", [{"cons_engine": "strips", "pair_layout": "view"}, {"pair_layout": "diagonal"}], ids=str
 )
 def test_unported_refine_options_raise(kw):
-    """The view layout is not ported; the strips engines are packed-layout
-    only, as in JAX (refine.py:1063)."""
+    """The strips engines are packed-layout only, as in JAX
+    (refine.py:1063); an unknown layout is refused."""
     sched = RefinementSchedule.create(small_settings())
-    with pytest.raises(ValueError if "cons_engine" in kw else NotImplementedError):
+    with pytest.raises(ValueError):
         refine.refine(None, sched, pairs=(), **kw)

@@ -7,7 +7,7 @@ import torch
 from cl_multiview_stereo_tpu.config import DerivedGeometry, SlicParams
 from cl_multiview_stereo_tpu.ops import slic as jslic
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
-from cl_multiview_stereo_tpu.testing import synthetic
+from cl_multiview_stereo_tpu.testing import mirror, synthetic
 from cl_multiview_stereo_tpu_torch import convert
 from cl_multiview_stereo_tpu_torch.ops import slic
 from torch_parity import CPU, n, small_settings, t
@@ -68,8 +68,54 @@ def test_update_matches_jax(scene):
         )
 
 
-@pytest.mark.parametrize("flag", ["edge_enable", "enforce_connectivity"])
-def test_unported_slic_options_raise(scene, flag):
-    p = SlicParams.create(scene["s"].replace(**{flag: True}))
-    with pytest.raises(NotImplementedError):
-        slic.segment(t(scene["lab"]), scene["geom"], p)
+
+def test_compute_edges_matches_jax_and_mirror(scene):
+    lab = scene["lab"]
+    got = n(slic.compute_edges(t(lab)))
+    np.testing.assert_allclose(got, np.asarray(jslic.compute_edges(lab)), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got[1], mirror.edge_compute(lab[1]), rtol=1e-5, atol=1e-4)
+
+
+def test_edge_snap_matches_jax(scene):
+    """Fed JAX's own edges, so the snap (a strict ``<``) is judged apart
+    from the edges' ulps."""
+    geom, lab = scene["geom"], scene["lab"]
+    edges = np.asarray(jslic.compute_edges(lab))
+    jmap = jslic.init_cluster_centers(lab, geom)
+    want = jslic.apply_edge_snap(lab, edges, jmap)
+    got = slic.apply_edge_snap(t(lab), t(edges), slic.init_cluster_centers(t(lab), geom))
+    np.testing.assert_array_equal(n(got.center), np.asarray(want.center))
+    np.testing.assert_allclose(n(got.color), np.asarray(want.color), rtol=1e-6)
+    assert (n(got.center) != np.asarray(jmap.center)).any()
+    c, col = mirror.apply_edge(lab[0], edges[0], np.asarray(jmap.center)[0], np.asarray(jmap.color)[0])
+    np.testing.assert_array_equal(n(got.center)[0], c)
+
+
+@pytest.mark.parametrize("source", ["segment", "noisy"])
+def test_suppress_local_labels_bitwise(scene, source):
+    labels = scene["labels"]
+    if source == "noisy":  # flips enough neighbours to trigger the vote often
+        rng = np.random.default_rng(2)
+        labels = np.where(rng.random(labels.shape) < 0.4, rng.integers(0, 48, labels.shape), labels)
+        labels = labels.astype(np.int32)
+    got = n(slic.suppress_local_labels(t(labels, torch.int32)))
+    np.testing.assert_array_equal(got, np.asarray(jslic.suppress_local_labels(labels)))
+    np.testing.assert_array_equal(got[0], mirror.slic_suppress_labels(labels[0]))
+    if source == "noisy":
+        assert (got != labels).any()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [{"edge_enable": True}, {"enforce_connectivity": True},
+     {"edge_enable": True, "enforce_connectivity": True}],
+    ids=lambda f: "+".join(f),
+)
+def test_segment_with_flags_matches_jax(scene, flags):
+    p = SlicParams.create(scene["s"].replace(**flags))
+    labels, spmap = slic.segment(t(scene["lab"]), scene["geom"], p)
+    jlabels, jspmap = jslic.segment(scene["lab"], scene["geom"], p)
+    agree = (n(labels) == np.asarray(jlabels)).mean()
+    # tests/test_slic.py's bound for JAX against its scalar mirror
+    assert agree > 0.995, f"label agreement {agree}"
+    np.testing.assert_allclose(n(spmap.center), np.asarray(jspmap.center), rtol=1e-4, atol=1e-3)
