@@ -7,13 +7,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 0. device: a CUDA device is visible; print its name and power limit;
 1. build: compile ``csrc/{cost_volume,sweep,consistency}.cu`` with nvcc
-   from this checkout, one nvcc each, all started together;
+   from this checkout, one nvcc each, all started together; print what
+   ptxas reports and check that two cost-volume blocks fit on an SM;
 2. kernels against their plain twins, on the same device tensors, with
-   both times from CUDA events, in turns: the cost volume at the full
-   9-view 1080p size and one odd small shape; the dense sweep, bitwise,
-   at 9x1080x1920 (31 hypotheses, 40 pairs), 2x1080x1920 (64 hypotheses,
-   horizontal pairs) and 9x53x131; the strips consistency kernel on the
-   update and refit candidates of sweep 0 of the 9-view 1080p scene;
+   both times from CUDA events, in turns, beside each kernel's bound (the
+   larger of its bytes over the card's memory rate and its f32 operations
+   over the card's peak, counted from this run's inputs): the cost volume,
+   bitwise, at the full 9-view 1080p size, one odd small shape and 9x543x967
+   with 16-pixel superpixels (ragged tiles, sample steps up to 7); the
+   dense sweep, bitwise, at 9x1080x1920 (31 hypotheses, 40 pairs),
+   2x1080x1920 (64 hypotheses, horizontal pairs) and 9x53x131; the strips
+   consistency kernel on the update and refit candidates of sweep 0 of the
+   9-view 1080p scene;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
@@ -48,6 +53,7 @@ The last two lines of standard output are the kernels' JSON record and
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -57,8 +63,17 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# cost-volume kernel-vs-plain bounds: the JAX suite's strips-vs-dense bounds
-RTOL, ATOL, WTA_AGREE = 2e-7, 1e-3, 0.999
+# H100 SXM peaks for a kernel's bound (NVIDIA's data sheet, dense, f32
+# outside the tensor cores)
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# f32 operations the bounds count: a valid cost-volume sample term (three
+# differences, three absolutes, two adds, the running sum); a sweep
+# (pair, hypothesis, pixel) term is 8 for the SAD, 4r for the separable
+# box sums and 1 for the min over pairs; a consistency (move, cell, pair,
+# sample) term is about 36 (projection, bounds, the two exp terms and five
+# sums, each exp counted as one) and its plane disparity per (move, cell,
+# sample) 8
+CV_OPS_VALID, SWEEP_OPS_SAD, CONS_OPS_TERM, CONS_OPS_DIP = 9, 8, 36, 8
 # consistency kernel vs its plain twin: the same formula, sums over the
 # samples taken in another order by the twin's reductions
 CONS_RTOL, CONS_ATOL = 1e-5, 1e-6
@@ -90,6 +105,55 @@ def _cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least ms the card could take, and what bounds it: the larger of
+    the bytes over the memory rate and the operations over the f32 peak."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _cost_volume_bound(lab, centers, step, levels, s, out) -> tuple[float, str]:
+    """The cost volume's bound on these inputs: each input read once and the
+    output written once; per sample term CV_OPS_VALID operations where the
+    sample is valid and 1 (the penalty's add) where not, and one min per
+    (cell, hypothesis, valid delta).  Validity as the kernel tests it: the
+    f32 sample positions, truncated, in the image, and -1 < x - d*gx < W,
+    -1 < y - (bl*d)*gy < H."""
+    import numpy as np
+    import torch
+
+    v, h, w = lab.shape[:3]
+    cells = centers.shape[1] * centers.shape[2]
+    n_d = levels.shape[0]
+    xr = torch.stack([(centers[..., 0] + float(i) * step[..., 0]).to(torch.int64) for i in range(-2, 3)], -1)
+    yr = torch.stack([(centers[..., 1] + float(j) * step[..., 1]).to(torch.int64) for j in range(-2, 3)], -1)
+    x_in = ((xr >= 0) & (xr < w))[..., None]  # (V, Mh, Mw, 5, 1)
+    y_in = ((yr >= 0) & (yr < h))[..., None]
+    bl_d = levels * float(np.float32(s.bl_ratio))
+    valid_terms = pairs = 0
+    for gx in range(-s.neib_hor, s.neib_hor + 1):
+        for gy in range(-s.neib_ver, s.neib_ver + 1):
+            if gx == 0 and gy == 0:
+                continue
+            views = [z for z in range(v) if 0 <= z % s.array_width + gx < s.array_width
+                     and 0 <= z // s.array_width + gy < v // s.array_width]
+            if not views:
+                continue
+            pairs += len(views)
+            px = xr[views].to(torch.float32)[..., None] - levels * float(gx)  # (n, Mh, Mw, 5, D)
+            py = yr[views].to(torch.float32)[..., None] - bl_d * float(gy)
+            nx = (x_in[views] & (px > -1.0) & (px < w)).sum(3)  # (n, Mh, Mw, D)
+            ny = (y_in[views] & (py > -1.0) & (py < h)).sum(3)
+            valid_terms += int((nx * ny).sum())
+    terms = 25 * n_d * cells * pairs
+    ops = CV_OPS_VALID * valid_terms + (terms - valid_terms) + n_d * cells * pairs
+    return _bound(_nbytes(lab, centers, step, levels, out), ops)
 
 
 def _in_turns(kernel, plain, k_iters: int, p_iters: int) -> tuple[float, float]:
@@ -191,6 +255,15 @@ def phase_build() -> None:
         for line in logs[name].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
+    # the cost volume's design: two blocks share an SM, one stages while the
+    # other computes
+    fn = build.load("cost_volume").cost_volume_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    blocks = ctypes.c_int(0)
+    rc = fn(ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 2:
+        raise AssertionError(f"cost_volume: {blocks.value} blocks per SM (CUDA error {rc}), expected >= 2")
+    print(f"[1] cost_volume: {blocks.value} blocks per SM")
 
 
 def phase_kernel_vs_plain(card: str) -> dict:
@@ -205,37 +278,31 @@ def phase_kernel_vs_plain(card: str) -> dict:
 
     dev = torch.device("cuda")
     cases = [
-        ("full 9x1080x1920", SystemSettings(), (FULL_H, FULL_W)),
-        ("odd 4x61x45", SystemSettings(array_width=2, array_height=2, min_disp=4, max_disp=11), (61, 45)),
+        ("full 9x1080x1920", SystemSettings(), (FULL_H, FULL_W), TRUE_DISP),
+        ("odd 4x61x45", SystemSettings(array_width=2, array_height=2, min_disp=4, max_disp=11), (61, 45), 7.0),
+        # ragged 8x8-cell tiles, the largest superpixels: sample steps up to 7
+        ("ragged 9x543x967 S16", SystemSettings(spixl_size=16), (543, 967), TRUE_DISP),
     ]
     rec = {}
-    for label, s, (h, w) in cases:
-        rgb, _ = fronto_parallel_scene(
-            h, w, s.array_width, s.array_height, disp=TRUE_DISP if h == FULL_H else 7.0,
-            bl_ratio=s.bl_ratio,
-        )
+    for label, s, (h, w), disp in cases:
+        rgb, _ = fronto_parallel_scene(h, w, s.array_width, s.array_height, disp=disp, bl_ratio=s.bl_ratio)
         lab, centers, step = _depth_inputs(rgb, s, dev)
         levels = torch.as_tensor(build_disp_levels(s), device=dev)
         args = (lab, centers, step, levels, s.array_width, s.bl_ratio, s.neib_hor, s.neib_ver)
         kern = cost_volume.superpixel_cost_volume(*args)
         plain = cost_volume.cost_volume_reference(*args)
         torch.cuda.synchronize()
-        err = (kern - plain).abs().max().item()
-        if not torch.allclose(kern, plain, rtol=RTOL, atol=ATOL):
-            raise AssertionError(f"{label}: kernel and plain disagree, max abs err {err}")
-        ones = torch.ones(lab.shape[0], device=dev)
-        agree = (
-            cost_volume.wta_disparity(kern, levels, ones)
-            == cost_volume.wta_disparity(plain, levels, ones)
-        ).float().mean().item()
-        if agree < WTA_AGREE:
-            raise AssertionError(f"{label}: WTA agreement {agree} < {WTA_AGREE}")
+        if not torch.equal(kern, plain):
+            bad = int((kern != plain).sum())
+            raise AssertionError(f"cost_volume {label}: kernel and plain differ at {bad} outputs")
         k, p = _in_turns(lambda: cost_volume.superpixel_cost_volume(*args),
                          lambda: cost_volume.cost_volume_reference(*args), 10, 2)
-        print(f"[2] cost_volume {label}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
-              f"wta_agree {agree:.6f} kernel {k:.3f} ms plain {p:.3f} ms ({card})")
-        rec[label] = dict(max_abs_err=err, wta_agree=agree, ms=k, plain_ms=p)
-    return rec["full 9x1080x1920"] | {"max_abs_err": max(r["max_abs_err"] for r in rec.values())}
+        bound, bound_by = _cost_volume_bound(lab, centers, step, levels, s, kern)
+        print(f"[2] cost_volume {label}: shape {tuple(kern.shape)} bitwise equal, step max "
+              f"{step.max().item():.1f}, kernel {k:.3f} ms, bound {bound:.4g} ms ({bound_by}), "
+              f"plain {p:.3f} ms ({card})")
+        rec[label] = dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=bound_by)
+    return rec["full 9x1080x1920"] | {"max_abs_err": 0.0}
 
 
 def phase_sweep_vs_plain(card: str) -> dict:
@@ -264,8 +331,9 @@ def phase_sweep_vs_plain(card: str) -> dict:
          *_sweep_args(odd), odd.bl_ratio),
     ]
     rec = {}
+    radius = 2
     for label, lab, ladder, pairs, bl in cases:
-        args = (lab, [float(d) for d in ladder], pairs, bl, 2)
+        args = (lab, [float(d) for d in ladder], pairs, bl, radius)
         kd, kc = sweep.plane_sweep(*args)
         pd, pc = plane_sweep_reference(*args)
         torch.cuda.synchronize()
@@ -273,8 +341,16 @@ def phase_sweep_vs_plain(card: str) -> dict:
             bad = int((kd != pd).sum() + (kc != pc).sum())
             raise AssertionError(f"sweep {label}: kernel and plain differ at {bad} outputs")
         k, p = _in_turns(lambda: sweep.plane_sweep(*args), lambda: plane_sweep_reference(*args), 3, 1)
-        print(f"[2] sweep {label}: bitwise equal, kernel {k:.3f} ms plain {p:.3f} ms ({card})")
-        rec[label] = dict(ms=k, plain_ms=p)
+        # per (pair, hypothesis, pixel) the SAD, the box sums and the min
+        # over pairs; per (view, hypothesis, pixel) the WTA compare
+        v, h, w = lab.shape[:3]
+        n_d = len(args[1])
+        ops = (len(pairs) * (SWEEP_OPS_SAD + 4 * radius + 1) + v) * n_d * h * w
+        tables = 4 * (v + 1 + len(pairs) * (1 + 4 * n_d) + n_d)
+        bound, bound_by = _bound(_nbytes(lab, kd, kc) + tables, ops)
+        print(f"[2] sweep {label}: bitwise equal, kernel {k:.3f} ms, bound {bound:.4g} ms "
+              f"({bound_by}), plain {p:.3f} ms ({card})")
+        rec[label] = dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=bound_by)
     return rec["full 9x1080x1920 D31 P40"] | {"max_abs_err": 0.0}
 
 
@@ -315,7 +391,7 @@ def phase_consistency_vs_plain(card: str) -> dict:
     if len(calls) != 2:
         raise AssertionError(f"sweep 0 made {len(calls)} consistency calls, expected 2")
 
-    errs, k_tot, p_tot = [], 0.0, 0.0
+    errs, k_tot, p_tot, bound_tot, bound_by = [], 0.0, 0.0, 0.0, ""
     for phase, (a, k) in zip(("update", "refit"), calls):
         kern = consistency.consistency_moves(*a, **k)
         plain = consistency.consistency_moves_reference(*a, **k)
@@ -327,13 +403,25 @@ def phase_consistency_vs_plain(card: str) -> dict:
         n_bad = int((~torch.isfinite(kern)).sum())
         km, pm = _in_turns(lambda: consistency.consistency_moves(*a, **k),
                            lambda: consistency.consistency_moves_reference(*a, **k), 10, 1)
+        # bytes: every input the kernel takes, once; operations: every
+        # (move, cell, pair, sample) term counted valid, at most what the
+        # data needs (the bytes bound it at these shapes all the same)
+        c_ctx, c_cache, d_c, n_c = a
+        m, v, mh, mw = d_c.shape
+        n_pairs = len(k["pairs"])
+        ops = m * mh * mw * 9 * (n_pairs * CONS_OPS_TERM + v * CONS_OPS_DIP)
+        n_bytes = _nbytes(c_ctx.center, c_ctx.color, c_ctx.samples, c_ctx.fl, c_cache.ras,
+                          d_c, n_c, kern) + 4 * (v + 1 + 3 * n_pairs)
+        bound, bound_by = _bound(n_bytes, ops)
         print(f"[2] consistency sweep 0 {phase}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
-              f"non-finite {n_bad} kernel {km:.3f} ms plain {pm:.3f} ms ({card})")
+              f"non-finite {n_bad} kernel {km:.3f} ms, bound {bound:.4g} ms ({bound_by}), "
+              f"plain {pm:.3f} ms ({card})")
         errs.append(err)
         k_tot += km
         p_tot += pm
+        bound_tot += bound
     # per sweep: both phases' calls
-    return dict(max_abs_err=max(errs), ms=k_tot, plain_ms=p_tot)
+    return dict(max_abs_err=max(errs), ms=k_tot, plain_ms=p_tot, bound_ms=bound_tot, bound_by=bound_by)
 
 
 def phase_slice(card: str):
@@ -711,17 +799,18 @@ def main() -> int:
     cv_launches = phase_cli(card, art)
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
+    # library_ms: no single PyTorch call computes any of the three functions
+    rows = (
+        ("cost_volume", "cl_multiview_stereo_tpu/ops/cost_volume.py:46", cv_launches, cv),
+        ("sweep", "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", sw_launches, sw),
+        ("consistency", "cl_multiview_stereo_tpu/ops/pallas/consistency.py:95", cons_launches, cons),
+    )
     record = {"kernels": [
-        {"name": "cost_volume", "route": "cuda", "source": src("cost_volume"),
-         "replaces": "cl_multiview_stereo_tpu/ops/cost_volume.py:46", "launches": cv_launches,
-         "max_abs_err": cv["max_abs_err"], "ms": cv["ms"], "plain_ms": cv["plain_ms"]},
-        {"name": "sweep", "route": "cuda", "source": src("sweep"),
-         "replaces": "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", "launches": sw_launches,
-         "max_abs_err": sw["max_abs_err"], "ms": sw["ms"], "plain_ms": sw["plain_ms"]},
-        {"name": "consistency", "route": "cuda", "source": src("consistency"),
-         "replaces": "cl_multiview_stereo_tpu/ops/pallas/consistency.py:95",
-         "launches": cons_launches, "max_abs_err": cons["max_abs_err"], "ms": cons["ms"],
-         "plain_ms": cons["plain_ms"]},
+        {"name": name, "route": "cuda", "source": src(name), "replaces": replaces,
+         "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for name, replaces, launches, r in rows
     ]}
     print(card)
     print(json.dumps(record))

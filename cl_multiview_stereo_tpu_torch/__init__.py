@@ -9,14 +9,15 @@ depth-init cost volume (``csrc/cost_volume.cu``), the strips consistency
 engine (``csrc/consistency.cu``) and the dense plane sweep
 (``csrc/sweep.cu``).
 
-Only the numpy-only modules of the JAX package are imported
-(``config``, ``testing.synthetic``, ``io.images``), so this package runs
-where JAX is not installed.
+This package imports nothing of the JAX package, nor JAX: the numpy-only
+modules it needs (``config``, ``io.images``, ``io.pointcloud``,
+``testing.synthetic``) are its own copies, held equal to the JAX ones by
+``tests/test_torch_config.py``, so it runs where JAX is not installed.
 """
 
 import torch
 
-from cl_multiview_stereo_tpu.config import (
+from cl_multiview_stereo_tpu_torch.config import (
     DerivedGeometry,
     RefinementSchedule,
     SlicParams,
@@ -24,15 +25,15 @@ from cl_multiview_stereo_tpu.config import (
     build_disp_levels,
     build_view_subsets,
 )
-from cl_multiview_stereo_tpu.testing.synthetic import fronto_parallel_scene
+from cl_multiview_stereo_tpu_torch.testing.synthetic import fronto_parallel_scene
 
 # Every tolerance of the port is stated against float32 JAX.  TF32 keeps
 # about three decimal digits, so neither matmuls nor cuDNN may use it.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-# The reference package's numpy-only pieces, re-exported so that callers
-# of the port (chip_smoke.py among them) import nothing of that package.
+# The configuration and the synthetic scene, re-exported for the port's
+# callers (chip_smoke.py among them).
 __all__ = [
     "SystemSettings",
     "DerivedGeometry",

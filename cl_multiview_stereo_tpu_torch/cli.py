@@ -88,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def settings_from(args: argparse.Namespace):
     """``SystemSettings`` from ``--config`` and the ``--set`` overrides."""
-    from cl_multiview_stereo_tpu.config import SystemSettings
+    from cl_multiview_stereo_tpu_torch.config import SystemSettings
 
     s = SystemSettings.from_json(args.config) if args.config else SystemSettings()
     if args.set:
@@ -114,7 +114,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.cmd == "sfm" or args.sfm:
         raise NotImplementedError(_SFM_NOT_PORTED)
 
-    from cl_multiview_stereo_tpu.io.images import load_image_array
+    from cl_multiview_stereo_tpu_torch.io.images import load_image_array
 
     s = settings_from(args)
     dev = resolve_device(args.device)
@@ -134,7 +134,7 @@ def run_array(rgb: np.ndarray, args: argparse.Namespace, s, dev: torch.device):
     On a CUDA device the per-stage device times are printed too, and the
     host seconds of each output in the last line.  Returns the pipeline's
     artifacts."""
-    from cl_multiview_stereo_tpu.io.images import save_gray_png
+    from cl_multiview_stereo_tpu_torch.io.images import save_gray_png
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
     from cl_multiview_stereo_tpu_torch.utils import artifacts
     from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer
@@ -168,7 +168,7 @@ def run_array(rgb: np.ndarray, args: argparse.Namespace, s, dev: torch.device):
     host_s["disparity_pngs"] = time.perf_counter() - t0
     if args.dump_stages:
         t0 = time.perf_counter()
-        from cl_multiview_stereo_tpu.io.images import draw_segmentation_lines, save_png
+        from cl_multiview_stereo_tpu_torch.io.images import draw_segmentation_lines, save_png
 
         overlay = draw_segmentation_lines(rgb, artifacts.to_host(art.labels))
         for view in range(v):
@@ -181,7 +181,7 @@ def run_array(rgb: np.ndarray, args: argparse.Namespace, s, dev: torch.device):
         host_s["stage_pngs"] = time.perf_counter() - t0
     if args.ply:
         t0 = time.perf_counter()
-        from cl_multiview_stereo_tpu.io.pointcloud import disparity_to_points, save_ply
+        from cl_multiview_stereo_tpu_torch.io.pointcloud import disparity_to_points, save_ply
 
         pts, cols = disparity_to_points(disp_np, rgb, s.array_width, s.bl_ratio)
         save_ply(os.path.join(args.out, "fused.ply"), pts, cols)

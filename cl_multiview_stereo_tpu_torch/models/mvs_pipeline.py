@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cl_multiview_stereo_tpu.config import (
+from cl_multiview_stereo_tpu_torch.config import (
     DerivedGeometry,
     RefinementSchedule,
     SlicParams,
@@ -206,7 +206,7 @@ class MVSPipeline:
 
     def run_from_list(self, list_path: str) -> PipelineArtifacts:
         """Load the image list (the reference's ``data.txt`` format) and run."""
-        from cl_multiview_stereo_tpu.io.images import load_image_array
+        from cl_multiview_stereo_tpu_torch.io.images import load_image_array
 
         rgb = load_image_array(list_path, self.settings.view_num)
         if rgb.shape[2] != self.geom.img_w or rgb.shape[1] != self.geom.img_h:

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from cl_multiview_stereo_tpu.config import DerivedGeometry, SlicParams
+from cl_multiview_stereo_tpu_torch.config import DerivedGeometry, SlicParams
 
 
 class SuperpixelMap(NamedTuple):

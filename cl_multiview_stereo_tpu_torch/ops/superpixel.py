@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from cl_multiview_stereo_tpu.config import DerivedGeometry
+from cl_multiview_stereo_tpu_torch.config import DerivedGeometry
 
 # Compass slot order nw, w, sw, n, s, ne, e, se as (dx, dy) (clcode.cl:826-851).
 _DIRS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))

@@ -33,7 +33,7 @@ def to_host(a) -> np.ndarray:
 
 def dump_stage_pngs(out_dir: str, name: str, arr, lo: float, hi: float) -> None:
     """Write one grayscale PNG per view for a (V, ...) tensor or array."""
-    from cl_multiview_stereo_tpu.io.images import save_gray_png
+    from cl_multiview_stereo_tpu_torch.io.images import save_gray_png
 
     sub = os.path.join(out_dir, STAGE_DIRS.get(name, name))
     a = to_host(arr)

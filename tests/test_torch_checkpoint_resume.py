@@ -8,11 +8,10 @@ import pytest
 import torch
 
 from cl_multiview_stereo_tpu.models.mvs_pipeline import MVSPipeline as JaxPipeline
-from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch import convert
 from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
 from cl_multiview_stereo_tpu_torch.utils import artifacts
-from torch_parity import CPU, n, small_settings
+from torch_parity import CPU, jax_settings, n, scenes, small_settings
 
 SLIC_KEYS = ("labels", "center", "color", "count")
 # the keys each resume point saves beyond SLIC's
@@ -25,11 +24,12 @@ RESUME_POINTS = {
 
 @pytest.fixture(scope="module")
 def straight():
-    views, _ = synthetic.two_plane_scene(
-        48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0, seed=11
+    views, jviews = scenes(
+        "two_plane_scene", 48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0,
+        bl_ratio=1.0, seed=11,
     )
     pipe = MVSPipeline.create(64, 48, small_settings(), device=CPU, cross_check=True)
-    return views, pipe, pipe.run(views)
+    return views, pipe, pipe.run(views), jviews
 
 
 def _arrays(art) -> dict[str, np.ndarray]:
@@ -44,7 +44,7 @@ def _arrays(art) -> dict[str, np.ndarray]:
 
 @pytest.mark.parametrize("point", list(RESUME_POINTS))
 def test_resume_matches_straight_run(tmp_path, straight, point):
-    views, pipe, art = straight
+    views, pipe, art, _ = straight
     arrays = _arrays(art)
     path = str(tmp_path / f"{point}.npz")
     artifacts.save_checkpoint(path, **{k: arrays[k] for k in SLIC_KEYS + RESUME_POINTS[point]})
@@ -59,12 +59,14 @@ def test_resume_without_count_matches_jax(tmp_path, straight):
     """The JAX pipeline treats ``count`` as optional (zeros); so does the
     port.  A post-SLIC checkpoint without it resumes in both, and the two
     agree at test_torch_pipeline.py's bounds."""
-    views, pipe, art = straight
+    views, pipe, art, jviews = straight
     arrays = _arrays(art)
     path = str(tmp_path / "no_count.npz")
     artifacts.save_checkpoint(path, **{k: arrays[k] for k in ("labels", "center", "color")})
     got = pipe.resume(views, path)
-    want = JaxPipeline.create(64, 48, small_settings(), cross_check=True).resume(views, path)
+    want = JaxPipeline.create(64, 48, jax_settings(small_settings()), cross_check=True).resume(
+        jviews, path
+    )
     assert not n(got.spmap.count).any() and not np.asarray(want.spmap.count).any()
     np.testing.assert_array_equal(n(got.disp_full), n(art.disp_full))
     np.testing.assert_array_equal(n(got.labels), np.asarray(want.labels))
@@ -89,7 +91,7 @@ def test_convert_checkpoint_dtypes(straight):
 
 @pytest.mark.parametrize("fault", ["partial", "shape"])
 def test_validate_checkpoint_raises(tmp_path, straight, fault):
-    views, pipe, art = straight
+    views, pipe, art, _ = straight
     arrays = _arrays(art)
     if fault == "partial":
         keep = dict((k, arrays[k]) for k in SLIC_KEYS + ("state_d", "state_sm"))

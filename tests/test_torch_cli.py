@@ -12,14 +12,16 @@ import pytest
 import torch
 
 from cl_multiview_stereo_tpu import cli as jax_cli
-from cl_multiview_stereo_tpu.io.images import load_image_array, save_png
-from cl_multiview_stereo_tpu.io.pointcloud import load_ply
+from cl_multiview_stereo_tpu.io import images as jax_images
+from cl_multiview_stereo_tpu.io import pointcloud as jax_pointcloud
 from cl_multiview_stereo_tpu.models.mvs_pipeline import MVSPipeline as JaxPipeline
-from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch import cli
+from cl_multiview_stereo_tpu_torch.io.images import load_image_array, save_png
+from cl_multiview_stereo_tpu_torch.io.pointcloud import load_ply
+from cl_multiview_stereo_tpu_torch.testing import synthetic
 from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
 from cl_multiview_stereo_tpu_torch.utils import artifacts
-from torch_parity import CPU, n, small_settings
+from torch_parity import CPU, jax_settings, n, small_settings
 
 REPO = Path(__file__).resolve().parent.parent
 # tests/torch_parity.small_settings as --set overrides (bl_ratio 1.0 and
@@ -47,7 +49,7 @@ def runs(tmp_path_factory):
     assert cli.main(["run", str(lst), "--device", "cpu", "--out", str(port_out), *FLAGS, *SETS]) == 0
     assert jax_cli.main(["run", str(lst), "--out", str(jax_out), *FLAGS, *SETS]) == 0
     return dict(root=root, list=str(lst), port=port_out, jax=jax_out,
-                rgb=load_image_array(str(lst), 4))
+                rgb=load_image_array(str(lst), 4), jrgb=jax_images.load_image_array(str(lst), 4))
 
 
 def _tree(root: Path) -> set[str]:
@@ -68,7 +70,7 @@ def test_cli_writes_the_jax_tree(runs):
         assert ck[k].shape == jck[k].shape and ck[k].dtype == jck[k].dtype, k
     pts, cols = load_ply(str(runs["port"] / "fused.ply"))
     assert pts.shape[0] == int((ck["disp_full"] > 1e-3).sum()) == cols.shape[0]
-    jpts, _ = load_ply(str(runs["jax"] / "fused.ply"))
+    jpts, _ = jax_pointcloud.load_ply(str(runs["jax"] / "fused.ply"))
     assert abs(pts.shape[0] - jpts.shape[0]) <= 0.02 * jpts.shape[0]
 
 
@@ -86,8 +88,8 @@ def test_port_checkpoint_resumes_in_jax(runs):
     """The post-refinement checkpoint re-enters at fusion; only the
     rasterizer's FMA contraction in XLA differs (ROADMAP queue 3)."""
     ck = _npz(runs["port"] / NPZ)
-    art = JaxPipeline.create(64, 48, small_settings(), cross_check=True).resume(
-        runs["rgb"], str(runs["port"] / NPZ)
+    art = JaxPipeline.create(64, 48, jax_settings(small_settings()), cross_check=True).resume(
+        runs["jrgb"], str(runs["port"] / NPZ)
     )
     np.testing.assert_allclose(np.asarray(art.disp_full), ck["disp_full"], rtol=0, atol=5e-6)
 

@@ -9,13 +9,7 @@ test_torch_kernels_cuda.py."""
 import numpy as np
 import pytest
 
-from cl_multiview_stereo_tpu.config import (
-    DerivedGeometry,
-    RefinementSchedule,
-    SlicParams,
-    build_disp_levels,
-    build_view_subsets,
-)
+from cl_multiview_stereo_tpu import config as jcfg
 from cl_multiview_stereo_tpu.ops import cost_volume as jcv
 from cl_multiview_stereo_tpu.ops import refine as jref
 from cl_multiview_stereo_tpu.ops import slic as jslic
@@ -24,9 +18,10 @@ from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
 from cl_multiview_stereo_tpu.ops.pallas.consistency import consistency_moves as jax_consistency_moves
 from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch import convert
+from cl_multiview_stereo_tpu_torch.config import RefinementSchedule, build_disp_levels, build_view_subsets
 from cl_multiview_stereo_tpu_torch.kernels import build
 from cl_multiview_stereo_tpu_torch.ops import consistency, refine
-from torch_parity import CPU, n, small_settings, t
+from torch_parity import CPU, jax_settings, n, small_settings, t
 
 # the JAX suite's bound for strips against gather (test_consistency_strips.py)
 RTOL, ATOL = 2e-4, 2e-5
@@ -35,12 +30,13 @@ RTOL, ATOL = 2e-4, 2e-5
 @pytest.fixture(scope="module")
 def scene():
     s = small_settings(array_width=3, array_height=2, bl_ratio=1.0359)
+    js = jax_settings(s)
     views, _ = synthetic.two_plane_scene(
         48, 64, array_width=3, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0359, seed=3,
     )
-    geom = DerivedGeometry.create(64, 48, s)
+    geom = jcfg.DerivedGeometry.create(64, 48, js)
     lab = np.asarray(jax_rgb_to_lab(views))
-    labels, spmap = jslic.segment(lab, geom, SlicParams.create(s))
+    labels, spmap = jslic.segment(lab, geom, jcfg.SlicParams.create(js))
     ext = np.asarray(jsp.superpixel_extent(labels, spmap.center, geom))
     subset, counts = build_view_subsets(s)
     disp0 = jcv.initial_depth_estimation(

@@ -8,20 +8,16 @@ import numpy as np
 import pytest
 import torch
 
-from cl_multiview_stereo_tpu.config import (
-    DerivedGeometry,
-    SlicParams,
-    build_disp_levels,
-    build_view_subsets,
-)
+from cl_multiview_stereo_tpu import config as jcfg
 from cl_multiview_stereo_tpu.ops import cost_volume as jcv
 from cl_multiview_stereo_tpu.ops import slic as jslic
 from cl_multiview_stereo_tpu.ops import superpixel as jsp
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
 from cl_multiview_stereo_tpu.testing import mirror, synthetic
+from cl_multiview_stereo_tpu_torch.config import build_disp_levels, build_view_subsets
 from cl_multiview_stereo_tpu_torch.kernels import build
 from cl_multiview_stereo_tpu_torch.ops import cost_volume
-from torch_parity import n, small_settings, t
+from torch_parity import jax_settings, n, small_settings, t
 
 # the JAX suite's bounds for strips against dense (tests/test_depth_init.py)
 RTOL, ATOL, WTA_AGREE = 2e-7, 1e-3, 0.999
@@ -31,12 +27,13 @@ RTOL, ATOL, WTA_AGREE = 2e-7, 1e-3, 0.999
 def scene():
     """tests/test_depth_init.py's scene: fronto-parallel plane at d = 7."""
     s = small_settings()
+    js = jax_settings(s)
     views, _ = synthetic.fronto_parallel_scene(
         48, 64, array_width=2, array_height=2, disp=7.0, bl_ratio=1.0, seed=5
     )
-    geom = DerivedGeometry.create(64, 48, s)
+    geom = jcfg.DerivedGeometry.create(64, 48, js)
     lab = np.asarray(jax_rgb_to_lab(views))
-    labels, spmap = jslic.segment(lab, geom, SlicParams.create(s))
+    labels, spmap = jslic.segment(lab, geom, jcfg.SlicParams.create(js))
     ext = jsp.superpixel_extent(labels, spmap.center, geom)
     return dict(
         s=s, lab=lab, center=np.asarray(spmap.center), ext=np.asarray(ext),

@@ -5,13 +5,13 @@ import numpy as np
 import pytest
 import torch
 
-from cl_multiview_stereo_tpu.config import DerivedGeometry, SlicParams
+from cl_multiview_stereo_tpu import config as jcfg
 from cl_multiview_stereo_tpu.ops import fusion as jfusion
 from cl_multiview_stereo_tpu.ops import slic as jslic
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
 from cl_multiview_stereo_tpu.testing import mirror, synthetic
 from cl_multiview_stereo_tpu_torch.ops import fusion
-from torch_parity import n, small_settings, t
+from torch_parity import jax_settings, n, small_settings, t
 
 BL = 1.0359
 FUSE = 1.0
@@ -59,12 +59,12 @@ def test_remove_view_inconsistency_matches_jax_and_mirror(name):
 def planes():
     """Random planes on the labels of the 2x2 two-plane scene; a few
     superpixels get nz = 0, so ``disp_full`` holds non-finite values."""
-    s = small_settings()
+    s = jax_settings(small_settings())
     views, _ = synthetic.two_plane_scene(
         48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0, seed=7
     )
-    geom = DerivedGeometry.create(64, 48, s)
-    labels, spmap = jslic.segment(jax_rgb_to_lab(views), geom, SlicParams.create(s))
+    geom = jcfg.DerivedGeometry.create(64, 48, s)
+    labels, spmap = jslic.segment(jax_rgb_to_lab(views), geom, jcfg.SlicParams.create(s))
     rng = np.random.default_rng(3)
     v, mh, mw = 4, geom.map_h, geom.map_w
     d = rng.uniform(4, 11, (v, mh, mw)).astype(np.float32)

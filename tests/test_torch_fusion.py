@@ -4,23 +4,23 @@ import numpy as np
 import pytest
 import torch
 
-from cl_multiview_stereo_tpu.config import DerivedGeometry, SlicParams
+from cl_multiview_stereo_tpu import config as jcfg
 from cl_multiview_stereo_tpu.ops import fusion as jfusion
 from cl_multiview_stereo_tpu.ops import slic as jslic
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
 from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch.ops import fusion
-from torch_parity import n, small_settings, t
+from torch_parity import jax_settings, n, small_settings, t
 
 
 @pytest.fixture(scope="module")
 def planes():
-    s = small_settings()
+    s = jax_settings(small_settings())
     views, _ = synthetic.two_plane_scene(
         48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0, seed=7
     )
-    geom = DerivedGeometry.create(64, 48, s)
-    labels, spmap = jslic.segment(jax_rgb_to_lab(views), geom, SlicParams.create(s))
+    geom = jcfg.DerivedGeometry.create(64, 48, s)
+    labels, spmap = jslic.segment(jax_rgb_to_lab(views), geom, jcfg.SlicParams.create(s))
     rng = np.random.default_rng(3)
     v, mh, mw = 4, geom.map_h, geom.map_w
     d = rng.uniform(4, 11, (v, mh, mw)).astype(np.float32)

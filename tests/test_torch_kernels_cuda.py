@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from cl_multiview_stereo_tpu.config import (
+from cl_multiview_stereo_tpu_torch.config import (
     DerivedGeometry,
     RefinementSchedule,
     SlicParams,
@@ -21,13 +21,10 @@ from cl_multiview_stereo_tpu.config import (
     build_disp_levels,
     build_view_subsets,
 )
-from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch.models import plane_sweep
 from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, fusion, refine, slic, superpixel, sweep
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
-
-# the JAX suite's bounds for strips against dense (tests/test_depth_init.py)
-RTOL, ATOL, WTA_AGREE = 2e-7, 1e-3, 0.999
+from cl_multiview_stereo_tpu_torch.testing import synthetic
 
 
 @pytest.fixture
@@ -37,9 +34,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(h, w, s, device):
+def _inputs(h, w, s, device, disp=7.0, seed=5):
     rgb, _ = synthetic.fronto_parallel_scene(
-        h, w, s.array_width, s.array_height, disp=7.0, bl_ratio=s.bl_ratio, seed=5
+        h, w, s.array_width, s.array_height, disp=disp, bl_ratio=s.bl_ratio, seed=seed
     )
     geom = DerivedGeometry.create(w, h, s)
     lab = rgb_to_lab(torch.as_tensor(rgb, device=device))
@@ -61,11 +58,61 @@ def test_cost_volume_kernel_matches_reference(cuda, hw, bl_ratio):
     torch.cuda.synchronize()
     assert cost_volume.LAUNCHES == before + 1
     want = cost_volume.cost_volume_reference(*args)
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-    ones = torch.ones(lab.shape[0], device=cuda)
-    agree = (cost_volume.wta_disparity(got, levels, ones)
-             == cost_volume.wta_disparity(want, levels, ones)).float().mean().item()
-    assert agree > WTA_AGREE
+    assert torch.equal(got, want), f"{int((got != want).sum())} outputs differ"
+
+
+# chip_smoke.py's phase-2 shapes: the slice's 9-view 1080p scene, an odd
+# small one, and 16-pixel superpixels on ragged 8x8-cell tiles with sample
+# steps up to 7, whose boxes outgrow the shared-memory band
+SMOKE_SHAPES = {
+    "full-9x1080x1920": (dict(), (1080, 1920), 40.0),
+    "odd-4x61x45": (dict(array_width=2, array_height=2, min_disp=4, max_disp=11), (61, 45), 7.0),
+    "ragged-9x543x967-S16": (dict(spixl_size=16), (543, 967), 40.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SMOKE_SHAPES))
+def test_cost_volume_kernel_bitwise_at_smoke_shapes(cuda, shape):
+    overrides, (h, w), disp = SMOKE_SHAPES[shape]
+    s = SystemSettings(**overrides)
+    lab, centers, step = _inputs(h, w, s, cuda, disp=disp, seed=0)
+    args = (lab, centers, step, build_disp_levels(s), s.array_width, s.bl_ratio)
+    got = cost_volume.superpixel_cost_volume(*args)
+    want = cost_volume.cost_volume_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{int((got != want).sum())} outputs differ"
+    if shape.endswith("S16"):
+        assert step.max().item() == 7.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["x", "y"])
+def test_cost_volume_kernel_bitwise_at_the_rounding_edge(cuda, axis):
+    """A read one pixel inside the image's far edge whose exact validity
+    test passes but whose f32 difference rounds up to the edge: x - d*gx =
+    W - 2**-20 rounds to W, so the sample costs 30.  Two views side by side
+    (or stacked), one 8x8-cell tile of regular centres with step 1, so the
+    tile's samples reach exactly to 62, and view 1 reads view 0 at
+    62 - ceil(-d) = 63 = size - 1 for both d = 1 and d = 2 - 2**-20."""
+    size = 64
+    aw = 2 if axis == "x" else 1
+    v = 2
+    rng = np.random.default_rng(9)
+    lab = torch.as_tensor(rng.uniform(0, 100, (v, size, size, 3)).astype(np.float32), device=cuda)
+    grid = 8 * torch.arange(8, dtype=torch.float32) + 4.0
+    cy, cx = torch.meshgrid(grid, grid, indexing="ij")
+    centers = torch.stack([cx, cy], -1).expand(v, 8, 8, 2).contiguous().to(cuda)
+    step = torch.ones((v, 8, 8, 2), dtype=torch.float32, device=cuda)
+    levels = np.asarray([1.0, 2.0 - 2.0**-20], np.float32)
+    # the reference's own test on the far sample of view 1 against view 0
+    far = np.float32(62) + levels[1]
+    assert far == np.float32(size)
+    args = (lab, centers, step, levels, aw, 1.0)
+    got = cost_volume.superpixel_cost_volume(*args)
+    want = cost_volume.cost_volume_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"{int((got != want).sum())} outputs differ"
 
 
 @pytest.mark.cuda

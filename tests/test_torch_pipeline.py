@@ -9,27 +9,25 @@ import pytest
 import torch
 
 from cl_multiview_stereo_tpu.models.mvs_pipeline import MVSPipeline as JaxPipeline
-from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch import convert
 from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-from torch_parity import CPU, n, small_settings
+from torch_parity import CPU, jax_settings, n, scenes, small_settings
 
 PORT = Path(__file__).resolve().parent.parent / "cl_multiview_stereo_tpu_torch"
-# modules of the JAX package that import jax; the numpy-only ones
-# (config, testing.synthetic, io.images) may be imported
-FORBIDDEN = ("jax", "cl_multiview_stereo_tpu.ops", "cl_multiview_stereo_tpu.models",
-             "cl_multiview_stereo_tpu.parallel", "cl_multiview_stereo_tpu.utils")
+# the port imports neither JAX nor any module of the JAX package
+FORBIDDEN = ("jax", "jaxlib", "cl_multiview_stereo_tpu")
 
 
 @pytest.fixture(scope="module")
 def runs():
     """tests/test_pipeline.py's scene through both pipelines, strips method."""
     s = small_settings()
-    views, gt = synthetic.two_plane_scene(
-        48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0, seed=11
+    views, jviews = scenes(
+        "two_plane_scene", 48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0,
+        bl_ratio=1.0, seed=11,
     )
     port = MVSPipeline.create(64, 48, s, device=CPU, depth_method="strips").run(views)
-    ref = JaxPipeline.create(64, 48, s, depth_method="strips").run(views)
+    ref = JaxPipeline.create(64, 48, jax_settings(s), depth_method="strips").run(jviews)
     return s, views, port, ref
 
 
@@ -75,11 +73,12 @@ def test_pipeline_knob_matches_jax(knob):
     bounds."""
     overrides, kw = KNOBS[knob]
     s = small_settings(**overrides)
-    views, _ = synthetic.two_plane_scene(
-        48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0, seed=11
+    views, jviews = scenes(
+        "two_plane_scene", 48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0,
+        bl_ratio=1.0, seed=11,
     )
     port = MVSPipeline.create(64, 48, s, device=CPU, **kw).run(views)
-    ref = JaxPipeline.create(64, 48, s, **kw).run(views)
+    ref = JaxPipeline.create(64, 48, jax_settings(s), **kw).run(jviews)
     assert (n(port.labels) == np.asarray(ref.labels)).mean() > 0.995
     agree = (n(port.disp_init) == np.asarray(ref.disp_init)).mean()
     assert agree >= 0.99, f"disp_init agreement {agree}"
@@ -128,16 +127,12 @@ def test_port_imports_no_jax(target):
     if target == "package":
         # build outputs under _build/ are not sources
         paths = [p for p in sorted(PORT.rglob("*.py")) if "_build" not in p.relative_to(PORT).parts]
-        forbidden = FORBIDDEN
     else:
-        # the smoke script reaches even the numpy-only reference modules
-        # through the port's re-exports
         paths = [PORT.parent / "chip_smoke.py"]
-        forbidden = ("jax", "cl_multiview_stereo_tpu")
     bad = [
         f"{path.name}:{line} imports {name}"
         for path in paths
         for line, name in _imports(path)
-        if any(name == f or name.startswith(f + ".") for f in forbidden)
+        if any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
     ]
     assert paths and not bad, bad

@@ -9,9 +9,9 @@ import math
 import numpy as np
 import pytest
 
-from cl_multiview_stereo_tpu.config import SystemSettings, build_view_subsets
 from cl_multiview_stereo_tpu.models import plane_sweep as jps
 from cl_multiview_stereo_tpu.ops.pallas.sweep import plane_sweep_pallas
+from cl_multiview_stereo_tpu_torch.config import SystemSettings, build_view_subsets
 from cl_multiview_stereo_tpu_torch.kernels import build
 from cl_multiview_stereo_tpu_torch.models import plane_sweep
 from cl_multiview_stereo_tpu_torch.ops import sweep

@@ -4,13 +4,7 @@ each fed the JAX stage's own inputs through ``convert``."""
 import numpy as np
 import pytest
 
-from cl_multiview_stereo_tpu.config import (
-    DerivedGeometry,
-    RefinementSchedule,
-    SlicParams,
-    build_disp_levels,
-    build_view_subsets,
-)
+from cl_multiview_stereo_tpu import config as jcfg
 from cl_multiview_stereo_tpu.ops import cost_volume as jcv
 from cl_multiview_stereo_tpu.ops import refine as jref
 from cl_multiview_stereo_tpu.ops import slic as jslic
@@ -18,8 +12,9 @@ from cl_multiview_stereo_tpu.ops import superpixel as jsp
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
 from cl_multiview_stereo_tpu.testing import synthetic
 from cl_multiview_stereo_tpu_torch import convert
+from cl_multiview_stereo_tpu_torch.config import RefinementSchedule, build_disp_levels, build_view_subsets
 from cl_multiview_stereo_tpu_torch.ops import refine
-from torch_parity import CPU, n, small_settings, t
+from torch_parity import CPU, jax_settings, n, small_settings, t
 
 
 # tests/test_refine.py's two scenes: the 2x2 fixture, and the shipping
@@ -42,9 +37,10 @@ def scene(request):
         48, 64, array_width=g["array_width"], array_height=g["array_height"],
         disp_bg=5.0, disp_fg=9.0, bl_ratio=g["bl_ratio"], seed=g["seed"],
     )
-    geom = DerivedGeometry.create(64, 48, s)
+    js = jax_settings(s)
+    geom = jcfg.DerivedGeometry.create(64, 48, js)
     lab = np.asarray(jax_rgb_to_lab(views))
-    labels, spmap = jslic.segment(lab, geom, SlicParams.create(s))
+    labels, spmap = jslic.segment(lab, geom, jcfg.SlicParams.create(js))
     ext = jsp.superpixel_extent(labels, spmap.center, geom)
     subset, counts = build_view_subsets(s)
     disp0 = jcv.initial_depth_estimation(

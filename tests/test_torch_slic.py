@@ -4,13 +4,14 @@ import numpy as np
 import pytest
 import torch
 
-from cl_multiview_stereo_tpu.config import DerivedGeometry, SlicParams
+from cl_multiview_stereo_tpu import config as jcfg
 from cl_multiview_stereo_tpu.ops import slic as jslic
 from cl_multiview_stereo_tpu.ops.color import rgb_to_lab as jax_rgb_to_lab
 from cl_multiview_stereo_tpu.testing import mirror, synthetic
 from cl_multiview_stereo_tpu_torch import convert
+from cl_multiview_stereo_tpu_torch.config import DerivedGeometry, SlicParams
 from cl_multiview_stereo_tpu_torch.ops import slic
-from torch_parity import CPU, n, small_settings, t
+from torch_parity import CPU, jax_settings, n, small_settings, t
 
 
 @pytest.fixture(scope="module")
@@ -19,11 +20,12 @@ def scene():
     views, _ = synthetic.two_plane_scene(
         48, 64, array_width=2, array_height=2, disp_bg=5.0, disp_fg=9.0, bl_ratio=1.0, seed=11
     )
-    geom = DerivedGeometry.create(64, 48, s)
-    p = SlicParams.create(s)
+    js = jax_settings(s)
+    jgeom, jp = jcfg.DerivedGeometry.create(64, 48, js), jcfg.SlicParams.create(js)
     lab = np.asarray(jax_rgb_to_lab(views))
-    labels, spmap = jslic.segment(lab, geom, p)
-    return dict(s=s, geom=geom, p=p, lab=lab, labels=np.asarray(labels), spmap=spmap)
+    labels, spmap = jslic.segment(lab, jgeom, jp)
+    return dict(s=s, geom=DerivedGeometry.create(64, 48, s), p=SlicParams.create(s), jgeom=jgeom,
+                jp=jp, lab=lab, labels=np.asarray(labels), spmap=spmap)
 
 
 def test_segment_matches_jax(scene):
@@ -40,7 +42,7 @@ def test_init_and_assignment_match_jax(scene):
     geom, p = scene["geom"], scene["p"]
     lab = scene["lab"]
     got0 = slic.init_cluster_centers(t(lab), geom)
-    want0 = jslic.init_cluster_centers(lab, geom)
+    want0 = jslic.init_cluster_centers(lab, scene["jgeom"])
     np.testing.assert_array_equal(n(got0.center), np.asarray(want0.center))
     np.testing.assert_array_equal(n(got0.color), np.asarray(want0.color))
     # assignment against a converged JAX map (the parity swap matters there)
@@ -48,7 +50,7 @@ def test_init_and_assignment_match_jax(scene):
         {k: np.asarray(getattr(scene["spmap"], k)) for k in ("center", "color", "count")}, CPU
     )
     got = n(slic.find_center_association(t(lab), spmap, geom, p))
-    want = np.asarray(jslic.find_center_association(lab, scene["spmap"], geom, p))
+    want = np.asarray(jslic.find_center_association(lab, scene["spmap"], scene["jgeom"], scene["jp"]))
     assert (got == want).mean() > 0.995
 
 
@@ -61,7 +63,7 @@ def test_update_matches_jax(scene):
         {k: np.asarray(getattr(jspmap, k)) for k in ("center", "color", "count")}, CPU
     )
     got = slic.update_cluster_centers(t(lab), t(labels, torch.int32), spmap, geom)
-    want = jslic.update_cluster_centers(lab, labels, jspmap, geom)
+    want = jslic.update_cluster_centers(lab, labels, jspmap, scene["jgeom"])
     for field in ("center", "color", "count"):
         np.testing.assert_allclose(
             n(getattr(got, field)), np.asarray(getattr(want, field)), rtol=1e-4, atol=1e-3
@@ -81,7 +83,7 @@ def test_edge_snap_matches_jax(scene):
     from the edges' ulps."""
     geom, lab = scene["geom"], scene["lab"]
     edges = np.asarray(jslic.compute_edges(lab))
-    jmap = jslic.init_cluster_centers(lab, geom)
+    jmap = jslic.init_cluster_centers(lab, scene["jgeom"])
     want = jslic.apply_edge_snap(lab, edges, jmap)
     got = slic.apply_edge_snap(t(lab), t(edges), slic.init_cluster_centers(t(lab), geom))
     np.testing.assert_array_equal(n(got.center), np.asarray(want.center))
@@ -112,9 +114,9 @@ def test_suppress_local_labels_bitwise(scene, source):
     ids=lambda f: "+".join(f),
 )
 def test_segment_with_flags_matches_jax(scene, flags):
-    p = SlicParams.create(scene["s"].replace(**flags))
-    labels, spmap = slic.segment(t(scene["lab"]), scene["geom"], p)
-    jlabels, jspmap = jslic.segment(scene["lab"], scene["geom"], p)
+    s = scene["s"].replace(**flags)
+    labels, spmap = slic.segment(t(scene["lab"]), scene["geom"], SlicParams.create(s))
+    jlabels, jspmap = jslic.segment(scene["lab"], scene["jgeom"], jcfg.SlicParams.create(jax_settings(s)))
     agree = (n(labels) == np.asarray(jlabels)).mean()
     # tests/test_slic.py's bound for JAX against its scalar mirror
     assert agree > 0.995, f"label agreement {agree}"
