@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 0. device: a CUDA device is visible; print its name and power limit;
 1. build: compile ``csrc/{cost_volume,sweep,consistency}.cu`` with nvcc
    from this checkout, one nvcc each, all started together; print what
-   ptxas reports and check that two cost-volume blocks fit on an SM;
+   ptxas reports, check that two cost-volume blocks fit on an SM and that
+   the consistency kernel does not spill;
 2. kernels against their plain twins, on the same device tensors, with
    both times from CUDA events, in turns, beside each kernel's bound (the
    larger of its bytes over the card's memory rate and its f32 operations
@@ -57,6 +58,8 @@ import ctypes
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -77,6 +80,9 @@ CV_OPS_VALID, SWEEP_OPS_SAD, CONS_OPS_TERM, CONS_OPS_DIP = 9, 8, 36, 8
 # consistency kernel vs its plain twin: the same formula, sums over the
 # samples taken in another order by the twin's reductions
 CONS_RTOL, CONS_ATOL = 1e-5, 1e-6
+# the consistency kernel's ms per sweep in its first form, one thread per
+# (move, view, cell), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6)
+CONS_FIRST_FORM_MS = 3.494
 FULL_H, FULL_W = 1080, 1920
 TRUE_DISP = 40.0
 # the port-vs-JAX pipeline bounds (tests/test_torch_pipeline.py): label
@@ -245,6 +251,8 @@ def _strips_scene(pipe, rgb, timer=None):
 def phase_build() -> None:
     from cl_multiview_stereo_tpu_torch.kernels import build
 
+    # every kernel from this checkout's sources, with ptxas's report
+    shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         logs = dict(zip(KERNELS, (log for _, log in pool.map(build.build, KERNELS))))
@@ -253,8 +261,13 @@ def phase_build() -> None:
     print(f"[1] built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         for line in logs[name].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
+    # the consistency kernel builds without spills
+    spills = [ln.strip() for ln in logs["consistency"].splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise AssertionError(f"consistency kernel spills: {spills}")
     # the cost volume's design: two blocks share an SM, one stages while the
     # other computes
     fn = build.load("cost_volume").cost_volume_blocks_per_sm
@@ -354,9 +367,9 @@ def phase_sweep_vs_plain(card: str) -> dict:
     return rec["full 9x1080x1920 D31 P40"] | {"max_abs_err": 0.0}
 
 
-def phase_consistency_vs_plain(card: str) -> dict:
-    import torch
-
+def sweep0_calls() -> list:
+    """The strips engine's two calls of sweep 0 of the 9-view 1080p scene
+    (the update moves, then the refits), as (args, keywords)."""
     from cl_multiview_stereo_tpu_torch import RefinementSchedule, build_view_subsets
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
     from cl_multiview_stereo_tpu_torch.ops import consistency, refine
@@ -390,9 +403,16 @@ def phase_consistency_vs_plain(card: str) -> dict:
         consistency.consistency_moves = engine
     if len(calls) != 2:
         raise AssertionError(f"sweep 0 made {len(calls)} consistency calls, expected 2")
+    return calls
+
+
+def phase_consistency_vs_plain(card: str) -> dict:
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.ops import consistency
 
     errs, k_tot, p_tot, bound_tot, bound_by = [], 0.0, 0.0, 0.0, ""
-    for phase, (a, k) in zip(("update", "refit"), calls):
+    for phase, (a, k) in zip(("update", "refit"), sweep0_calls()):
         kern = consistency.consistency_moves(*a, **k)
         plain = consistency.consistency_moves_reference(*a, **k)
         torch.cuda.synchronize()
@@ -420,6 +440,8 @@ def phase_consistency_vs_plain(card: str) -> dict:
         k_tot += km
         p_tot += pm
         bound_tot += bound
+    print(f"[2] consistency per sweep (2 launches): kernel {k_tot:.3f} ms, bound {bound_tot:.4g} ms; "
+          f"its first form took {CONS_FIRST_FORM_MS} ms on an NVIDIA H100 80GB HBM3, 700.00 W ({card})")
     # per sweep: both phases' calls
     return dict(max_abs_err=max(errs), ms=k_tot, plain_ms=p_tot, bound_ms=bound_tot, bound_by=bound_by)
 
@@ -507,7 +529,34 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
           f"peak {peak / 2**30:.3f} GiB; state.d vs gather (1e-3) {agree:.6f}; "
           f"launches {launches} ({card})")
     print("[3b] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
+    wall, device, by_name = _profiled(lambda: _strips_scene(pipe, rgb_dev))
+    cons_ms, cons_n = next(((ms, n) for name, (ms, n) in by_name.items() if "consistency_kernel" in name),
+                           (0.0, 0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+    print(f"[3b] one strips scene under torch.profiler: wall {wall:.1f} ms, device {device:.1f} ms "
+          f"(busy {100 * device / wall:.1f} %); consistency kernel {cons_ms:.3f} ms in {cons_n} "
+          f"launches; most device time: "
+          + "; ".join(f"{name[:48]} {ms:.1f} ms" for name, (ms, _) in top) + f" ({card})")
     return launches
+
+
+def _profiled(fn) -> tuple[float, float, dict]:
+    """One ``fn()`` under torch.profiler: (wall ms, device ms, {name: (device
+    ms, count)}), the device time summed as the profiler's "Self CUDA time
+    total" sums it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+    return wall, sum(ms for ms, _ in by_name.values()), by_name
 
 
 def phase_dense_sweep(card: str, lab, settings) -> int:

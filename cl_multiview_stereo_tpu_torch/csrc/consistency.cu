@@ -6,9 +6,9 @@
 // the escape fixup, _PAIR_CHUNK).  On the TPU those exist because Mosaic's
 // lane gather cannot cross 128 lanes and narrow row gathers fall onto a
 // scalar DMA path, so each (pair, cell, sample) row stages a 32-position
-// strip and the kernel only emits per-sample terms.  Here one thread per
-// (move, view, cell) computes the whole score of compute_consistency
-// (clcode.cl:1528-1631), in the formula order of the port's
+// strip and the kernel only emits per-sample terms.  Here each thread
+// computes the whole score of compute_consistency (clcode.cl:1528-1631) for
+// one cell and its moves, in the formula order of the port's
 // refine.consistency_from_cache:
 //
 //   dip   = ((nx*(cx - sx) + ny*(cy - sy)) + nz*d) / nz  per sample
@@ -21,8 +21,8 @@
 //
 // A sample whose dip is not finite, or whose projection leaves the image,
 // adds 0 to every sum (the strips engine's rule for blown-up planes).  The
-// in-image test is made on the rounded float before any float-to-int
-// conversion, so a finite but huge dip never reaches an undefined cast.
+// in-image test is made on floats before any float-to-int conversion, so a
+// finite but huge dip never reaches an undefined cast.
 //
 // Arithmetic: every product, sum and quotient is written with the _rn
 // intrinsics and the library is built with --fmad=false; exp is the
@@ -30,13 +30,53 @@
 // points where the plain form calls refine._ftz, as the JAX reference's
 // XLA arithmetic does.  cl_round is the plain form's
 // x >= 0 ? floor(x + 0.5) : ceil(x - 0.5) in f32: half away from zero,
-// never rint's half to even.
+// never rint's half to even.  Each output's operations and their order do
+// not depend on how the work is laid over threads, so a move scored alone
+// gives the bits of its row of a batched call (a card test checks it).
 //
 // What bounds it on the card: the scattered 16-byte reads of ras (the
 // rasterized input state, V*H*W rows; 299 MB at 9 x 1080p, beyond the
-// 50 MB L2): 9 samples x pairs per thread.  Neighbouring threads hold
-// neighbouring cells of one view, so their projections fall near each
-// other in the neighbour image and share sectors.
+// 50 MB L2): 9 samples x the view's pairs per (move, cell), each in its
+// own 32-byte sector, about 373 MB of sectors per move at the full size.
+// The M moves of a cell read the same 9 sample pixels shifted by
+// cl_round(dip*dv), which differs between moves by a pixel or two, so the
+// sectors of one move are nearly all those of the others: the least the
+// kernel can stream is one pass of them.  With one thread per (move, view,
+// cell) and the move slowest in the grid, every cell finished move m
+// before any started move m+1, and each of the 8 moves streamed those
+// sectors from device memory again: 8 passes.
+//
+// The design: the grid runs over (view, tile of cells); the moves of one
+// cell are scored by neighbouring lanes of one warp (lanes = M rounded up
+// to a power of two, at most 8; lane l takes the moves l, l + lanes, ...).
+// So one load instruction of a warp reads the same (pair, sample) for
+// every move of a few cells: the moves' reads fall on the same sectors and
+// are served as one, and the data is streamed once.  Each thread loads its
+// cell's move-independent data (centre, colour, fl, the 9 sample positions)
+// once; the pair table is staged once per block into shared memory; ras is
+// read through the read-only path (__ldg of a float4).
+//
+// The kernel is then bound by latency, so occupancy decides: the sample
+// positions (as floats, so that the bounds test and the index need no
+// int-to-float conversions) and the 9 plane disparities of the move sit
+// in a column of shared memory per thread, not in registers.  That keeps
+// the kernel at about 40 registers and no spills, with 128-thread blocks.
+// On an H100 80GB HBM3 at 700 W, at 9 x 1080p with 8 moves, this took
+// 0.39 ms a launch; a thread scoring K = 2, 4 or 8 moves in a row (fewer
+// lanes per cell, so the moves' reads spread over more instructions, and
+// fewer threads) took 0.46, 0.80 and 1.79 ms.  Held in registers, the
+// positions and disparities more than doubled the registers, cut the
+// occupancy and the kernel took about twice as long.
+//
+// The price of the lane layout: a warp's load of d_c (and its store of
+// out) spans 8 move planes of 4 cells, 16 bytes each, so it touches 8
+// sectors where 32 cells of one plane would touch 4 (n_c: 16-24 against
+// 12).  Those 47 MB of moves and scores are small next to the ~373 MB of
+// ras sectors, and a neighbouring warp reads the other half of each sector.
+//
+// Left for later: half of every 32-byte sector read is wasted (one float4
+// per sector, at scattered pixels), and reuse between the reference views
+// that read one neighbour image is left to chance in L2.
 
 #include <cuda_runtime.h>
 
@@ -45,6 +85,9 @@ namespace {
 constexpr float kMargin = 0.01f;
 constexpr float kFltMin = 1.17549435e-38f;  // smallest normal float32
 constexpr int kSamples = 9;
+constexpr int kWarp = 32;
+constexpr int kMaxLanes = 8;  // lanes that share one cell
+constexpr int kThreads = 128;
 
 __device__ __forceinline__ float ftz(float x) { return fabsf(x) < kFltMin ? 0.0f : x; }
 
@@ -54,7 +97,66 @@ __device__ __forceinline__ float cl_round(float x) {
 
 __device__ __forceinline__ float sq(float x) { return __fmul_rn(x, x); }
 
-__global__ void consistency_kernel(
+// The five per-pair sums of one move.
+struct PairSums {
+  float num, visib_sum, visible, visibility, occl_sum;
+};
+
+// Adds the terms of the sample at (sx, sy) (integral floats) for
+// disparity dp to s, or nothing if dp is not finite or its projection
+// leaves the image.
+__device__ __forceinline__ void add_sample(PairSums& s, float sx, float sy, float dp,
+                                           const float4* __restrict__ nb, float dvx, float dvy,
+                                           int H, int W, float c0, float c1, float c2,
+                                           float gamma, float alpha, float fuse, float bl) {
+  if (!isfinite(dp)) return;
+  const float rx = cl_round(__fmul_rn(dp, dvx));
+  const float ry = cl_round(__fmul_rn(__fmul_rn(bl, dp), dvy));
+  // sx - rx and sy - ry: exact while |rx|, |ry| < 2**24, and beyond that
+  // far outside the image either way
+  const float xf = __fsub_rn(sx, rx), yf = __fsub_rn(sy, ry);
+  if (!(xf >= 0.0f && xf < (float)W && yf >= 0.0f && yf < (float)H)) return;
+  const float4 g = __ldg(nb + ((int)yf * W + (int)xf));  // H * W < 2**31, checked at launch
+  const float diff = __fsub_rn(g.x, dp);
+  const float wv = fabsf(diff) < fuse ? 1.0f : 0.0f;
+  s.visible = __fadd_rn(s.visible, __fmul_rn(wv, ftz(expf(__fmul_rn(__fmul_rn(-diff, diff), alpha)))));
+  s.visib_sum = __fadd_rn(s.visib_sum, wv);
+  s.occl_sum = __fadd_rn(s.occl_sum, __fsub_rn(1.0f, wv));
+  const float cdiff = __fadd_rn(__fadd_rn(sq(__fsub_rn(g.y, c0)), sq(__fsub_rn(g.z, c1))),
+                                sq(__fsub_rn(g.w, c2)));
+  s.visibility = __fadd_rn(s.visibility, ftz(expf(__fmul_rn(-cdiff, gamma))));
+  s.num = __fadd_rn(s.num, 1.0f);
+}
+
+// A pair's contribution to the view's running sums.
+__device__ __forceinline__ void end_pair(const PairSums& s, float half_fl1, float& cons,
+                                         float& cnt) {
+  float contrib = 0.0f;
+  if (s.visib_sum > 0.0f) {
+    const float vs = fmaxf(s.visib_sum, 1e-30f);
+    contrib = ftz(__fmul_rn(__fmul_rn(__fdiv_rn(s.visib_sum, fmaxf(s.num, 1.0f)),
+                                      __fdiv_rn(s.visibility, vs)),
+                            __fdiv_rn(s.visible, vs)));
+  }
+  contrib = __fadd_rn(contrib, s.occl_sum > 0.0f ? half_fl1 : 0.0f);
+  cons = __fadd_rn(cons, contrib);
+  cnt = __fadd_rn(cnt, s.num > 0.0f ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ float final_score(float cons, float cnt) {
+  float cs = kMargin;
+  if (cnt > 0.0f) {
+    const float q = __fdiv_rn(cons, fmaxf(cnt, 1.0f));
+    cs = q < kMargin ? kMargin : q;  // keeps a NaN, as torch.clamp does
+  }
+  return cs;
+}
+
+// Threads: (view, tile of 32/lanes cells, cell, lane), lane fastest; lane
+// l of a cell scores the moves l, l + lanes, ...
+// Shared memory: the pair table, then a column per thread of 9 sample x,
+// 9 sample y and 9 dip, one row of kThreads words for each.
+__global__ void __launch_bounds__(kThreads) consistency_kernel(
     const float* __restrict__ center,   // (V, Mh, Mw, 2)
     const float* __restrict__ color,    // (V, Mh, Mw, 3)
     const int* __restrict__ samples,    // (V, Mh, 9, Mw, 2)
@@ -66,113 +168,99 @@ __global__ void consistency_kernel(
     const int* __restrict__ pair_view,  // (P,)
     const float* __restrict__ pair_dv,  // (P, 2) dvx, dvy
     float* __restrict__ out,            // (M, V, Mh, Mw)
-    int M, int V, int Mh, int Mw, int H, int W,
+    int M, int V, int Mh, int Mw, int H, int W, int P, int lanes,
     float gamma, float alpha, float fuse, float bl) {
-  const long long total = (long long)M * V * Mh * Mw;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int mx = (int)(idx % Mw);
-  long long t = idx / Mw;
-  const int my = (int)(t % Mh);
-  t /= Mh;
-  const int v = (int)(t % V);
+  extern __shared__ int s_tab[];
+  int* s_start = s_tab;               // V + 1
+  int* s_view = s_tab + V + 1;        // P
+  float* s_dv = reinterpret_cast<float*>(s_tab + V + 1 + P);  // 2P
+  for (int i = threadIdx.x; i < V + 1; i += kThreads) s_start[i] = pair_start[i];
+  for (int i = threadIdx.x; i < P; i += kThreads) s_view[i] = pair_view[i];
+  for (int i = threadIdx.x; i < 2 * P; i += kThreads) s_dv[i] = pair_dv[i];
+  __syncthreads();
+  float* s_x = reinterpret_cast<float*>(s_tab + (V + 1 + 3 * P + 31) / 32 * 32) + threadIdx.x;
+  float* s_y = s_x + kSamples * kThreads;
+  float* s_dip = s_y + kSamples * kThreads;
 
-  const long long cell = ((long long)v * Mh + my) * Mw + mx;
-  const float cx = center[2 * cell];
-  const float cy = center[2 * cell + 1];
-  const float d = d_c[idx];
-  const float nx = n_c[3 * idx];
-  const float ny = n_c[3 * idx + 1];
-  const float nz = n_c[3 * idx + 2];
-  const float c0 = color[3 * cell];
-  const float c1 = color[3 * cell + 1];
-  const float c2 = color[3 * cell + 2];
-  const float half_fl1 = __fmul_rn(0.5f, fl[2 * cell + 1]);
+  const int N = Mh * Mw;
+  const int per_warp = kWarp / lanes;
+  const int tiles = (N + per_warp - 1) / per_warp;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int lane = (int)(idx % kWarp);
+  const long long warp = idx / kWarp;
+  const int cell = (int)(warp % tiles) * per_warp + lane / lanes;
+  const int v = (int)(warp / tiles);
+  if (v >= V || cell >= N) return;
+  const int my = cell / Mw, mx = cell - my * Mw;
+
+  // the cell's move-independent data, once
+  const long long vc = (long long)v * N + cell;
+  const float cx = center[2 * vc], cy = center[2 * vc + 1];
+  const float c0 = color[3 * vc], c1 = color[3 * vc + 1], c2 = color[3 * vc + 2];
+  const float half_fl1 = __fmul_rn(0.5f, fl[2 * vc + 1]);
   const int icx = (int)cx;  // C truncation, as the plain form's .to(int64)
   const int icy = (int)cy;
-
-  // move-independent sample positions and the candidate plane's disparity
-  int smp_x[kSamples], smp_y[kSamples];
-  float dip[kSamples];
 #pragma unroll
   for (int k = 0; k < kSamples; ++k) {
-    const int* s = samples + ((((long long)v * Mh + my) * kSamples + k) * Mw + mx) * 2;
-    smp_x[k] = icx + s[0];
-    smp_y[k] = icy + s[1];
-    const float numer = __fadd_rn(
-        __fadd_rn(__fmul_rn(nx, __fsub_rn(cx, (float)smp_x[k])),
-                  __fmul_rn(ny, __fsub_rn(cy, (float)smp_y[k]))),
-        __fmul_rn(nz, d));
-    dip[k] = __fdiv_rn(numer, nz);
+    const int* smp = samples + ((((long long)v * Mh + my) * kSamples + k) * Mw + mx) * 2;
+    s_x[k * kThreads] = (float)(icx + smp[0]);
+    s_y[k * kThreads] = (float)(icy + smp[1]);
   }
 
+  const long long move_stride = (long long)V * N;
   const long long plane = (long long)H * W;
-  float cons = 0.0f, cnt = 0.0f;
-  for (int p = pair_start[v]; p < pair_start[v + 1]; ++p) {
-    const float4* nb = ras + (long long)pair_view[p] * plane;
-    const float dvx = pair_dv[2 * p];
-    const float dvy = pair_dv[2 * p + 1];
-    float num = 0.0f, visib_sum = 0.0f, visible = 0.0f, visibility = 0.0f, occl_sum = 0.0f;
+  const int p_lo = s_start[v], p_hi = s_start[v + 1];
+  for (int m = lane % lanes; m < M; m += lanes) {
+    const long long o = m * move_stride + vc;
+    const float d = d_c[o], nx = n_c[3 * o], ny = n_c[3 * o + 1], nz = n_c[3 * o + 2];
 #pragma unroll
     for (int k = 0; k < kSamples; ++k) {
-      const float dp = dip[k];
-      if (!isfinite(dp)) continue;
-      const float rx = cl_round(__fmul_rn(dp, dvx));
-      const float ry = cl_round(__fmul_rn(__fmul_rn(bl, dp), dvy));
-      // 0 <= sx - rx < W and 0 <= sy - ry < H, exact on integral floats
-      if (!(rx <= (float)smp_x[k] && rx > (float)(smp_x[k] - W) &&
-            ry <= (float)smp_y[k] && ry > (float)(smp_y[k] - H)))
-        continue;
-      const int xp = smp_x[k] - (int)rx;
-      const int yp = smp_y[k] - (int)ry;
-      const float4 g = nb[(long long)yp * W + xp];
-      const float diff = __fsub_rn(g.x, dp);
-      const float wv = fabsf(diff) < fuse ? 1.0f : 0.0f;
-      visible = __fadd_rn(visible, __fmul_rn(wv, ftz(expf(__fmul_rn(__fmul_rn(-diff, diff), alpha)))));
-      visib_sum = __fadd_rn(visib_sum, wv);
-      occl_sum = __fadd_rn(occl_sum, __fsub_rn(1.0f, wv));
-      const float cdiff = __fadd_rn(__fadd_rn(sq(__fsub_rn(g.y, c0)), sq(__fsub_rn(g.z, c1))),
-                                    sq(__fsub_rn(g.w, c2)));
-      visibility = __fadd_rn(visibility, ftz(expf(__fmul_rn(-cdiff, gamma))));
-      num = __fadd_rn(num, 1.0f);
+      const float numer = __fadd_rn(
+          __fadd_rn(__fmul_rn(nx, __fsub_rn(cx, s_x[k * kThreads])),
+                    __fmul_rn(ny, __fsub_rn(cy, s_y[k * kThreads]))),
+          __fmul_rn(nz, d));
+      s_dip[k * kThreads] = __fdiv_rn(numer, nz);
     }
-    float contrib = 0.0f;
-    if (visib_sum > 0.0f) {
-      const float vs = fmaxf(visib_sum, 1e-30f);
-      contrib = ftz(__fmul_rn(__fmul_rn(__fdiv_rn(visib_sum, fmaxf(num, 1.0f)),
-                                        __fdiv_rn(visibility, vs)),
-                              __fdiv_rn(visible, vs)));
+    float cons = 0.0f, cnt = 0.0f;
+    for (int p = p_lo; p < p_hi; ++p) {
+      const float4* nb = ras + s_view[p] * plane;
+      const float dvx = s_dv[2 * p], dvy = s_dv[2 * p + 1];
+      PairSums s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int k = 0; k < kSamples; ++k)
+        add_sample(s, s_x[k * kThreads], s_y[k * kThreads], s_dip[k * kThreads], nb, dvx, dvy,
+                   H, W, c0, c1, c2, gamma, alpha, fuse, bl);
+      end_pair(s, half_fl1, cons, cnt);
     }
-    contrib = __fadd_rn(contrib, occl_sum > 0.0f ? half_fl1 : 0.0f);
-    cons = __fadd_rn(cons, contrib);
-    cnt = __fadd_rn(cnt, num > 0.0f ? 1.0f : 0.0f);
+    out[o] = final_score(cons, cnt);
   }
-  float cs = kMargin;
-  if (cnt > 0.0f) {
-    const float q = __fdiv_rn(cons, fmaxf(cnt, 1.0f));
-    cs = q < kMargin ? kMargin : q;  // keeps a NaN, as torch.clamp does
-  }
-  out[idx] = cs;
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Launches on ``stream`` and
-// returns cudaGetLastError() (0 on success); it does not synchronise.
+// Plain C entry point, bound with ctypes.  ``P`` is the number of pairs
+// (the length of pair_view).  Launches on ``stream`` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a pair
+// table beyond 48 KB of shared memory or an image of 2**31 pixels or more;
+// it does not synchronise.
 extern "C" int consistency_launch(
     const float* center, const float* color, const int* samples,
     const float* fl, const float* ras, const float* d_c, const float* n_c,
     const int* pair_start, const int* pair_view, const float* pair_dv,
-    float* out, int M, int V, int Mh, int Mw, int H, int W, float gamma,
+    float* out, int M, int V, int Mh, int Mw, int H, int W, int P, float gamma,
     float alpha, float fuse, float bl_ratio, void* stream) {
-  const long long total = (long long)M * V * Mh * Mw;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  consistency_kernel<<<(unsigned int)blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      center, color, samples, fl, reinterpret_cast<const float4*>(ras), d_c,
-      n_c, pair_start, pair_view, pair_dv, out, M, V, Mh, Mw, H, W, gamma,
-      alpha, fuse, bl_ratio);
+  if ((long long)M * V * Mh * Mw == 0) return 0;
+  int lanes = 1;
+  while (lanes < M && lanes < kMaxLanes) lanes *= 2;
+  const int per_warp = kWarp / lanes;
+  const long long tiles = ((long long)Mh * Mw + per_warp - 1) / per_warp;
+  const long long blocks = (V * tiles * kWarp + kThreads - 1) / kThreads;
+  const size_t smem =
+      sizeof(int) * ((size_t)(V + 1 + 3 * P + 31) / 32 * 32 + (size_t)3 * kSamples * kThreads);
+  if (smem > 48 * 1024 || blocks > 0x7fffffffLL || (long long)H * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  consistency_kernel<<<(unsigned int)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      center, color, samples, fl, reinterpret_cast<const float4*>(ras), d_c, n_c, pair_start,
+      pair_view, pair_dv, out, M, V, Mh, Mw, H, W, P, lanes, gamma, alpha, fuse, bl_ratio);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,10 @@ of the rasterized input state so that its Pallas ``_terms_kernel`` can
 resolve every move with one 128-lane lookup; lookups outside the strip are
 fixed up by an exact narrow gather.  That staging serves Mosaic's lane
 gather only.  On the card ``csrc/consistency.cu`` computes the function it
-served: one thread per (move, view, cell) walks the view's pairs and the 9
-samples and reads each projected pixel of ``cache.ras`` directly.
+served: each thread scores moves of one cell, walking the view's pairs
+and the 9 samples and reading each projected pixel of ``cache.ras``
+directly; the threads of one cell's moves are neighbouring lanes of a
+warp, so their reads are served together.
 
 :func:`consistency_moves` launches the kernel on CUDA tensors (or raises)
 and runs :func:`consistency_moves_reference`, the plain twin, on CPU
@@ -39,6 +41,10 @@ from cl_multiview_stereo_tpu_torch.ops.refine import (
 # Kernel launches since import (or since the caller reset it): chip_smoke.py
 # reads it to show that the strips path went through the kernel.
 LAUNCHES = 0
+
+# device pair tables by (pairs, n_views, device), so that a launch copies
+# nothing from the host
+_TABLES: dict = {}
 
 
 def consistency_moves_reference(
@@ -91,6 +97,16 @@ def pair_tables(pairs: tuple, n_views: int) -> tuple[np.ndarray, np.ndarray, np.
     return start, view, dv
 
 
+def device_pair_tables(pairs: tuple, n_views: int, device) -> tuple[torch.Tensor, ...]:
+    """:func:`pair_tables` as tensors on ``device``, made once per
+    (pairs, n_views, device) and kept."""
+    device = torch.device(device)
+    key = (tuple(pairs), n_views, device)
+    if key not in _TABLES:
+        _TABLES[key] = tuple(torch.as_tensor(a, device=device) for a in pair_tables(pairs, n_views))
+    return _TABLES[key]
+
+
 def _launch(ctx, cache, d_c, n_c, *, gamma, alpha, fuse, bl_ratio, pairs):
     global LAUNCHES
     from cl_multiview_stereo_tpu_torch.kernels.build import load
@@ -109,11 +125,11 @@ def _launch(ctx, cache, d_c, n_c, *, gamma, alpha, fuse, bl_ratio, pairs):
     _check("cache.ras", cache.ras, f32, (v * h * w, 4), dev)
     if cache.ras.data_ptr() % 16:
         raise ValueError("cache.ras must be 16-byte aligned (one float4 per pixel)")
-    start, view, dv = (torch.as_tensor(a, device=dev) for a in pair_tables(pairs, v))
+    start, view, dv = device_pair_tables(pairs, v, dev)
 
     lib = load("consistency")
     fn = lib.consistency_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((m, v, mh, mw), dtype=f32, device=dev)
     with torch.cuda.device(dev):
@@ -122,7 +138,7 @@ def _launch(ctx, cache, d_c, n_c, *, gamma, alpha, fuse, bl_ratio, pairs):
             ctx.center.data_ptr(), ctx.color.data_ptr(), ctx.samples.data_ptr(),
             ctx.fl.data_ptr(), cache.ras.data_ptr(), d_c.data_ptr(), n_c.data_ptr(),
             start.data_ptr(), view.data_ptr(), dv.data_ptr(), out.data_ptr(),
-            m, v, mh, mw, h, w, gamma, alpha, fuse, bl_ratio, stream,
+            m, v, mh, mw, h, w, len(pairs), gamma, alpha, fuse, bl_ratio, stream,
         )
     if rc != 0:
         raise RuntimeError(f"consistency kernel launch failed with CUDA error {rc}")

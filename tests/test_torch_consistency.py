@@ -130,6 +130,36 @@ def test_consistency_moves_equals_gather_form(scene, which):
         np.testing.assert_array_equal(_port(scene, d_c, n_c, score_chunk=chunk), want)
 
 
+@pytest.mark.parametrize("which", SETS)
+def test_moves_are_scored_independently(scene, which):
+    """A move's score depends on it and the frozen state only: the moves
+    one at a time, and in a permuted order, give the batched call's bits.
+    The card kernel's layout of moves over threads relies on it."""
+    d_c, n_c = _candidates(scene, which)
+    batched = _port(scene, d_c, n_c)
+    alone = np.stack([_port(scene, d_c[m:m + 1], n_c[m:m + 1])[0] for m in range(d_c.shape[0])])
+    np.testing.assert_array_equal(alone, batched)
+    perm = np.random.default_rng(4).permutation(d_c.shape[0])
+    np.testing.assert_array_equal(_port(scene, d_c[perm], n_c[perm]), batched[perm])
+
+
+@pytest.mark.parametrize(
+    "pairs",
+    [None, ((0, 1, 0.5, 0.0), (0, 3, 0.0, 1.0), (2, 1, -1.0, 0.0), (4, 5, 0.25, -0.75))],
+    ids=["scene", "fractional"],
+)
+def test_device_pair_tables_match_pair_tables(scene, pairs):
+    """The wrapper's cached device tables are ``pair_tables``' arrays,
+    made once per (pairs, views, device)."""
+    pairs = scene["pairs"] if pairs is None else pairs
+    got = consistency.device_pair_tables(pairs, 6, "cpu")
+    for g, w in zip(got, consistency.pair_tables(pairs, 6)):
+        np.testing.assert_array_equal(n(g), w)
+        assert n(g).dtype == w.dtype
+    again = consistency.device_pair_tables(list(pairs), 6, CPU)
+    assert all(a is b for a, b in zip(again, got))
+
+
 def test_non_finite_candidates_count_as_outside(scene, monkeypatch):
     """nz = 0 planes have no finite disparity at any sample: no NaN, the
     0.01 floor where a whole candidate blows up, the gather form's scores

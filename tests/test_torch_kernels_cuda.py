@@ -183,7 +183,7 @@ def strips_scene(cuda):
     state = refine.init_state(ctx, **kw, **reach)
     cache = refine.build_cache(ctx, state.d, state.n, gamma=kw["gamma"], **reach)
     rng = np.random.default_rng(0)
-    m = 6
+    m = 13
     d_c = state.d[None] + torch.as_tensor(rng.normal(0, 1.5, (m,) + tuple(state.d.shape)),
                                           dtype=torch.float32, device=cuda)
     n_c = torch.as_tensor(rng.normal(0, 0.2, (m,) + tuple(state.n.shape)), dtype=torch.float32,
@@ -195,10 +195,21 @@ def strips_scene(cuda):
     return dict(ctx=ctx, cache=cache, kw=kw, d_c=d_c.contiguous(), n_c=n_c.contiguous())
 
 
+def _moves(sc, m):
+    """The first m of the scene's 13 candidate moves; with fewer than 5,
+    the nz = 0 move (row 4) comes first."""
+    rows = list(range(m)) if m > 4 else [4] + list(range(m - 1))
+    return rows, sc["d_c"][rows].contiguous(), sc["n_c"][rows].contiguous()
+
+
 @pytest.mark.cuda
-def test_consistency_kernel_matches_reference(strips_scene):
+@pytest.mark.parametrize("m", [1, 6, 8, 13])
+def test_consistency_kernel_matches_reference(strips_scene, m):
+    """M = 1 gives a cell one lane; M = 13 gives its 8 lanes a second,
+    ragged round of moves."""
     sc = strips_scene
-    args = (sc["ctx"], sc["cache"], sc["d_c"], sc["n_c"])
+    rows, d_c, n_c = _moves(sc, m)
+    args = (sc["ctx"], sc["cache"], d_c, n_c)
     before = consistency.LAUNCHES
     got = consistency.consistency_moves(*args, **sc["kw"])
     torch.cuda.synchronize()
@@ -206,7 +217,35 @@ def test_consistency_kernel_matches_reference(strips_scene):
     want = consistency.consistency_moves_reference(*args, **sc["kw"])
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    assert bool((got[4] == np.float32(0.01)).all())
+    assert bool((got[rows.index(4)] == np.float32(0.01)).all())
+
+
+@pytest.mark.cuda
+def test_consistency_kernel_fractional_deltas(strips_scene):
+    """Pairs with non-integer deltas, as SfM's pair_deltas gives them."""
+    sc = strips_scene
+    kw = dict(sc["kw"], pairs=tuple((r, n, 0.5 * dx, 1.25 * dy) for r, n, dx, dy in sc["kw"]["pairs"]))
+    assert any(dx % 1 for _, _, dx, _ in kw["pairs"])
+    _, d_c, n_c = _moves(sc, 8)
+    args = (sc["ctx"], sc["cache"], d_c, n_c)
+    got = consistency.consistency_moves(*args, **kw)
+    want = consistency.consistency_moves_reference(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert not torch.equal(got, consistency.consistency_moves(*args, **sc["kw"]))
+
+
+@pytest.mark.cuda
+def test_consistency_kernel_moves_independent(strips_scene):
+    """Each move scored alone gives the bits of its row of the batched
+    call."""
+    sc = strips_scene
+    ctx, cache, d_c, n_c = sc["ctx"], sc["cache"], sc["d_c"], sc["n_c"]
+    batched = consistency.consistency_moves(ctx, cache, d_c, n_c, **sc["kw"])
+    for k in range(d_c.shape[0]):
+        alone = consistency.consistency_moves(ctx, cache, d_c[k:k + 1].contiguous(),
+                                              n_c[k:k + 1].contiguous(), **sc["kw"])
+        assert torch.equal(alone[0], batched[k]), k
 
 
 @pytest.mark.cuda
