@@ -8,8 +8,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 0. device: a CUDA device is visible; print its name and power limit;
 1. build: compile ``csrc/{cost_volume,sweep,consistency}.cu`` with nvcc
    from this checkout, one nvcc each, all started together; print what
-   ptxas reports, check that two cost-volume blocks fit on an SM and that
-   the consistency kernel does not spill;
+   ptxas reports, check that two cost-volume blocks and two sweep blocks
+   fit on an SM and that the sweep and consistency kernels do not spill;
 2. kernels against their plain twins, on the same device tensors, with
    both times from CUDA events, in turns, beside each kernel's bound (the
    larger of its bytes over the card's memory rate and its f32 operations
@@ -263,20 +263,22 @@ def phase_build() -> None:
         for line in logs[name].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
-    # the consistency kernel builds without spills
-    spills = [ln.strip() for ln in logs["consistency"].splitlines()
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-    if spills:
-        raise AssertionError(f"consistency kernel spills: {spills}")
-    # the cost volume's design: two blocks share an SM, one stages while the
-    # other computes
-    fn = build.load("cost_volume").cost_volume_blocks_per_sm
-    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
-    blocks = ctypes.c_int(0)
-    rc = fn(ctypes.byref(blocks))
-    if rc != 0 or blocks.value < 2:
-        raise AssertionError(f"cost_volume: {blocks.value} blocks per SM (CUDA error {rc}), expected >= 2")
-    print(f"[1] cost_volume: {blocks.value} blocks per SM")
+    # the sweep and consistency kernels build without spills
+    for name in ("sweep", "consistency"):
+        spills = [ln.strip() for ln in logs[name].splitlines()
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        if spills:
+            raise AssertionError(f"{name} kernel spills: {spills}")
+    # the cost volume's and the sweep's designs: two blocks share an SM, one
+    # stages while the other computes
+    for name in ("cost_volume", "sweep"):
+        fn = getattr(build.load(name), f"{name}_blocks_per_sm")
+        fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+        blocks = ctypes.c_int(0)
+        rc = fn(ctypes.byref(blocks))
+        if rc != 0 or blocks.value < 2:
+            raise AssertionError(f"{name}: {blocks.value} blocks per SM (CUDA error {rc}), expected >= 2")
+        print(f"[1] {name}: {blocks.value} blocks per SM")
 
 
 def phase_kernel_vs_plain(card: str) -> dict:
@@ -359,7 +361,7 @@ def phase_sweep_vs_plain(card: str) -> dict:
         v, h, w = lab.shape[:3]
         n_d = len(args[1])
         ops = (len(pairs) * (SWEEP_OPS_SAD + 4 * radius + 1) + v) * n_d * h * w
-        tables = 4 * (v + 1 + len(pairs) * (1 + 4 * n_d) + n_d)
+        tables = sweep.kernel_tables(args[1], pairs, bl, v)[0].nbytes
         bound, bound_by = _bound(_nbytes(lab, kd, kc) + tables, ops)
         print(f"[2] sweep {label}: bitwise equal, kernel {k:.3f} ms, bound {bound:.4g} ms "
               f"({bound_by}), plain {p:.3f} ms ({card})")

@@ -20,187 +20,255 @@
 // --fmad=false, so the result equals the plain PyTorch twin (and the JAX
 // forms) bitwise.
 //
-// The TPU kernel pads the images into 8-aligned channel-planar slabs and
-// keeps a (D, tile, W) cost volume in VMEM; none of that is needed here.
-// One block owns a 16 x 64 pixel tile of one reference view and keeps its
-// reference halo in shared memory for the whole sweep.  For each
-// (hypothesis, pair) it fills a SAD halo tile from the neighbour image
-// (reads of neighbouring threads fall on neighbouring pixels, mostly L2
-// hits: the shifted rows of one tile span a few image rows), takes the
-// row sums and then the column sums out of shared memory, and folds the
-// box into a per-thread running min over pairs and the WTA in registers.
+// What bounds it.  The function's bound is its f32 operations (17 per
+// (pair, hypothesis, pixel) at radius 2); its bytes are one read of the
+// images.  The kernel is far from both: it is bound by the instructions
+// it issues per (pair, hypothesis, pixel) and by their latency at the
+// occupancy its registers allow.  The neighbour reloads are not what
+// bounds it: taking them out alone (a shared-memory slab, the SAD tile and
+// both box passes still in shared memory behind two barriers per
+// (hypothesis, pair), 124 registers, two blocks per SM) made the kernel
+// slower than its first form (PERF.md §6).
 //
-// What bounds it on the card: the SAD fill, about 1.7 halo entries per
-// output pixel per (hypothesis, pair), each two 12-byte Lab reads and a
-// dozen instructions; 9 x 1080p x 31 hypotheses x 4.4 pairs is about
-// 5 G entries.  Reusing the SAD tile across hypotheses (the shifts move
-// by one pixel per step) is later work.
+// The design.  The host cuts the ladder, in its own order, into chunks of
+// at most kChunk hypotheses whose shifts spread by at most kSpare rows and
+// columns for every pair, and gives each (pair, chunk) the slab's origin
+// (the largest sy and sx of the chunk) and extent (ops/sweep.py
+// chunk_tables).  One block owns a tile of one reference view, kTileH
+// rows by kWarpsX * (32 - 2R) columns.  For each (chunk, pair) it stages
+// the neighbour slab once into shared memory, channel-planar, each entry
+// read at its clamped image coordinate; every read of the hypothesis loop,
+// nb[clamp(y - sy), clamp(x - sx)], is then the plain slab entry
+// ((y - sy) - row0, (x - sx) - col0): no clamp and no global load there.
+// A thread owns one halo column and kRows output rows.  It keeps its
+// reference column in registers for the whole call, takes its SAD column
+// and the vertical sums in registers, and the horizontal sums from warp
+// shuffles in ascending order (up(R) ... up(1), self, down(1) ...
+// down(R)); the 2R edge lanes of a warp compute halo columns only, and
+// columns outside the image hold 0.  The only barriers are the slab's,
+// two per (chunk, pair).  The chunk's running minimum over pairs stays in
+// registers, m[kChunk][kRows], and after the chunk's last pair the WTA
+// runs over the chunk in ascending hypothesis order, carrying (best,
+// bestd) across chunks.  128 registers, no spills, two blocks per SM.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileW = 64;
-constexpr int kTileH = 16;
-constexpr int kThreads = 256;
+constexpr int kWarpsX = 2;  // warps of a block side by side
+constexpr int kWarpsY = 4;  // and stacked
+constexpr int kThreads = 32 * kWarpsX * kWarpsY;
+constexpr int kRows = 4;  // output rows of a thread
 constexpr int kMaxR = 4;
-constexpr int kHaloW = kTileW + 2 * kMaxR;
-constexpr int kHaloH = kTileH + 2 * kMaxR;
-constexpr int kPix = kTileW * kTileH / kThreads;                    // 4
-constexpr int kSadPer = (kHaloH * kHaloW + kThreads - 1) / kThreads;  // 7
-constexpr int kRowPer = (kTileH * kHaloW + kThreads - 1) / kThreads;  // 5
+constexpr int kChunk = 8;   // hypotheses a chunk holds at most (ops/sweep.py CHUNK)
+constexpr int kSpare = 16;  // slab rows and columns beyond the halo (ops/sweep.py SPARE)
+constexpr int kTileH = kWarpsY * kRows;
+constexpr int kSadRows = kRows + 2 * kMaxR;
+constexpr int kPitch = 32 * kWarpsX + kSpare;  // the halo is at most 32 * kWarpsX wide
+constexpr int kSlabH = kTileH + 2 * kMaxR + kSpare;
+constexpr int kSlabN = kSlabH * kPitch;  // a channel plane of the slab
 constexpr float kOobPenalty = 30.0f;
 constexpr float kBig = 1.0e6f;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-__global__ void __launch_bounds__(kThreads) sweep_kernel(
-    const float* __restrict__ lab,        // (V, H, W, 3)
-    const int* __restrict__ pair_start,   // (V + 1,) CSR over reference views
-    const int* __restrict__ pair_view,    // (P,) neighbour view of each pair
-    const int* __restrict__ shifts,       // (P, D, 4) sy, sx, loy, lox
-    const float* __restrict__ ladder,     // (D,)
-    float* __restrict__ disp,             // (V, H, W)
-    float* __restrict__ cost,             // (V, H, W)
-    int H, int W, int D, int R) {
-  __shared__ float ref_s[3][kHaloH * kHaloW];
-  __shared__ float sad_s[kHaloH * kHaloW];
-  __shared__ float row_s[kTileH * kHaloW];
+__global__ void __launch_bounds__(kThreads, 2) sweep_kernel(
+    const float* __restrict__ lab,          // (V, H, W, 3)
+    const int* __restrict__ pair_start,     // (V + 1,) CSR over reference views
+    const int* __restrict__ pair_view,      // (P,) neighbour view of each pair
+    const int* __restrict__ shifts,         // (P, D, 4) sy, sx, loy, lox
+    const float* __restrict__ ladder,       // (D,)
+    const int* __restrict__ chunk_start,    // (C + 1,) first hypothesis of each chunk
+    const int* __restrict__ slab_box,       // (P, C, 4) max sy, max sx, min sy, min sx
+    float* __restrict__ disp,               // (V, H, W)
+    float* __restrict__ cost,               // (V, H, W)
+    int H, int W, int D, int R, int C) {
+  __shared__ float slab_s[3 * kSlabN];
 
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int step = 32 - 2 * R;  // output columns of a warp
+  const int tw = kWarpsX * step;
   const int v = blockIdx.z;
   const int y0 = blockIdx.y * kTileH;
-  const int x0 = blockIdx.x * kTileW;
-  const int hw = kTileW + 2 * R;  // halo width in use
-  const int n_halo = (kTileH + 2 * R) * hw;
-  const int n_row = kTileH * hw;
-  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * tw;
+  const int c = (warp % kWarpsX) * step + lane;  // halo column, from x0 - R
+  const int r0 = (warp / kWarpsX) * kRows;       // first SAD row, from y0 - R
+  const int x = x0 - R + c;
+  const int ybase = y0 - R + r0;
+  const bool x_in = x >= 0 && x < W;
+  const int n_sad = kRows + 2 * R;
   const long long plane = (long long)H * W;
   const float* ref_img = lab + (long long)v * plane * 3;
 
-  // halo entries of this thread (fixed for the whole sweep); -1 = unused
-  int e_y[kSadPer], e_x[kSadPer], e_i[kSadPer];
+  float ref[kSadRows][3];
 #pragma unroll
-  for (int k = 0; k < kSadPer; ++k) {
-    const int e = tid + k * kThreads;
-    e_i[k] = e < n_halo ? e : -1;
-    e_y[k] = y0 - R + e / hw;
-    e_x[k] = x0 - R + e % hw;
-  }
-  for (int e = tid; e < n_halo; e += kThreads) {
-    const int y = y0 - R + e / hw;
-    const int x = x0 - R + e % hw;
-    const bool in = y >= 0 && y < H && x >= 0 && x < W;
-    const float* p = ref_img + ((long long)(in ? y : 0) * W + (in ? x : 0)) * 3;
-    ref_s[0][e] = in ? p[0] : 0.0f;
-    ref_s[1][e] = in ? p[1] : 0.0f;
-    ref_s[2][e] = in ? p[2] : 0.0f;
+  for (int j = 0; j < kSadRows; ++j) {
+    const int y = ybase + j;
+    const bool in = j < n_sad && x_in && y >= 0 && y < H;
+    const float* q = ref_img + ((long long)(in ? y : 0) * W + (in ? x : 0)) * 3;
+    ref[j][0] = in ? q[0] : 0.0f;
+    ref[j][1] = in ? q[1] : 0.0f;
+    ref[j][2] = in ? q[2] : 0.0f;
   }
 
-  float best[kPix], bestd[kPix];
+  float best[kRows], bestd[kRows];
 #pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    best[k] = kBig;
-    bestd[k] = 0.0f;
+  for (int i = 0; i < kRows; ++i) {
+    best[i] = kBig;
+    bestd[i] = 0.0f;
   }
   const int p0 = pair_start[v];
   const int p1 = pair_start[v + 1];
-  __syncthreads();
 
-  for (int d = 0; d < D; ++d) {
-    float m[kPix];
+  for (int ci = 0; ci < C; ++ci) {
+    const int d0 = chunk_start[ci];
+    const int d1 = chunk_start[ci + 1];
+    float m[kChunk][kRows];
 #pragma unroll
-    for (int k = 0; k < kPix; ++k) m[k] = kBig;
+    for (int jd = 0; jd < kChunk; ++jd)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) m[jd][i] = kBig;
 
     for (int p = p0; p < p1; ++p) {
+      const int* box = slab_box + ((long long)p * C + ci) * 4;
+      const int my = box[0], mx = box[1];
+      const int rows = kTileH + 2 * R + my - box[2];
+      const int cols = tw + 2 * R + mx - box[3];
       const float* nb_img = lab + (long long)pair_view[p] * plane * 3;
-      const int* sh = shifts + ((long long)p * D + d) * 4;
-      const int sy = sh[0], sx = sh[1], loy = sh[2], lox = sh[3];
-
-      // 1. SAD halo tile
-#pragma unroll
-      for (int k = 0; k < kSadPer; ++k) {
-        const int e = e_i[k];
-        if (e < 0) continue;
-        const int y = e_y[k], x = e_x[k];
-        float s = 0.0f;  // outside the reference image: adds 0
-        if (y >= 0 && y < H && x >= 0 && x < W) {
-          if (y >= loy && y <= H - 1 + sy && x >= lox && x <= W - 1 + sx) {
-            const float* q =
-                nb_img + ((long long)clampi(y - sy, 0, H - 1) * W + clampi(x - sx, 0, W - 1)) * 3;
-            s = __fadd_rn(__fadd_rn(fabsf(__fsub_rn(ref_s[0][e], q[0])),
-                                    fabsf(__fsub_rn(ref_s[1][e], q[1]))),
-                          fabsf(__fsub_rn(ref_s[2][e], q[2])));
-          } else {
-            s = kOobPenalty;
+      __syncthreads();  // every warp is done with the previous slab
+      // the slab: entry (i, j) = nb[clamp(row0 + i), clamp(col0 + j)]; the
+      // entries e = tid + k * kThreads of this thread step by
+      // divmod(kThreads, cols)
+      {
+        const int row0 = y0 - R - my, col0 = x0 - R - mx;
+        const int i_step = kThreads / cols, j_step = kThreads % cols;
+        int i = tid / cols, j = tid % cols;
+        for (int e = tid; e < rows * cols; e += kThreads) {
+          const float* q = nb_img + ((long long)clampi(row0 + i, 0, H - 1) * W +
+                                     clampi(col0 + j, 0, W - 1)) * 3;
+          const int s = i * kPitch + j;
+          slab_s[s] = q[0];
+          slab_s[kSlabN + s] = q[1];
+          slab_s[2 * kSlabN + s] = q[2];
+          i += i_step;
+          j += j_step;
+          if (j >= cols) {
+            j -= cols;
+            ++i;
           }
         }
-        sad_s[e] = s;
       }
       __syncthreads();
 
-      // 2. row sums (vertical window), from the first term
 #pragma unroll
-      for (int k = 0; k < kRowPer; ++k) {
-        const int e = tid + k * kThreads;
-        if (e < n_row) {
-          float acc = sad_s[e];
-          for (int j = 1; j <= 2 * R; ++j) acc = __fadd_rn(acc, sad_s[e + j * hw]);
-          row_s[e] = acc;
+      for (int jd = 0; jd < kChunk; ++jd) {
+        const int d = d0 + jd;
+        if (d < d1) {
+          const int* sh = shifts + ((long long)p * D + d) * 4;
+          const int sy = sh[0], sx = sh[1], loy = sh[2], lox = sh[3];
+          const bool col_win = x >= lox && x <= W - 1 + sx;
+          // slab entry of SAD row 0 of this column
+          const float* sl = slab_s + (r0 + my - sy) * kPitch + (c + mx - sx);
+          float sad[kSadRows];
+#pragma unroll
+          for (int j = 0; j < kSadRows; ++j) {
+            const int y = ybase + j;
+            float s = 0.0f;  // outside the reference image: adds 0
+            if (j < n_sad && x_in && y >= 0 && y < H) {
+              if (col_win && y >= loy && y <= H - 1 + sy) {
+                const float* q = sl + j * kPitch;
+                s = __fadd_rn(__fadd_rn(fabsf(__fsub_rn(ref[j][0], q[0])),
+                                        fabsf(__fsub_rn(ref[j][1], q[kSlabN]))),
+                              fabsf(__fsub_rn(ref[j][2], q[2 * kSlabN])));
+              } else {
+                s = kOobPenalty;
+              }
+            }
+            sad[j] = s;
+          }
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            // vertical window, from its first term
+            float vs = sad[i];
+#pragma unroll
+            for (int j = 1; j <= 2 * kMaxR; ++j)
+              if (j <= 2 * R) vs = __fadd_rn(vs, sad[i + j]);
+            // horizontal window from the neighbouring lanes, ascending;
+            // lanes below R or from 32 - R up read themselves and are not
+            // written out
+            float acc = vs;
+            if (R > 0) {
+              acc = __shfl_up_sync(kFull, vs, R);
+#pragma unroll
+              for (int k = kMaxR - 1; k >= 1; --k)
+                if (k < R) acc = __fadd_rn(acc, __shfl_up_sync(kFull, vs, k));
+              acc = __fadd_rn(acc, vs);
+#pragma unroll
+              for (int k = 1; k <= kMaxR; ++k)
+                if (k <= R) acc = __fadd_rn(acc, __shfl_down_sync(kFull, vs, k));
+            }
+            m[jd][i] = fminf(m[jd][i], acc);
+          }
         }
       }
-      __syncthreads();
-
-      // 3. column sums (horizontal window) and the min over pairs
-#pragma unroll
-      for (int k = 0; k < kPix; ++k) {
-        const int q = tid + k * kThreads;
-        const int base = (q / kTileW) * hw + q % kTileW;
-        float acc = row_s[base];
-        for (int j = 1; j <= 2 * R; ++j) acc = __fadd_rn(acc, row_s[base + j]);
-        m[k] = fminf(m[k], acc);
-      }
-      // no barrier here: the next pair writes sad_s only, and row_s is
-      // rewritten after the barrier that follows that fill
     }
 
-    const float dl = ladder[d];
+    // the chunk's WTA, in ascending hypothesis order
 #pragma unroll
-    for (int k = 0; k < kPix; ++k) {
-      if (m[k] < best[k]) {
-        best[k] = m[k];
-        bestd[k] = dl;
+    for (int jd = 0; jd < kChunk; ++jd) {
+      const int d = d0 + jd;
+      if (d < d1) {
+        const float dl = ladder[d];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          if (m[jd][i] < best[i]) {
+            best[i] = m[jd][i];
+            bestd[i] = dl;
+          }
+        }
       }
     }
   }
 
+  if (lane >= R && lane < 32 - R && x < W) {
 #pragma unroll
-  for (int k = 0; k < kPix; ++k) {
-    const int q = tid + k * kThreads;
-    const int y = y0 + q / kTileW;
-    const int x = x0 + q % kTileW;
-    if (y < H && x < W) {
-      const long long o = (long long)v * plane + (long long)y * W + x;
-      disp[o] = bestd[k];
-      cost[o] = best[k];
+    for (int i = 0; i < kRows; ++i) {
+      const int y = y0 + r0 + i;
+      if (y < H) {
+        const long long o = (long long)v * plane + (long long)y * W + x;
+        disp[o] = bestd[i];
+        cost[o] = best[i];
+      }
     }
   }
 }
 
 }  // namespace
 
+// Blocks of the kernel that fit on one SM at once, into ``*blocks``;
+// returns the CUDA error (0 on success).
+extern "C" int sweep_blocks_per_sm(int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, sweep_kernel, kThreads, 0);
+}
+
 // Plain C entry point, bound with ctypes.  Launches on ``stream`` and
 // returns cudaGetLastError() (0 on success); it does not synchronise.
-// R (the box radius) must lie in [0, 4].
+// R (the box radius) must lie in [0, 4]; the chunk tables come from
+// ops/sweep.py chunk_tables, built for kChunk and kSpare.
 extern "C" int sweep_launch(
     const float* lab, const int* pair_start, const int* pair_view,
-    const int* shifts, const float* ladder, float* disp, float* cost,
-    int V, int H, int W, int D, int R, void* stream) {
+    const int* shifts, const float* ladder, const int* chunk_start, const int* slab_box,
+    float* disp, float* cost, int V, int H, int W, int D, int R, int C, void* stream) {
   if (R < 0 || R > kMaxR) return (int)cudaErrorInvalidValue;
   if ((long long)V * H * W == 0) return 0;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, V);
+  const int tw = kWarpsX * (32 - 2 * R);
+  const dim3 grid((W + tw - 1) / tw, (H + kTileH - 1) / kTileH, V);
   sweep_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lab, pair_start, pair_view, shifts, ladder, disp, cost, H, W, D, R);
+      lab, pair_start, pair_view, shifts, ladder, chunk_start, slab_box, disp, cost, H, W, D,
+      R, C);
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,11 @@
 twin and the entry point that picks between them are in
 ``models/plane_sweep.py``.  The host builds the per-(pair, hypothesis)
 integer shift tables in double precision (:func:`shift_table`, which the
-plain twin uses too) and hands the kernel the pairs grouped by reference
-view; the TPU's padded channel-planar slabs (``pad_images``) have no
-counterpart.
+plain twin uses too), hands the kernel the pairs grouped by reference
+view, and cuts the ladder into the chunks whose neighbour slabs the
+kernel stages (:func:`chunk_tables`).  All of it goes to the card in one
+copy per call (:func:`kernel_tables`).  The TPU's padded channel-planar
+slabs (``pad_images``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import numpy as np
 import torch
 
 MAX_RADIUS = 4  # the kernel's shared-memory halo
+CHUNK = 8  # hypotheses a chunk holds at most: csrc/sweep.cu kChunk
+SPARE = 16  # slab rows and columns beyond a tile's halo: csrc/sweep.cu kSpare
 
 # Kernel launches since import (or since the caller reset it): chip_smoke.py
 # reads it to show that the sweep path went through the kernel.
@@ -68,6 +72,50 @@ def pair_tables(
     return start, view, shifts.astype(np.int32)
 
 
+def chunk_tables(shifts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(bounds (C+1,), box (P, C, 4)) int32: the kernel's hypothesis chunks.
+
+    ``shifts`` is :func:`pair_tables`' (P, D, 4).  The ladder, in its own
+    order, is cut into chunks of at most CHUNK consecutive hypotheses; a
+    chunk closes early where, for some pair, the spread (max - min) of sy
+    or sx over it would exceed SPARE.  ``box`` holds each (pair,
+    chunk)'s (max sy, max sx, min sy, min sx): a tile at (y0, x0) with box
+    radius r stages its slab from row y0 - r - max sy and column x0 - r -
+    max sx, and reads hypothesis d at slab row (y - sy) - row0, column
+    (x - sx) - col0."""
+    n_pairs, n_d = shifts.shape[:2]
+    s = shifts[..., :2].astype(np.int64)
+    bounds = [0]
+    while bounds[-1] < n_d:
+        start = bounds[-1]
+        lo = hi = s[:, start]
+        end = start + 1
+        while end < n_d and end - start < CHUNK:
+            lo_next, hi_next = np.minimum(lo, s[:, end]), np.maximum(hi, s[:, end])
+            if (hi_next - lo_next > SPARE).any():
+                break
+            lo, hi, end = lo_next, hi_next, end + 1
+        bounds.append(end)
+    box = np.zeros((n_pairs, len(bounds) - 1, 4), np.int32)
+    for c, (a, b) in enumerate(zip(bounds, bounds[1:])):
+        box[:, c, :2] = s[:, a:b].max(1)
+        box[:, c, 2:] = s[:, a:b].min(1)
+    return np.asarray(bounds, np.int32), box
+
+
+def kernel_tables(
+    ladder: Sequence[float], pairs: Sequence[tuple[int, int, int, int]], bl_ratio: float, n_views: int
+) -> tuple[np.ndarray, dict[str, int]]:
+    """Every table the kernel reads, packed into one int32 array (the ladder
+    as float32 bits), and each table's offset in it, in entries."""
+    start, view, shifts = pair_tables(ladder, pairs, bl_ratio, n_views)
+    bounds, box = chunk_tables(shifts)
+    parts = dict(start=start, view=view, shifts=shifts,
+                 ladder=np.asarray(ladder, np.float32).view(np.int32), bounds=bounds, box=box)
+    offsets = np.cumsum([0] + [a.size for a in parts.values()])
+    return np.concatenate([a.reshape(-1) for a in parts.values()]), dict(zip(parts, offsets.tolist()))
+
+
 def plane_sweep(
     lab: torch.Tensor,  # (V, H, W, 3) float32 on CUDA, contiguous
     ladder: Sequence[float],
@@ -91,25 +139,25 @@ def plane_sweep(
         raise ValueError(f"window_radius {window_radius} outside 0..{MAX_RADIUS}")
     v, h, w = lab.shape[:3]
     ladder = [float(d) for d in ladder]
-    start, view, shifts = pair_tables(ladder, pairs, bl_ratio, v)
+    packed, at = kernel_tables(ladder, pairs, bl_ratio, v)
     dev = lab.device
-    start_t = torch.as_tensor(start, device=dev)
-    view_t = torch.as_tensor(view, device=dev)
-    shifts_t = torch.as_tensor(shifts, device=dev)
-    ladder_t = torch.as_tensor(np.asarray(ladder, np.float32), device=dev)
 
     lib = load("sweep")
     fn = lib.sweep_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     disp = torch.empty((v, h, w), dtype=torch.float32, device=dev)
     cost = torch.empty((v, h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        # one copy from pinned memory, ordered on the stream before the launch
+        tables = torch.from_numpy(packed).pin_memory().to(dev, non_blocking=True)
+        ptr = {k: tables.data_ptr() + 4 * off for k, off in at.items()}
+        n_chunks = at["box"] - at["bounds"] - 1  # bounds holds C + 1 entries
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
-            lab.data_ptr(), start_t.data_ptr(), view_t.data_ptr(), shifts_t.data_ptr(),
-            ladder_t.data_ptr(), disp.data_ptr(), cost.data_ptr(),
-            v, h, w, len(ladder), window_radius, stream,
+            lab.data_ptr(), ptr["start"], ptr["view"], ptr["shifts"], ptr["ladder"],
+            ptr["bounds"], ptr["box"], disp.data_ptr(), cost.data_ptr(),
+            v, h, w, len(ladder), window_radius, n_chunks, stream,
         )
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed with CUDA error {rc}")

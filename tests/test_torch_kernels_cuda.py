@@ -135,13 +135,14 @@ def _lab(shape, seed, device):
     return torch.as_tensor(rng.uniform(0, 100, shape).astype(np.float32), device=device)
 
 
-def _sweep_matches(lab, ladder, pairs, bl_ratio):
+def _sweep_matches(lab, ladder, pairs, bl_ratio, radius=2):
     before = sweep.LAUNCHES
-    got = plane_sweep.plane_sweep_depth(lab, ladder, pairs, bl_ratio)
+    got = plane_sweep.plane_sweep_depth(lab, ladder, pairs, bl_ratio, radius)
     torch.cuda.synchronize()
     assert sweep.LAUNCHES == before + 1
-    want = plane_sweep.plane_sweep_reference(lab, ladder, pairs, bl_ratio)
+    want = plane_sweep.plane_sweep_reference(lab, ladder, pairs, bl_ratio, radius)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
 
 
 @pytest.mark.cuda
@@ -150,11 +151,66 @@ def test_sweep_kernel_single_pair_bitwise(cuda, dv):
     _sweep_matches(_lab((2, 48, 160, 3), 0, cuda), range(5, 13), ((0, 1, dv[0], dv[1]),), 1.0359)
 
 
+ODD = SystemSettings(array_width=3, array_height=3, min_disp=10, max_disp=20, inc=1)
+ODD_PAIRS = plane_sweep.build_pairs(*build_view_subsets(ODD), ODD.array_width)
+
+
 @pytest.mark.cuda
 def test_sweep_kernel_odd_multiview_bitwise(cuda):
-    s = SystemSettings(array_width=3, array_height=3, min_disp=10, max_disp=20, inc=1)
-    pairs = plane_sweep.build_pairs(*build_view_subsets(s), s.array_width)
-    _sweep_matches(_lab((9, 53, 131, 3), 1, cuda), range(10, 21), pairs, s.bl_ratio)
+    _sweep_matches(_lab((9, 53, 131, 3), 1, cuda), range(10, 21), ODD_PAIRS, ODD.bl_ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [0, 4])
+def test_sweep_kernel_window_radius_bitwise(cuda, radius):
+    _sweep_matches(_lab((9, 53, 131, 3), 1, cuda), range(10, 21), ODD_PAIRS, ODD.bl_ratio, radius)
+
+
+# one hypothesis; one more than a chunk holds; an unsorted ladder whose
+# jumps close chunks early (ops/sweep.chunk_tables)
+SWEEP_LADDERS = {
+    "D1": [12.0],
+    "D-chunk+1": [float(d) for d in range(10, 11 + sweep.CHUNK)],
+    "unsorted": [30.0, 60.0, 31.0, 45.5],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ladder", list(SWEEP_LADDERS))
+def test_sweep_kernel_ladders_bitwise(cuda, ladder):
+    _sweep_matches(_lab((9, 70, 150, 3), 3, cuda), SWEEP_LADDERS[ladder], ODD_PAIRS, ODD.bl_ratio)
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_view_without_pairs(cuda):
+    disp, cost = _sweep_matches(_lab((3, 40, 70, 3), 4, cuda), [4.0, 5.0, 6.0],
+                                ((0, 1, 1, 0), (1, 0, -1, 0)), 1.0)
+    assert bool((disp[2] == 0.0).all()) and bool((cost[2] == 1.0e6).all())
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_diagonal_ragged_tiles_bitwise(cuda):
+    """dv = (-1, -1) at a height and width that leave ragged tiles (at
+    radius 2, 37 = 2 x 16 + 5 rows, 101 = 56 + 45 columns)."""
+    _sweep_matches(_lab((2, 37, 101, 3), 5, cuda), range(3, 14), ((0, 1, -1, -1), (1, 0, 1, 1)), 1.0359)
+
+
+@pytest.mark.cuda
+def test_sweep_tables_one_host_to_device_copy(cuda):
+    """Every table of a call reaches the card in one copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lab = _lab((9, 53, 131, 3), 1, cuda)
+    args = (lab, [float(d) for d in range(10, 21)], ODD_PAIRS, ODD.bl_ratio)
+    sweep.plane_sweep(*args)  # build and load outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sweep.plane_sweep(*args)
+        torch.cuda.synchronize()
+    copies = sum(e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.key.startswith("Memcpy HtoD"))
+    assert copies == 1
 
 
 @pytest.fixture
