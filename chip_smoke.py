@@ -45,7 +45,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    5a; 5d ``pair_layout="view"`` (the packed scorer in the port) bitwise
    equal to phase 3's packed state,
    and the gather depth init timed against the kernel's, their WTA
-   agreeing on >= 0.999 of cells.
+   agreeing on >= 0.999 of cells;
+6. the SfM path (plain PyTorch, no kernel of its own) on phase 5's PNGs:
+   6a ``cli.main(["sfm", ...])``, one warm-up and two timed runs, the
+   seconds per scene, device ms per step and host seconds of the track
+   building, peak memory, and the matches, RMS and ATE held to the JAX
+   package's run_sfm on the same scene; 6b the same with ``--pose-graph``
+   (warm-up and one timed run); 6c ``cli.main(["run", ..., "--sfm"])``,
+   once, its stage times and its disparity from the recovered poses
+   (cost-volume launches counted into the kernels' record); 6d the card
+   against the port's CPU path at 9x270x480, with and without the pose
+   graph: keypoint agreement and the ATE between the two runs' poses.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -88,6 +98,19 @@ TRUE_DISP = 40.0
 # the port-vs-JAX pipeline bounds (tests/test_torch_pipeline.py): label
 # agreement, disp_init agreement, disp_full within 1e-3
 LABELS_AGREE, INIT_AGREE, FULL_CLOSE = 0.995, 0.99, 0.98
+# the JAX package's run_sfm on this 9-view 1080p scene at its defaults, on
+# the CPU: 20 pairs x 256 matches, all valid, and the RMS after bundle
+# adjustment without and with the pose graph (px)
+SFM_JAX_MATCHES, SFM_JAX_RMS_AFTER, SFM_JAX_PG_RMS_AFTER = 5120, 0.03349, 0.04820
+# the card against those: share of the matches, |RMS - JAX's| in px, the
+# largest ATE against the grid prior, and BA may not raise the RMS by more
+# than SFM_RMS_SLACK px (tests/test_sfm_pipeline.py's bound)
+SFM_MATCHES_SHARE, SFM_RMS_TOL, SFM_ATE_MAX, SFM_RMS_SLACK = 0.98, 0.01, 0.01, 1e-3
+# the card against the port's CPU path at 9x270x480: keypoint agreement and
+# the ATE between the two runs' poses
+SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
+# run --sfm: share of interior pixels within 1 of the scene's disparity
+SFM_RUN_NEAR = 0.90
 KERNELS = ("cost_volume", "sweep", "consistency")
 
 
@@ -694,9 +717,9 @@ def _write_scene(root: str, rgb) -> str:
     return lst
 
 
-def _cli(argv: list[str], tag: str) -> tuple[float, dict]:
+def _cli(argv: list[str], tag: str, lines: list | None = None) -> tuple[float, dict]:
     """One ``cli.main(argv)``: (wall seconds, its stage ms).  The CLI's
-    own lines are echoed with ``tag``."""
+    own lines are echoed with ``tag`` (and appended to ``lines``)."""
     import torch
 
     from cl_multiview_stereo_tpu_torch import cli
@@ -712,6 +735,8 @@ def _cli(argv: list[str], tag: str) -> tuple[float, dict]:
     stages = {}
     for line in buf.getvalue().splitlines():
         print(f"{tag} cli: {line}")
+        if lines is not None:
+            lines.append(line)
         if line.startswith("stage ms: "):
             stages = json.loads(line[len("stage ms: "):])
     return dt, stages
@@ -755,9 +780,10 @@ def _timed_cli(argv: list[str], tag: str, card: str) -> dict:
     return dict(times=times, stages=stages, launches=launches, peak=peak)
 
 
-def phase_cli(card: str, art3) -> int:
-    """Phase 5; ``art3`` is phase 3's artifacts (strips depth init, packed
-    layout).  Returns the cost-volume launches of 5a's timed runs."""
+def phase_cli(card: str, art3, root: str, lst: str) -> int:
+    """Phase 5 on the scene's PNGs ``lst`` in ``root``; ``art3`` is phase
+    3's artifacts (strips depth init, packed layout).  Returns the
+    cost-volume launches of 5a's timed runs."""
     import numpy as np
     import torch
 
@@ -766,38 +792,36 @@ def phase_cli(card: str, art3) -> int:
     from cl_multiview_stereo_tpu_torch.ops import cost_volume
 
     s, rgb = _scene(FULL_H, FULL_W)
-    with tempfile.TemporaryDirectory() as root:
-        lst = _write_scene(root, rgb)
-        base = ["run", lst, "--device", "cuda", "--cross-check", "--checkpoint", "--ply"]
+    base = ["run", lst, "--device", "cuda", "--cross-check", "--checkpoint", "--ply"]
 
-        out_a = os.path.join(root, "a")
-        r = _timed_cli(base + ["--out", out_a], "[5a]", card)
-        disp_a, near, rejected = _disp_checks(os.path.join(out_a, "pipeline_state.npz"), "[5a]")
-        t = min(r["times"])
-        print(f"[5a] CLI runs {[round(x, 4) for x in r['times']]} s; best {t:.4f} s per scene "
-              f"= {9 * FULL_H * FULL_W / t / 1e6:.4f} MP/s; peak {r['peak'] / 2**30:.3f} GiB; "
-              f"disp_full near GT {near:.6f}; vote rejected {rejected:.6f}; "
-              f"cost_volume launches {r['launches']} ({card})")
-        print("[5a] stage ms (last run): " + json.dumps(r["stages"]))
+    out_a = os.path.join(root, "a")
+    r = _timed_cli(base + ["--out", out_a], "[5a]", card)
+    disp_a, near, rejected = _disp_checks(os.path.join(out_a, "pipeline_state.npz"), "[5a]")
+    t = min(r["times"])
+    print(f"[5a] CLI runs {[round(x, 4) for x in r['times']]} s; best {t:.4f} s per scene "
+          f"= {9 * FULL_H * FULL_W / t / 1e6:.4f} MP/s; peak {r['peak'] / 2**30:.3f} GiB; "
+          f"disp_full near GT {near:.6f}; vote rejected {rejected:.6f}; "
+          f"cost_volume launches {r['launches']} ({card})")
+    print("[5a] stage ms (last run): " + json.dumps(r["stages"]))
 
-        out_b = os.path.join(root, "b")
-        dt, stages = _cli(base + ["--out", out_b, "--resume", os.path.join(out_a, "pipeline_state.npz")],
-                          "[5b]")
-        disp_b, _, _ = _disp_checks(os.path.join(out_b, "pipeline_state.npz"), "[5b]")
-        if not np.array_equal(disp_b, disp_a):
-            raise AssertionError(f"[5b] resumed disp_full differs at {int((disp_b != disp_a).sum())} pixels")
-        print(f"[5b] resume from the post-refinement checkpoint: {dt:.4f} s, disp_full bitwise "
-              f"equal to 5a; stage ms {json.dumps(stages)} ({card})")
+    out_b = os.path.join(root, "b")
+    dt, stages = _cli(base + ["--out", out_b, "--resume", os.path.join(out_a, "pipeline_state.npz")],
+                      "[5b]")
+    disp_b, _, _ = _disp_checks(os.path.join(out_b, "pipeline_state.npz"), "[5b]")
+    if not np.array_equal(disp_b, disp_a):
+        raise AssertionError(f"[5b] resumed disp_full differs at {int((disp_b != disp_a).sum())} pixels")
+    print(f"[5b] resume from the post-refinement checkpoint: {dt:.4f} s, disp_full bitwise "
+          f"equal to 5a; stage ms {json.dumps(stages)} ({card})")
 
-        out_c = os.path.join(root, "c")
-        r_c = _timed_cli(base + ["--out", out_c, "--set", "enforce_connectivity=true",
-                                 "--set", "edge_enable=true"], "[5c]", card)
-        _, near_c, rejected_c = _disp_checks(os.path.join(out_c, "pipeline_state.npz"), "[5c]")
-        t = min(r_c["times"])
-        print(f"[5c] SLIC flags: CLI runs {[round(x, 4) for x in r_c['times']]} s; best {t:.4f} s "
-              f"per scene; peak {r_c['peak'] / 2**30:.3f} GiB; disp_full near GT {near_c:.6f}; "
-              f"vote rejected {rejected_c:.6f} ({card})")
-        print("[5c] stage ms (last run): " + json.dumps(r_c["stages"]))
+    out_c = os.path.join(root, "c")
+    r_c = _timed_cli(base + ["--out", out_c, "--set", "enforce_connectivity=true",
+                             "--set", "edge_enable=true"], "[5c]", card)
+    _, near_c, rejected_c = _disp_checks(os.path.join(out_c, "pipeline_state.npz"), "[5c]")
+    t = min(r_c["times"])
+    print(f"[5c] SLIC flags: CLI runs {[round(x, 4) for x in r_c['times']]} s; best {t:.4f} s "
+          f"per scene; peak {r_c['peak'] / 2**30:.3f} GiB; disp_full near GT {near_c:.6f}; "
+          f"vote rejected {rejected_c:.6f} ({card})")
+    print("[5c] stage ms (last run): " + json.dumps(r_c["stages"]))
 
     rgb_dev = torch.as_tensor(rgb, device="cuda")
     view = MVSPipeline.create(FULL_W, FULL_H, s, depth_method="strips", pair_layout="view",
@@ -821,6 +845,123 @@ def phase_cli(card: str, art3) -> int:
     print(f"[5d] depth init at 9x{FULL_H}x{FULL_W}: kernel (dense) {k_ms:.3f} ms, gather form "
           f"{g_ms:.3f} ms, WTA agreement {agree:.6f} ({card})")
     return r["launches"]
+
+
+def _sfm_run(argv: list[str], tag: str) -> dict:
+    """One ``cli.main(["sfm", ...])``: wall seconds, the CLI's decode and
+    run_sfm seconds, device ms per step, host seconds, and the metrics of
+    its ``sfm_poses.npz``."""
+    import numpy as np
+
+    lines: list[str] = []
+    dt, stages = _cli(argv, tag, lines)
+    text = "\n".join(lines)
+    with np.load(os.path.join(argv[argv.index("--out") + 1], "sfm_poses.npz")) as z:
+        metrics = {k: float(z[k]) for k in ("rms_before", "rms_after", "ate_vs_grid")}
+    return dict(
+        wall=dt, stages=stages, **metrics,
+        decode=float(re.search(r"loaded \d+ views of \d+x\d+ in ([\d.]+)s", text).group(1)),
+        sfm=float(re.search(r"sfm done in ([\d.]+)s", text).group(1)),
+        n_matches=int(re.search(r"sfm done in [\d.]+s: (\d+) pairwise matches", text).group(1)),
+        host=json.loads(next(ln for ln in lines if ln.startswith("host s: "))[len("host s: "):]),
+    )
+
+
+def _sfm_checks(r: dict, rms_jax: float, tag: str) -> None:
+    """The card's SfM held to the JAX package's run on the same scene."""
+    if r["n_matches"] < SFM_MATCHES_SHARE * SFM_JAX_MATCHES:
+        raise AssertionError(f"{tag}: {r['n_matches']} matches, JAX found {SFM_JAX_MATCHES}")
+    if r["rms_after"] > r["rms_before"] + SFM_RMS_SLACK:
+        raise AssertionError(f"{tag}: BA raised the RMS from {r['rms_before']} to {r['rms_after']} px")
+    if abs(r["rms_after"] - rms_jax) > SFM_RMS_TOL:
+        raise AssertionError(f"{tag}: RMS after BA {r['rms_after']} px, JAX's {rms_jax} px")
+    if r["ate_vs_grid"] > SFM_ATE_MAX:
+        raise AssertionError(f"{tag}: ATE vs the grid prior {r['ate_vs_grid']}")
+
+
+def _sfm_line(tag: str, runs: list[dict], peak: int, rms_jax: float, card: str) -> None:
+    r = runs[-1]
+    walls = [round(x["wall"], 4) for x in runs]
+    print(f"{tag} CLI runs {walls} s per scene (decode {r['decode']:.3f} s, run_sfm {r['sfm']:.3f} s); "
+          f"peak {peak / 2**30:.3f} GiB; n_matches {r['n_matches']}; RMS {r['rms_before']:.6f} -> "
+          f"{r['rms_after']:.6f} px (JAX {rms_jax}); ATE vs grid {r['ate_vs_grid']:.6f} ({card})")
+    print(f"{tag} device ms (last run): " + json.dumps(r["stages"]))
+    print(f"{tag} host s (last run): " + json.dumps({k: round(v, 4) for k, v in r["host"].items()}))
+
+
+def _png_near(out: str) -> float:
+    """Share of interior pixels within 1 of the scene's disparity, read back
+    from a run's ``8- Fusion`` PNGs (each 8-bit level decoded to its bin's
+    centre over the default ladder 30..60)."""
+    import numpy as np
+    from PIL import Image
+
+    from cl_multiview_stereo_tpu_torch import SystemSettings
+
+    s = SystemSettings()
+    lo, hi = float(s.min_disp), float(s.max_disp)
+    near = []
+    for v in range(9):
+        png = np.asarray(Image.open(os.path.join(out, "8- Fusion", f"disp_{v}.png")), np.float64)
+        disp = lo + (png + 0.5) / 255.0 * (hi - lo)
+        near.append(np.abs(disp[64:-64, 64:-64] - TRUE_DISP) <= 1.0)
+    return float(np.mean(near))
+
+
+def phase_sfm(card: str, root: str, lst: str) -> int:
+    """Phase 6 on phase 5's PNGs.  Returns the cost-volume launches of 6c."""
+    import numpy as np
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.models.sfm_pipeline import gray_image, run_sfm
+    from cl_multiview_stereo_tpu_torch.ops import cost_volume
+    from cl_multiview_stereo_tpu_torch.ops.features import harris_keypoints
+
+    argv = ["sfm", lst, "--device", "cuda", "--out", os.path.join(root, "sfm")]
+    print(f"[6a] warm-up run {_sfm_run(argv, '[6a]')['wall']:.3f} s ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_sfm_run(argv, "[6a]") for _ in range(2)]
+    _sfm_line("[6a]", runs, torch.cuda.max_memory_allocated(), SFM_JAX_RMS_AFTER, card)
+    for r in runs:
+        _sfm_checks(r, SFM_JAX_RMS_AFTER, "[6a]")
+
+    argv_pg = argv + ["--pose-graph"]
+    print(f"[6b] warm-up run {_sfm_run(argv_pg, '[6b]')['wall']:.3f} s ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    r = _sfm_run(argv_pg, "[6b]")
+    _sfm_line("[6b] --pose-graph:", [r], torch.cuda.max_memory_allocated(), SFM_JAX_PG_RMS_AFTER, card)
+    _sfm_checks(r, SFM_JAX_PG_RMS_AFTER, "[6b]")
+
+    out_c = os.path.join(root, "sfm_run")
+    cost_volume.LAUNCHES = 0
+    dt, stages = _cli(["run", lst, "--sfm", "--device", "cuda", "--out", out_c], "[6c]")
+    launches = cost_volume.LAUNCHES
+    if launches < 1:
+        raise AssertionError("[6c]: run --sfm never launched the cost-volume kernel")
+    near, near_a = _png_near(out_c), _png_near(os.path.join(root, "a"))
+    print(f"[6c] run --sfm: {dt:.4f} s per scene; disp near GT {near:.6f} (5a's {near_a:.6f}, both "
+          f"from the PNGs); cost_volume launches {launches} ({card})")
+    print("[6c] stage ms: " + json.dumps(stages))
+    if near < SFM_RUN_NEAR:
+        raise AssertionError(f"[6c]: disparity within 1 of {TRUE_DISP} on only {near:.4f} of interior pixels")
+
+    s, rgb = _scene(270, 480)
+    gray = gray_image(torch.as_tensor(rgb))
+    kp_c, kp_g = harris_keypoints(gray), harris_keypoints(gray.cuda())
+    fin = torch.isfinite(kp_g.score).cpu()
+    shared = sum(len({tuple(p) for p in kp_g.xy[v].cpu()[fin[v]].tolist()}
+                     & {tuple(p) for p in kp_c.xy[v].tolist()}) for v in range(9))
+    kp_agree = shared / max(int(fin.sum()), 1)
+    for pg in (False, True):
+        rg = run_sfm(rgb, s, device="cuda", use_pose_graph=pg)
+        rc = run_sfm(rgb, s, device="cpu", use_pose_graph=pg)
+        ate = float(np.sqrt(np.mean(np.sum((rg.t - rc.t) ** 2, -1))))
+        print(f"[6d] card vs CPU at 9x270x480, pose graph {pg}: keypoints {kp_agree:.6f}; n_matches "
+              f"{rg.n_matches} / {rc.n_matches}; ATE between the runs {ate:.3e}; RMS after "
+              f"{rg.rms_after:.6f} / {rc.rms_after:.6f} px ({card})")
+        if kp_agree < SFM_KP_AGREE or ate > SFM_CARD_CPU_ATE:
+            raise AssertionError("[6d]: the card's SfM departs from the port's CPU path")
+    return launches
 
 
 def main() -> int:
@@ -847,7 +988,11 @@ def main() -> int:
     cons_launches = phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
-    cv_launches = phase_cli(card, art)
+    with tempfile.TemporaryDirectory() as root:
+        lst = _write_scene(root, _scene(FULL_H, FULL_W)[1])
+        cv_launches = phase_cli(card, art, root, lst)
+        # the cost-volume launches of each main path: 5a's CLI and 6c's run --sfm
+        cv_launches += phase_sfm(card, root, lst)
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
     # library_ms: no single PyTorch call computes any of the three functions

@@ -11,6 +11,11 @@ Keys: ``labels`` (V, H, W); ``center`` (V, Mh, Mw, 2); ``color``
 re-entry; ``disp_init`` (V, Mh, Mw); ``state_d``/``state_sm``/``state_cs``
 (V, Mh, Mw); ``state_n`` (V, Mh, Mw, 3); and, for ``make_context``, the
 artifact names ``extent`` (V, Mh, Mw, 8) and ``flatness`` (V, Mh, Mw, 2).
+
+The SfM stages' inputs come as the JAX package's named tuples (any object
+with the same fields, arrays or numpy): ``keypoints``, ``matches``,
+``ba_problem`` and ``pose_graph``, ids as int32 and everything else as
+float32 (``valid`` as bool).
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from cl_multiview_stereo_tpu_torch.ops import refine, slic
+from cl_multiview_stereo_tpu_torch.models import sfm
+from cl_multiview_stereo_tpu_torch.ops import features, refine, slic
 
 
 def tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -85,4 +91,35 @@ def context_inputs(ck: Mapping, device) -> dict[str, torch.Tensor]:
         labels=labels(ck, device),
         extent=tensor(ck["extent"], torch.int32, device),
         fl=tensor(ck["flatness"], torch.float32, device),
+    )
+
+
+def keypoints(kp, device) -> features.Keypoints:
+    return features.Keypoints(
+        xy=tensor(kp.xy, torch.float32, device),
+        score=tensor(kp.score, torch.float32, device),
+        desc=tensor(kp.desc, torch.float32, device),
+    )
+
+
+def matches(m, device) -> features.Matches:
+    return features.Matches(idx=tensor(m.idx, torch.int32, device), valid=tensor(m.valid, torch.bool, device))
+
+
+def ba_problem(p, device) -> sfm.BAProblem:
+    ids = ("obs_cam", "obs_pt")
+    return sfm.BAProblem(**{
+        f: tensor(getattr(p, f), torch.int32 if f in ids else torch.float32, device)
+        for f in sfm.BAProblem._fields
+    })
+
+
+def pose_graph(g, device) -> sfm.PoseGraph:
+    return sfm.PoseGraph(
+        edges=tensor(g.edges, torch.int32, device),
+        rel_aa=tensor(g.rel_aa, torch.float32, device),
+        rel_t=tensor(g.rel_t, torch.float32, device),
+        w_rot=tensor(g.w_rot, torch.float32, device),
+        w_t=tensor(g.w_t, torch.float32, device),
+        info=None if g.info is None else tensor(g.info, torch.float32, device),
     )

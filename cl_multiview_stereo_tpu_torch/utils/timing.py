@@ -3,11 +3,14 @@
 A :class:`StageTimer` records an event pair around each stage on the
 current stream; nothing synchronises until :meth:`StageTimer.ms` reads the
 times, so timing does not change how the stages overlap with the host.
+Host-only stages (``host=True``) are timed on the host clock instead, into
+:attr:`StageTimer.host_s`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 
 import torch
 
@@ -20,6 +23,7 @@ class StageTimer:
     def __init__(self) -> None:
         require_cuda()
         self._events: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+        self.host_s: dict[str, float] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -41,12 +45,22 @@ class StageTimer:
             out[name] = out.get(name, 0.0) + start.elapsed_time(end)
         return out
 
+    @contextlib.contextmanager
+    def host(self, name: str):
+        """Host seconds of a stage that runs no device work (summed per name)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.host_s[name] = self.host_s.get(name, 0.0) + time.perf_counter() - t0
+
 
 @contextlib.contextmanager
-def maybe_stage(timer: StageTimer | None, name: str):
-    """``timer.stage(name)`` when a timer is given, else nothing."""
+def maybe_stage(timer: StageTimer | None, name: str, host: bool = False):
+    """``timer.stage(name)`` (``timer.host(name)`` with ``host``) when a
+    timer is given, else nothing."""
     if timer is None:
         yield
     else:
-        with timer.stage(name):
+        with (timer.host(name) if host else timer.stage(name)):
             yield

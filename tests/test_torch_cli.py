@@ -1,6 +1,7 @@
 """The port's CLI (``cl_multiview_stereo_tpu_torch.cli``) against the JAX
 CLI on one 2x2 PNG scene: the results tree, the checkpoint keys, the point
-cloud, the disparity, and checkpoints resumed across the two packages."""
+cloud, the disparity, checkpoints resumed across the two packages, and the
+SfM front-end (``sfm`` and ``run --sfm``)."""
 
 import os
 import subprocess
@@ -111,10 +112,29 @@ def test_cli_resume_is_bitwise(runs):
     assert (out / "8- Fusion" / "disp_0.png").is_file()
 
 
-@pytest.mark.parametrize("argv", [["run", "--sfm"], ["sfm"]], ids=["--sfm", "sfm"])
-def test_cli_sfm_is_not_ported(runs, argv):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        cli.main([argv[0], runs["list"], "--device", "cpu", *argv[1:]])
+@pytest.mark.parametrize("argv", [["run", "--sfm", "--checkpoint"], ["sfm"]], ids=["--sfm", "sfm"])
+def test_cli_sfm_matches_jax(runs, argv, tmp_path):
+    """``sfm`` and ``run --sfm`` through both CLIs on the scene: the same
+    ``sfm_poses.npz`` keys with the poses within
+    tests/test_torch_sfm_pipeline.py's run_sfm bound (1e-5), and the
+    disparity from the recovered pair deltas at test_torch_pipeline.py's
+    bounds."""
+    port_out, jax_out = tmp_path / "port", tmp_path / "jax"
+    assert cli.main([argv[0], runs["list"], "--device", "cpu", "--out", str(port_out), *argv[1:], *SETS]) == 0
+    assert jax_cli.main([argv[0], runs["list"], "--out", str(jax_out), *argv[1:], *SETS]) == 0
+    if argv[0] == "sfm":
+        with np.load(port_out / "sfm_poses.npz") as got, np.load(jax_out / "sfm_poses.npz") as want:
+            assert set(got.files) == set(want.files)
+            for k in got.files:
+                assert got[k].shape == want[k].shape and got[k].dtype == want[k].dtype, k
+            np.testing.assert_allclose(got["t"], want["t"], rtol=0, atol=1e-5)
+            np.testing.assert_array_equal(got["intr"], want["intr"])
+        return
+    ck, jck = _npz(port_out / NPZ), _npz(jax_out / NPZ)
+    assert (ck["labels"] == jck["labels"]).mean() > 0.995
+    assert (ck["disp_init"] == jck["disp_init"]).mean() >= 0.99
+    close = (np.abs(ck["disp_full"] - jck["disp_full"]) <= 1e-3).mean()
+    assert close >= 0.98, f"disp_full within 1e-3 on {close}"
 
 
 def test_cli_default_device_needs_a_gpu(runs, monkeypatch, tmp_path):

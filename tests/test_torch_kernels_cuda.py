@@ -367,3 +367,91 @@ def test_gather_consistency_card_equals_cpu(strips_scene):
     want = refine.consistency_from_cache(to_cpu(ctx), to_cpu(cache), sc["d_c"].cpu(),
                                          sc["n_c"].cpu(), **sc["kw"])
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# SfM on the card: plain PyTorch (no kernel of its own), held against the
+# port's CPU path
+# ---------------------------------------------------------------------------
+
+SFM_SETTINGS = SystemSettings(array_width=2, array_height=2, spixl_size=8, min_disp=4, max_disp=11,
+                              bl_ratio=1.0, kernel_size=8, kernel_step=2, no_prop=1)
+
+
+def _sfm_scene():
+    rgb, _ = synthetic.fronto_parallel_scene(120, 160, array_width=2, array_height=2, disp=8.0,
+                                             bl_ratio=1.0)
+    return rgb
+
+
+@pytest.mark.cuda
+def test_harris_keypoints_card_agrees_with_cpu(cuda):
+    """Share of the card's keypoints (with a finite score) that the CPU also
+    found, and their order: the card's parallel cumulative sums reorder the
+    box sums, so agreement is stated (>= 0.99), not bitwise."""
+    from cl_multiview_stereo_tpu_torch.models.sfm_pipeline import gray_image
+    from cl_multiview_stereo_tpu_torch.ops.features import harris_keypoints
+
+    gray = gray_image(torch.as_tensor(_sfm_scene()))
+    got = harris_keypoints(gray.to(cuda), k=192)
+    want = harris_keypoints(gray, k=192)
+    assert torch.equal(gray_image(torch.as_tensor(_sfm_scene(), device=cuda)).cpu(), gray)
+    fin = torch.isfinite(got.score.cpu())
+    shared = 0
+    for v in range(gray.shape[0]):
+        mine = {tuple(p) for p in got.xy[v].cpu()[fin[v]].tolist()}
+        ref = {tuple(p) for p in want.xy[v][torch.isfinite(want.score[v])].tolist()}
+        shared += len(mine & ref)
+    assert shared >= 0.99 * int(fin.sum()), (shared, int(fin.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pose_graph", [False, True], ids=["ba", "pose_graph"])
+def test_run_sfm_card_agrees_with_cpu(cuda, pose_graph):
+    """run_sfm at 2x2 views of 120x160 on the card and on the CPU: the same
+    number of matches, poses within 1e-3 (ATE between the two runs) and the
+    RMS within 1e-3 px."""
+    from cl_multiview_stereo_tpu_torch.models.sfm_pipeline import run_sfm
+
+    kw = dict(k=192, max_matches=96, ba_iters=8, use_pose_graph=pose_graph)
+    got = run_sfm(_sfm_scene(), SFM_SETTINGS, device=cuda, **kw)
+    want = run_sfm(_sfm_scene(), SFM_SETTINGS, device="cpu", **kw)
+    assert got.n_matches == want.n_matches
+    assert float(np.sqrt(np.mean(np.sum((got.t - want.t) ** 2, -1)))) < 1e-3
+    assert abs(got.rms_after - want.rms_after) < 1e-3
+    assert got.rms_after <= got.rms_before + 1e-3
+
+
+@pytest.mark.cuda
+def test_bundle_adjust_loop_never_waits_for_the_host(cuda):
+    """No synchronisation and no device-to-host copy per iteration: the
+    counts under torch.profiler are the same for 2 and for 6 iterations
+    (the degree check before the loop reads the device once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cl_multiview_stereo_tpu_torch.models import sfm
+
+    rng = np.random.default_rng(0)
+    n_cam, n_pt = 4, 40
+    aa = torch.zeros(n_cam, 3)
+    t = torch.as_tensor(np.stack([-np.arange(n_cam), np.zeros(n_cam), np.zeros(n_cam)], -1), dtype=torch.float32)
+    X = torch.as_tensor(rng.uniform([-2, -2, 4], [2, 2, 8], (n_pt, 3)), dtype=torch.float32)
+    intr = torch.tensor([500.0, 500.0, 320.0, 240.0])
+    cams = torch.arange(n_cam).repeat_interleave(n_pt).to(torch.int32)
+    pts = torch.arange(n_pt).repeat(n_cam).to(torch.int32)
+    uv = sfm.project(aa[cams.long()], t[cams.long()], X[pts.long()], intr)
+    prob = sfm.BAProblem(aa=aa, t=t + 0.05, X=X + 0.1, intr=intr, obs_cam=cams, obs_pt=pts,
+                         obs_uv=uv + torch.randn(uv.shape) * 0.3, obs_w=torch.ones(len(cams)))
+    prob = sfm.BAProblem(*(x.to(cuda) for x in prob))
+    sfm.bundle_adjust(prob, iters=1, max_deg=n_cam)  # warm-up outside the trace
+    torch.cuda.synchronize()
+
+    def waits(iters: int) -> int:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = sfm.bundle_adjust(prob, iters=iters, max_deg=n_cam)
+            torch.cuda.synchronize()
+        assert torch.isfinite(out.t).all()
+        return sum(e.count for e in prof.key_averages()
+                   if "Synchronize" in e.key or e.key.startswith("Memcpy DtoH"))
+
+    assert waits(2) == waits(6)
