@@ -55,7 +55,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    once, its stage times and its disparity from the recovered poses
    (cost-volume launches counted into the kernels' record); 6d the card
    against the port's CPU path at 9x270x480, with and without the pose
-   graph: keypoint agreement and the ATE between the two runs' poses.
+   graph: keypoint agreement and the ATE between the two runs' poses;
+7. ``parallel/`` at full width, in an NCCL group of world size 1 that the
+   script starts: 7a ``disp_sharded_depth_init`` bitwise the dense depth
+   init, and the slab local work of 2, 3 and 4 ranks, run one after
+   another and joined by ``combine_slab_winners``, bitwise too; 7b
+   ``spatial_plane_sweep`` bitwise ``plane_sweep_depth``, and the sweep
+   kernel's row window on each tile of 2, 4 and 8 row tiles, from a
+   locally cut halo band, bitwise the whole launch's rows (a tile
+   launch's ms beside the whole launch's and the tile's bound); 7c
+   ``spatial_refine`` bitwise ``refine.refine`` with the exact and the
+   "auto" halo; 7d ``run_sharded`` bitwise ``MVSPipeline.run`` with both
+   pair layouts, and the cost volume's view range for 3 ranks of 3 views
+   bitwise the whole volume; 7e ``run_sfm(mesh=...)`` on phase 5's PNGs
+   held to the unsharded run and to JAX's numbers; for 7b-7e the seconds
+   of a warm-up and two timed runs beside the unsharded path's; 7f two
+   processes on the one card in a gloo group (NCCL refuses two ranks on
+   one device, gloo carries the all-gathers of CUDA tensors that the port
+   uses): 7b at n = 2, and 7d at n = 2 on an 8-view (4x2) 1080p scene.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -112,6 +129,8 @@ SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
 # run --sfm: share of interior pixels within 1 of the scene's disparity
 SFM_RUN_NEAR = 0.90
 KERNELS = ("cost_volume", "sweep", "consistency")
+# phase 7f's two gloo ranks on the one card: seconds they may take
+GLOO_TIMEOUT_S = 420
 
 
 def _card() -> str:
@@ -964,9 +983,277 @@ def phase_sfm(card: str, root: str, lst: str) -> int:
     return launches
 
 
+def _seconds(fn, runs: int = 2) -> tuple[float, list[float]]:
+    """Host seconds of a warm-up call of ``fn`` and of ``runs`` timed calls,
+    each ended by a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(runs + 1):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out[0], out[1:]
+
+
+def _times_line(tag: str, sharded, unsharded, card: str) -> None:
+    (ws, ts), (wu, tu) = sharded, unsharded
+    print(f"{tag} seconds: sharded warm-up {ws:.4f}, runs {[round(x, 4) for x in ts]}; unsharded "
+          f"warm-up {wu:.4f}, runs {[round(x, 4) for x in tu]}; best sharded / unsharded "
+          f"{min(ts) / min(tu):.4f} ({card})")
+
+
+def _require_equal(tag: str, got, want) -> None:
+    import torch
+
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag}: differs at {int((got != want).sum())} of {want.numel()} entries")
+
+
+def phase_sharded(card: str, art, lst: str) -> dict:
+    """Phase 7a-7e in a world-size-1 NCCL group.  Returns each kernel's
+    launches on the sharded paths (each count reset just before its path)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from cl_multiview_stereo_tpu_torch import RefinementSchedule, build_disp_levels, build_view_subsets
+    from cl_multiview_stereo_tpu_torch.io.images import load_image_array
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.models.sfm_pipeline import run_sfm
+    from cl_multiview_stereo_tpu_torch.ops import cost_volume, refine, sweep
+    from cl_multiview_stereo_tpu_torch.ops.superpixel import extent_step
+    from cl_multiview_stereo_tpu_torch.parallel import initialize_distributed, make_mesh, spatial
+    from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import run_sharded
+
+    initialize_distributed(device="cuda")
+    try:
+        print(f"[7] process group: backend {dist.get_backend()}, world size {dist.get_world_size()} ({card})")
+        tile = init_device_mesh("cuda", (1,), mesh_dim_names=("tile",))
+        disp_mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("disp",))
+        mesh = make_mesh()
+        s, rgb = _scene(FULL_H, FULL_W)
+        rgb_dev = torch.as_tensor(rgb, device="cuda")
+        levels = build_disp_levels(s)
+        subset, counts = build_view_subsets(s)
+        counts_t = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
+        lab, center = art.lab.contiguous(), art.spmap.center.contiguous()
+        step = extent_step(art.extent).contiguous()
+        launches = {}
+
+        # 7a: depth slabs
+        want = cost_volume.initial_depth_estimation(lab, center, art.extent, levels, subset, counts_t,
+                                                    s.array_width, s.bl_ratio, method="dense")
+        cost_volume.LAUNCHES = 0
+        got = spatial.disp_sharded_depth_init(lab, center, step, levels, counts, disp_mesh,
+                                              s.array_width, s.bl_ratio)
+        torch.cuda.synchronize()
+        launches["cost_volume"] = cost_volume.LAUNCHES
+        if launches["cost_volume"] < 1:
+            raise AssertionError("[7a] disp_sharded_depth_init never launched the cost-volume kernel")
+        _require_equal("[7a] disp_sharded_depth_init", got, want)
+        for n in (2, 3, 4):
+            ladder = spatial.padded_ladder(levels, n)
+            wins = [spatial.slab_winners(lab, center, step, ladder, t, n, s.array_width, s.bl_ratio)
+                    for t in range(n)]
+            joined = spatial.combine_slab_winners(torch.stack([c for c, _ in wins]),
+                                                  torch.stack([d for _, d in wins]))
+            _require_equal(f"[7a] {n} slabs", torch.where(counts_t[:, None, None] > 0, joined, 0.0), want)
+        print(f"[7a] disp_sharded_depth_init at 9x{FULL_H}x{FULL_W} D{len(levels)}: bitwise equal to the "
+              f"dense depth init; the slab local work of 2, 3 and 4 ranks (the ladder padded to "
+              f"{[len(spatial.padded_ladder(levels, n)) for n in (2, 3, 4)]}) bitwise equal; cost_volume "
+              f"launches {launches['cost_volume']} ({card})")
+
+        # 7b: row tiles
+        ladder, pairs = _sweep_args(s)
+        ladder = [float(d) for d in ladder]
+        want_d, want_c = plane_sweep_depth(lab, ladder, pairs, s.bl_ratio)
+        sweep.LAUNCHES = 0
+        got_d, got_c = spatial.spatial_plane_sweep(lab, ladder, pairs, s.bl_ratio, tile)
+        torch.cuda.synchronize()
+        launches["sweep"] = sweep.LAUNCHES
+        if launches["sweep"] < 1:
+            raise AssertionError("[7b] spatial_plane_sweep never launched the sweep kernel")
+        _require_equal("[7b] spatial_plane_sweep disp", got_d, want_d)
+        _require_equal("[7b] spatial_plane_sweep cost", got_c, want_c)
+        v = lab.shape[0]
+        halo = spatial.sweep_halo(ladder, pairs, s.bl_ratio, 2)
+        for n in (2, 4, 8):
+            rows = FULL_H // n
+            for t in range(n):
+                b0, b1 = max(0, t * rows - halo), min(FULL_H, (t + 1) * rows + halo)
+                band = lab[:, b0:b1].contiguous()
+                td, tc = spatial.sweep_tile(band, b0, t, rows, FULL_H, ladder, pairs, s.bl_ratio)
+                _require_equal(f"[7b] tile {t} of {n} disp", td, want_d[:, t * rows:(t + 1) * rows])
+                _require_equal(f"[7b] tile {t} of {n} cost", tc, want_c[:, t * rows:(t + 1) * rows])
+        # an interior tile of 8 against the whole launch, and its bound
+        rows, t = FULL_H // 8, 3
+        b0, b1 = t * rows - halo, (t + 1) * rows + halo
+        band = lab[:, b0:b1].contiguous()
+        win = sweep.RowWindow(FULL_H, b0, t * rows, rows)
+        tile_ms, full_ms = _in_turns(lambda: sweep.plane_sweep(band, ladder, pairs, s.bl_ratio, 2, win),
+                                     lambda: sweep.plane_sweep(lab, ladder, pairs, s.bl_ratio, 2), 5, 5)
+        ops = (len(pairs) * (SWEEP_OPS_SAD + 4 * 2 + 1) + v) * len(ladder) * rows * FULL_W
+        tables = sweep.kernel_tables(ladder, pairs, s.bl_ratio, v)[0].nbytes
+        tile_bound, tile_by = _bound(_nbytes(band) + 2 * 4 * v * rows * FULL_W + tables, ops)
+        print(f"[7b] spatial_plane_sweep: bitwise equal to plane_sweep_depth; the row-window kernel "
+              f"bitwise equal to the whole launch's rows on every tile of 2, 4 and 8 (halo {halo} rows); "
+              f"tile 3 of 8 ({rows} rows from a band of {b1 - b0}): kernel {tile_ms:.3f} ms, bound "
+              f"{tile_bound:.4g} ms ({tile_by}); the whole launch {full_ms:.3f} ms; sweep launches "
+              f"{launches['sweep']} ({card})")
+        _times_line("[7b]", _seconds(lambda: spatial.spatial_plane_sweep(lab, ladder, pairs, s.bl_ratio, tile)),
+                    _seconds(lambda: plane_sweep_depth(lab, ladder, pairs, s.bl_ratio)), card)
+
+        # 7c: row-sharded refinement
+        sched = RefinementSchedule.create(s)
+        ctx = refine.make_context(art.spmap.center, art.spmap.color, art.disp_init, art.labels, art.extent,
+                                  art.flatness)
+        rpairs = refine.pairs_from_subsets(subset, s.array_width)
+        want = refine.refine(ctx, sched, pairs=rpairs)
+        for hd in (None, "auto"):
+            got = spatial.spatial_refine(ctx, sched, tile, pairs=rpairs, halo_disp=hd)
+            for f in refine.RefineState._fields:
+                _require_equal(f"[7c] spatial_refine halo_disp={hd} {f}", getattr(got, f), getattr(want, f))
+        print(f"[7c] spatial_refine: bitwise equal to refine.refine with halo_disp None and 'auto' "
+              f"({spatial.refine_halo(ctx, sched, rpairs, 'auto')} rows) ({card})")
+        _times_line("[7c]", _seconds(lambda: spatial.spatial_refine(ctx, sched, tile, pairs=rpairs)),
+                    _seconds(lambda: refine.refine(ctx, sched, pairs=rpairs)), card)
+
+        # 7d: the view-sharded pipeline
+        for layout in ("packed", "view"):
+            pipe = MVSPipeline.create(FULL_W, FULL_H, s, pair_layout=layout, device="cuda")
+            want = pipe.run(rgb_dev).disp_full
+            cost_volume.LAUNCHES = 0
+            got = run_sharded(pipe, rgb_dev, mesh)
+            torch.cuda.synchronize()
+            n_cv = cost_volume.LAUNCHES
+            if n_cv < 1:
+                raise AssertionError(f"[7d] run_sharded ({layout}) never launched the cost-volume kernel")
+            launches["cost_volume"] += n_cv
+            _require_equal(f"[7d] run_sharded pair_layout={layout}", got, want)
+        full = cost_volume.superpixel_cost_volume(lab, center, step, levels, s.array_width, s.bl_ratio)
+        parts = [cost_volume.superpixel_cost_volume(lab, center, step, levels, s.array_width, s.bl_ratio,
+                                                    view_range=(3 * r, 3)) for r in range(3)]
+        _require_equal("[7d] view-range cost volume of 3 ranks", torch.cat(parts), full)
+        print(f"[7d] run_sharded: disp_full bitwise equal to MVSPipeline.run with pair_layout 'packed' and "
+              f"'view'; the view-range cost volume of 3 ranks x 3 views bitwise equal to the whole volume; "
+              f"cost_volume launches {launches['cost_volume']} with 7a's ({card})")
+        pipe = MVSPipeline.create(FULL_W, FULL_H, s, device="cuda")
+        _times_line("[7d]", _seconds(lambda: run_sharded(pipe, rgb_dev, mesh)),
+                    _seconds(lambda: pipe.run(rgb_dev)), card)
+
+        # 7e: SfM with the observation-sharded bundle adjustment
+        rgb_png = load_image_array(lst, 9)
+        res = run_sfm(rgb_png, s, device="cuda", mesh=mesh)
+        res0 = run_sfm(rgb_png, s, device="cuda")
+        ate = float(np.sqrt(np.mean(np.sum((res.t - res0.t) ** 2, -1))))
+        print(f"[7e] run_sfm(mesh=...): n_matches {res.n_matches} (unsharded {res0.n_matches}, JAX "
+              f"{SFM_JAX_MATCHES}); RMS {res.rms_before:.6f} -> {res.rms_after:.6f} px (unsharded "
+              f"{res0.rms_after:.6f}, JAX {SFM_JAX_RMS_AFTER}); ATE vs grid {res.ate_vs_grid:.6f}; ATE "
+              f"between the sharded and unsharded poses {ate:.3e} ({card})")
+        if (res.n_matches < SFM_MATCHES_SHARE * SFM_JAX_MATCHES or res.ate_vs_grid > SFM_ATE_MAX
+                or abs(res.rms_after - SFM_JAX_RMS_AFTER) > SFM_RMS_TOL
+                or res.rms_after > res.rms_before + SFM_RMS_SLACK):
+            raise AssertionError("[7e] run_sfm(mesh=...) departs from phase 6's bounds")
+        _times_line("[7e]", _seconds(lambda: run_sfm(rgb_png, s, device="cuda", mesh=mesh)),
+                    _seconds(lambda: run_sfm(rgb_png, s, device="cuda")), card)
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_worker(rank: int, init: str, out: str) -> None:
+    """Phase 7f, one of two ranks on the one card in a gloo group that
+    carries CUDA tensors: 7b at n = 2, and 7d at n = 2 on an 8-view
+    (4x2) 1080p scene (9 views do not split over 2 ranks).  Writes its
+    checks and seconds as JSON to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from cl_multiview_stereo_tpu_torch import SystemSettings, fronto_parallel_scene
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+    from cl_multiview_stereo_tpu_torch.parallel import make_mesh, spatial
+    from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import run_sharded
+
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")  # the device is chosen before the mesh looks
+    dist.init_process_group("gloo", init_method=f"file://{init}", world_size=2, rank=rank)
+    try:
+        rec = {"backend": dist.get_backend()}
+        s9, rgb9 = _scene(FULL_H, FULL_W)
+        lab = rgb_to_lab(torch.as_tensor(rgb9, device="cuda")).contiguous()
+        ladder, pairs = _sweep_args(s9)
+        tile = init_device_mesh("cuda", (2,), mesh_dim_names=("tile",))
+        want = plane_sweep_depth(lab, ladder, pairs, s9.bl_ratio)
+        got = spatial.spatial_plane_sweep(lab, ladder, pairs, s9.bl_ratio, tile)
+        rec["7b"] = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        rec["7b_s"] = _seconds(lambda: spatial.spatial_plane_sweep(lab, ladder, pairs, s9.bl_ratio, tile))
+        rec["7b_unsharded_s"] = _seconds(lambda: plane_sweep_depth(lab, ladder, pairs, s9.bl_ratio))
+
+        s8 = SystemSettings(array_width=4, array_height=2)
+        rgb8, _ = fronto_parallel_scene(FULL_H, FULL_W, 4, 2, disp=TRUE_DISP, bl_ratio=s8.bl_ratio)
+        rgb8 = torch.as_tensor(rgb8, device="cuda")
+        pipe = MVSPipeline.create(FULL_W, FULL_H, s8, device="cuda")
+        want = pipe.run(rgb8).disp_full
+        mesh = make_mesh()
+        rec["7d"] = bool(torch.equal(run_sharded(pipe, rgb8, mesh), want))
+        rec["7d_s"] = _seconds(lambda: run_sharded(pipe, rgb8, mesh))
+        rec["7d_unsharded_s"] = _seconds(lambda: pipe.run(rgb8))
+        with open(out, "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_gloo_two_ranks(card: str) -> None:
+    """Phase 7f: two processes of this script on the one card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        init = os.path.join(tmp, "init")
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r), init, outs[r]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=GLOO_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"[7f] gloo rank {r} exited {p.returncode}:\n{log[-6000:]}")
+        recs = []
+        for path in outs:
+            with open(path) as f:
+                recs.append(json.load(f))
+    for r, rec in enumerate(recs):
+        if not (rec["7b"] and rec["7d"]):
+            raise AssertionError(f"[7f] rank {r}: 7b bitwise {rec['7b']}, 7d bitwise {rec['7d']}")
+    r0 = recs[0]
+    print(f"[7f] two ranks on one card, backend {r0['backend']} on CUDA tensors: 7b at n = 2 bitwise "
+          f"plane_sweep_depth on both ranks; 7d at n = 2 on 8x{FULL_H}x{FULL_W} (4x2 views) bitwise "
+          f"MVSPipeline.run on both ranks; {wall:.1f} s with the processes' start ({card})")
+    _times_line("[7f] 7b, rank 0,", r0["7b_s"], r0["7b_unsharded_s"], card)
+    _times_line("[7f] 7d, rank 0,", r0["7d_s"], r0["7d_unsharded_s"], card)
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 5 and sys.argv[1] == "--gloo-rank":
+        gloo_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -991,8 +1278,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         lst = _write_scene(root, _scene(FULL_H, FULL_W)[1])
         cv_launches = phase_cli(card, art, root, lst)
-        # the cost-volume launches of each main path: 5a's CLI and 6c's run --sfm
+        # the cost-volume launches of each main path: 5a's CLI and 6c's run
+        # --sfm, and of phase 7's sharded paths
         cv_launches += phase_sfm(card, root, lst)
+        sharded = phase_sharded(card, art, lst)
+    phase_gloo_two_ranks(card)
+    cv_launches += sharded["cost_volume"]
+    sw_launches += sharded["sweep"]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
     # library_ms: no single PyTorch call computes any of the three functions

@@ -7,10 +7,12 @@
 // On the TPU those exist because Mosaic's lane gather cannot cross 128
 // lanes and partial-row gathers fall onto a scalar DMA path.  It computes
 //
-//   out[v, d, my, mx] = min over valid deltas g of
+//   out[v - v0, d, my, mx] = min over valid deltas g of
 //                       sum over 25 samples (i outer, j inner) of
 //                       ok ? |dL| + |da| + |db| : 30
 //
+// for the reference views v0 <= v < v0 + nv (all V views by default, a
+// rank's own views in the view-sharded pipeline, parallel/sharded_pipeline),
 // and 1e6 where no delta is valid.  A delta g = (gx, gy) is valid where the
 // neighbour camera (v's grid position + g) lies inside the camera array.
 // The reference sample is at (trunc(cx + i*step_x), trunc(cy + j*step_y));
@@ -259,9 +261,9 @@ __global__ void __launch_bounds__(kThreads, 2) cost_volume_kernel(
     const float* __restrict__ centers,  // (V, Mh, Mw, 2) (x, y)
     const float* __restrict__ step,     // (V, Mh, Mw, 2) (step_x, step_y)
     const float* __restrict__ disp,     // (D,)
-    float* __restrict__ out,            // (V, D, Mh, Mw)
+    float* __restrict__ out,            // (nv, D, Mh, Mw)
     int V, int H, int W, int Mh, int Mw, int D,
-    int array_width, int neib_hor, int neib_ver, float bl_ratio) {
+    int array_width, int neib_hor, int neib_ver, float bl_ratio, int v0, int nv) {
   extern __shared__ float4 band_v[];  // 16-byte aligned for cp.async
   float* band = reinterpret_cast<float*>(band_v);
   __shared__ float s_ref[kCells][kRef];  // each cell's reference colours
@@ -279,9 +281,10 @@ __global__ void __launch_bounds__(kThreads, 2) cost_volume_kernel(
   const float* lab_end = lab + (size_t)V * plane_hw * 3;
   const int array_height = V / array_width;
 
-  // one (tile, view) task per block, view fastest
-  const int v = blockIdx.x % V;
-  const int tile = blockIdx.x / V;
+  // one (tile, view) task per block, view fastest, over the reference
+  // views v0 .. v0 + nv - 1
+  const int v = v0 + (int)(blockIdx.x % nv);
+  const int tile = blockIdx.x / nv;
   const int mx = (tile % tiles_x) * kTileX + cell % kTileX;
   const int my = (tile / tiles_x) * kTileY + cell / kTileX;
   const bool active = mx < Mw && my < Mh;
@@ -449,7 +452,7 @@ __global__ void __launch_bounds__(kThreads, 2) cost_volume_kernel(
 #pragma unroll
       for (int k = 0; k < kPerThread; ++k) {
         const int d = d0 + sub + kSub * k;
-        if (d < d_end) out[(((size_t)v * D + d) * Mh + my) * Mw + mx] = best[k];
+        if (d < d_end) out[(((size_t)(v - v0) * D + d) * Mh + my) * Mw + mx] = best[k];
       }
     }
   }
@@ -478,19 +481,23 @@ extern "C" int cost_volume_blocks_per_sm(int* blocks) {
 
 // Plain C entry point, bound with ctypes.  Launches on ``stream`` and
 // returns the first CUDA error (0 on success); it does not synchronise.
+// ``lab``, ``centers`` and ``step`` hold all V views; the volume is
+// computed for the reference views v0 .. v0 + nv - 1 into ``out``
+// (nv, D, Mh, Mw).  The whole volume is v0 = 0, nv = V.
 extern "C" int cost_volume_launch(
     const float* lab, const float* centers, const float* step,
     const float* disp, float* out, int V, int H, int W, int Mh, int Mw,
     int D, int array_width, int neib_hor, int neib_ver, float bl_ratio,
-    void* stream) {
-  if ((long long)V * D * Mh * Mw == 0) return 0;
+    int v0, int nv, void* stream) {
+  if (v0 < 0 || nv < 0 || v0 + nv > V) return (int)cudaErrorInvalidValue;
+  if ((long long)nv * D * Mh * Mw == 0) return 0;
   const cudaError_t e = configure();
   if (e != cudaSuccess) return (int)e;
   const long long tiles =
       (long long)((Mw + kTileX - 1) / kTileX) * ((Mh + kTileY - 1) / kTileY);
-  cost_volume_kernel<<<(unsigned int)(tiles * V), kThreads, kBandBytes,
+  cost_volume_kernel<<<(unsigned int)(tiles * nv), kThreads, kBandBytes,
                        static_cast<cudaStream_t>(stream)>>>(
       lab, centers, step, disp, out, V, H, W, Mh, Mw, D, array_width, neib_hor, neib_ver,
-      bl_ratio);
+      bl_ratio, v0, nv);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,23 @@
 // --fmad=false, so the result equals the plain PyTorch twin (and the JAX
 // forms) bitwise.
 //
+// Row window (the row-tiled sweep of parallel/spatial.py), a second
+// instantiation of the kernel.  ``lab`` then holds only the rows band0 ..
+// band0 + Hb - 1 of each view, and the kernel writes the output rows
+// out0 .. out0 + Ho - 1 into (V, Ho, W).  Every row test and clamp above
+// stays on the global row y and the global H; the launch moves the base
+// pointers (lab back by band0 rows, the outputs back by out0), so the
+// kernel indexes by global row.  The blocks keep their tiles of the whole
+// image: the grid covers rows 0 .. out0 + Ho - 1, the blocks above out0
+// return at once, and a block writes only its rows in the window.  (A
+// grid that started at out0 put the offset in every row index, and the
+// 128-register cap then spilled 276 bytes.)  The caller (ops/sweep.py)
+// hands a band that holds every row the blocks stage: the rows the
+// written outputs read, [max(0, out0 - R - max sy), min(H - 1, out0 + Ho
+// - 1 + R - min sy)], and around them, out to the whole tiles, rows that
+// only unwritten outputs read.  The whole image keeps the first
+// instantiation, the kernel as it was before the window existed.
+//
 // What bounds it.  The function's bound is its f32 operations (17 per
 // (pair, hypothesis, pixel) at radius 2); its bytes are one read of the
 // images.  The kernel is far from both: it is bound by the instructions
@@ -75,17 +92,18 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+template <bool kWindow>
 __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(
-    const float* __restrict__ lab,          // (V, H, W, 3)
+    const float* __restrict__ lab,          // (V, Hb, W, 3), back by band0 rows
     const int* __restrict__ pair_start,     // (V + 1,) CSR over reference views
     const int* __restrict__ pair_view,      // (P,) neighbour view of each pair
     const int* __restrict__ shifts,         // (P, D, 4) sy, sx, loy, lox
     const float* __restrict__ ladder,       // (D,)
     const int* __restrict__ chunk_start,    // (C + 1,) first hypothesis of each chunk
     const int* __restrict__ slab_box,       // (P, C, 4) max sy, max sx, min sy, min sx
-    float* __restrict__ disp,               // (V, H, W)
-    float* __restrict__ cost,               // (V, H, W)
-    int H, int W, int D, int R, int C) {
+    float* __restrict__ disp,               // (V, Ho, W), back by out0 rows
+    float* __restrict__ cost,               // (V, Ho, W), back by out0 rows
+    int H, int W, int D, int R, int C, int Hb, int out0, int Ho) {
   __shared__ float slab_s[3 * kSlabN];
 
   const int tid = threadIdx.x;
@@ -94,6 +112,7 @@ __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(
   const int tw = kWarpsX * step;
   const int v = blockIdx.z;
   const int y0 = blockIdx.y * kTileH;
+  if (kWindow && y0 + kTileH <= out0) return;  // the whole block above the window
   const int x0 = blockIdx.x * tw;
   const int c = (warp % kWarpsX) * step + lane;  // halo column, from x0 - R
   const int r0 = (warp / kWarpsX) * kRows;       // first SAD row, from y0 - R
@@ -101,7 +120,7 @@ __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(
   const int ybase = y0 - R + r0;
   const bool x_in = x >= 0 && x < W;
   const int n_sad = kRows + 2 * R;
-  const long long plane = (long long)H * W;
+  const long long plane = (long long)(kWindow ? Hb : H) * W;  // a view in lab
   const float* ref_img = lab + (long long)v * plane * 3;
 
   float ref[kSadRows][3];
@@ -238,8 +257,9 @@ __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int y = y0 + r0 + i;
-      if (y < H) {
-        const long long o = (long long)v * plane + (long long)y * W + x;
+      if (kWindow ? y >= out0 && y < out0 + Ho : y < H) {
+        const long long o = kWindow ? ((long long)v * Ho + y) * W + x
+                                    : (long long)v * plane + (long long)y * W + x;
         disp[o] = bestd[i];
         cost[o] = best[i];
       }
@@ -249,26 +269,47 @@ __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(
 
 }  // namespace
 
-// Blocks of the kernel that fit on one SM at once, into ``*blocks``;
-// returns the CUDA error (0 on success).
+// Blocks of the kernel that fit on one SM at once, the fewer of its two
+// instantiations, into ``*blocks``; returns the CUDA error (0 on success).
 extern "C" int sweep_blocks_per_sm(int* blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, sweep_kernel, kThreads, 0);
+  int whole = 0, window = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&whole, sweep_kernel<false>, kThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&window, sweep_kernel<true>, kThreads, 0);
+  *blocks = whole < window ? whole : window;
+  return (int)e;
 }
 
 // Plain C entry point, bound with ctypes.  Launches on ``stream`` and
 // returns cudaGetLastError() (0 on success); it does not synchronise.
 // R (the box radius) must lie in [0, 4]; the chunk tables come from
-// ops/sweep.py chunk_tables, built for kChunk and kSpare.
+// ops/sweep.py chunk_tables, built for kChunk and kSpare.  ``lab`` holds
+// the rows band0 .. band0 + Hb - 1 of an image H rows high and the output
+// the rows out0 .. out0 + Ho - 1 (the row window above); the whole image
+// is band0 = out0 = 0, Hb = Ho = H.
 extern "C" int sweep_launch(
     const float* lab, const int* pair_start, const int* pair_view,
     const int* shifts, const float* ladder, const int* chunk_start, const int* slab_box,
-    float* disp, float* cost, int V, int H, int W, int D, int R, int C, void* stream) {
+    float* disp, float* cost, int V, int H, int W, int D, int R, int C,
+    int band0, int Hb, int out0, int Ho, void* stream) {
   if (R < 0 || R > kMaxR) return (int)cudaErrorInvalidValue;
-  if ((long long)V * H * W == 0) return 0;
+  if (band0 < 0 || Hb < 1 || band0 + Hb > H || out0 < 0 || Ho < 0 || out0 + Ho > H)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)V * Ho * W == 0) return 0;
   const int tw = kWarpsX * (32 - 2 * R);
-  const dim3 grid((W + tw - 1) / tw, (H + kTileH - 1) / kTileH, V);
-  sweep_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lab, pair_start, pair_view, shifts, ladder, chunk_start, slab_box, disp, cost, H, W, D,
-      R, C);
+  const dim3 grid((W + tw - 1) / tw, (out0 + Ho + kTileH - 1) / kTileH, V);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (band0 == 0 && Hb == H && out0 == 0 && Ho == H) {
+    sweep_kernel<false><<<grid, kThreads, 0, s>>>(
+        lab, pair_start, pair_view, shifts, ladder, chunk_start, slab_box, disp, cost, H, W, D,
+        R, C, H, 0, H);
+  } else {
+    // base pointers moved so that the kernel indexes lab and the outputs
+    // by global row (no row above band0 or out0 is read or written)
+    sweep_kernel<true><<<grid, kThreads, 0, s>>>(
+        lab - (long long)band0 * W * 3, pair_start, pair_view, shifts, ladder, chunk_start,
+        slab_box, disp - (long long)out0 * W, cost - (long long)out0 * W, H, W, D, R, C, Hb,
+        out0, Ho);
+  }
   return (int)cudaGetLastError();
 }

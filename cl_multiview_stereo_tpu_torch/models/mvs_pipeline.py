@@ -58,7 +58,9 @@ class MVSPipeline:
     # lays the dense form out for TPU memory and has no counterpart here.
     depth_method: str = "dense"
     # "packed" or "view": JAX's refinement pair axis layouts, bitwise
-    # equal; the port scores either with the packed scorer
+    # equal; the port scores either with the packed scorer, and its
+    # view-sharded run (parallel/sharded_pipeline) filters the pairs to each
+    # rank's own views, the view layout's job in JAX
     pair_layout: str = "packed"
     # static (ref, view, dvx, dvy) pair list; None = camera-grid deltas
     pair_deltas: tuple | None = None

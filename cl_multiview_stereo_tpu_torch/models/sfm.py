@@ -1,6 +1,6 @@
 """Structure-from-motion: pinhole cameras, triangulation, Schur-complement
 bundle adjustment and the pose-graph backend (port of
-``cl_multiview_stereo_tpu/models/sfm.py``, without its sharded solver).
+``cl_multiview_stereo_tpu/models/sfm.py``).
 
 The reference's implicit rectified-grid camera (disparity shift scaled by
 ``bl_ratio``, clcode.cl:1033-1034) is one special case of the pinhole model
@@ -184,13 +184,18 @@ def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     return torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(0, ids.long(), x)
 
 
-def _assemble(p: BAProblem, r, jc, jp, n_cam: int, n_pt: int):
-    """Normal-equation blocks via segment sums."""
+def _no_reduce(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _assemble(p: BAProblem, r, jc, jp, n_cam: int, n_pt: int, reduce=_no_reduce):
+    """Normal-equation blocks via segment sums; ``reduce`` sums each over
+    the ranks of a sharded solve (identity on one device)."""
     hcc = _segment_sum(torch.einsum("nij,nik->njk", jc, jc), p.obs_cam, n_cam)  # (C, 6, 6)
     hpp = _segment_sum(torch.einsum("nij,nik->njk", jp, jp), p.obs_pt, n_pt)  # (P, 3, 3)
     bc = _segment_sum(-torch.einsum("nij,ni->nj", jc, r), p.obs_cam, n_cam)  # (C, 6)
     bp = _segment_sum(-torch.einsum("nij,ni->nj", jp, r), p.obs_pt, n_pt)  # (P, 3)
-    return hcc, hpp, bc, bp
+    return reduce(hcc), reduce(hpp), reduce(bc), reduce(bp)
 
 
 def _point_slots(obs_pt: torch.Tensor, max_deg: int):
@@ -211,20 +216,24 @@ def _point_slots(obs_pt: torch.Tensor, max_deg: int):
 
 def _schur_corr_blocked(
     pt_s, cam_s, y_s, w_s, n_cam: int, n_pt: int, slot, max_deg: int, chunk: int = 2048,
+    reduce=_no_reduce,
 ):
     """The camera-coupling correction ``S -= sum_j Y_j Hpp_j^-1 W_j^T`` in
     blocked form: per-point compact slot tables (P, D, 6, 3) with D = max
     observations per point, then a point-chunked loop accumulating (6, 6)
     blocks into the (C, C) camera-pair grid.  Memory is O(P*D) +
-    O(chunk*D^2) whatever the camera count.
+    O(chunk*D^2) whatever the camera count.  ``reduce`` sums the slot
+    tables over the ranks of a sharded solve, whose ``slot`` are global
+    ranks: each (point, slot) cell is then written by one rank only.
     """
     pt_s, slot = pt_s.long(), slot.long()
     y_d = torch.zeros((n_pt, max_deg, 6, 3), dtype=y_s.dtype, device=y_s.device)
-    y_d.index_put_((pt_s, slot), y_s, accumulate=True)
-    w_d = torch.zeros_like(y_d).index_put_((pt_s, slot), w_s, accumulate=True)
-    # camera id per slot (-1 = empty); +1 trick keeps 0 a valid camera
+    y_d = reduce(y_d.index_put_((pt_s, slot), y_s, accumulate=True))
+    w_d = reduce(torch.zeros_like(y_d).index_put_((pt_s, slot), w_s, accumulate=True))
+    # camera id per slot (-1 = empty); +1 trick keeps 0 a valid camera, and
+    # an empty cell stays 0 in the sum over ranks
     cam_d = torch.zeros((n_pt, max_deg), dtype=torch.long, device=y_s.device)
-    cam_d = cam_d.index_put_((pt_s, slot), cam_s.long() + 1, accumulate=True) - 1
+    cam_d = reduce(cam_d.index_put_((pt_s, slot), cam_s.long() + 1, accumulate=True)) - 1
 
     s_acc = torch.zeros((n_cam * n_cam, 6, 6), dtype=y_s.dtype, device=y_s.device)
     for q0 in range(0, n_pt, chunk):
@@ -281,9 +290,12 @@ def _inv(a: torch.Tensor) -> torch.Tensor:
 
 def _schur_solve(
     p: BAProblem, r, jc, jp, n_cam, n_pt, damping,
-    fix_rotations: bool = False, max_deg: int = 16,
+    fix_rotations: bool = False, max_deg: int = 16, reduce=_no_reduce, slot_info=None,
 ):
-    hcc, hpp, bc, bp = _assemble(p, r, jc, jp, n_cam, n_pt)
+    """One damped Gauss-Newton step (dc (C, 6), dx (P, 3)).  A sharded solve
+    gives this rank's observations, pre-sorted by point, their global slot
+    ranks ``slot_info``, and a ``reduce`` that sums over the ranks."""
+    hcc, hpp, bc, bp = _assemble(p, r, jc, jp, n_cam, n_pt, reduce)
     cam, pt = p.obs_cam.long(), p.obs_pt.long()
 
     lam = damping
@@ -292,15 +304,21 @@ def _schur_solve(
     # W blocks per observation: jc^T jp (6, 3); Y = W Hpp^-1 per observation
     w_obs = torch.einsum("nij,nik->njk", jc, jp)  # (N, 6, 3)
     y_obs = torch.einsum("njk,nkl->njl", w_obs, hpp_inv[pt])  # (N, 6, 3)
-    # rhs correction: bc - sum_j W_j Hpp_j^-1 bp_j
-    rhs_corr = _segment_sum(torch.einsum("njk,nk->nj", y_obs, bp[pt]), cam, n_cam).reshape(-1)
+    # rhs correction: bc - sum_j W_j Hpp_j^-1 bp_j (a local partial sum,
+    # reduced before it meets the already reduced bc)
+    rhs_corr = reduce(_segment_sum(torch.einsum("njk,nk->nj", y_obs, bp[pt]), cam, n_cam)).reshape(-1)
     rhs = bc.reshape(-1) - rhs_corr
 
     # blocked Schur coupling over per-point slot tables
-    order, pt_s, slot = _point_slots(p.obs_pt, max_deg)
-    s_corr = _schur_corr_blocked(
-        pt_s, p.obs_cam[order], y_obs[order], w_obs[order], n_cam, n_pt, slot, max_deg,
-    )
+    if slot_info is None:
+        order, pt_s, slot = _point_slots(p.obs_pt, max_deg)
+        s_corr = _schur_corr_blocked(
+            pt_s, p.obs_cam[order], y_obs[order], w_obs[order], n_cam, n_pt, slot, max_deg,
+        )
+    else:
+        s_corr = _schur_corr_blocked(
+            p.obs_pt, p.obs_cam, y_obs, w_obs, n_cam, n_pt, slot_info, max_deg, reduce=reduce,
+        )
 
     hcc_d = _damped(hcc, lam, 6)
     s_full = torch.zeros((n_cam, 6, n_cam, 6), dtype=hcc.dtype, device=hcc.device)
@@ -319,7 +337,7 @@ def _schur_solve(
     dc = _solve(s_full, rhs).reshape(n_cam, 6)
 
     # Back-substitute points: dX = Hpp^-1 (bp - W^T dc)
-    wt_dc = _segment_sum(torch.einsum("njk,nj->nk", w_obs, dc[cam]), pt, n_pt)
+    wt_dc = reduce(_segment_sum(torch.einsum("njk,nj->nk", w_obs, dc[cam]), pt, n_pt))
     dx = torch.einsum("pij,pj->pi", hpp_inv, bp - wt_dc)
     return dc, dx
 
@@ -366,6 +384,79 @@ def bundle_adjust(
             X=torch.where(better, new.X, prob.X),
         )
     return prob
+
+
+def observation_share(n_obs: int, n: int, t: int) -> tuple[int, int]:
+    """Rank ``t``'s contiguous share ``[lo, hi)`` of ``n_obs`` observations
+    over ``n`` ranks: ``ceil(n_obs / n)`` each, the last share short."""
+    per = -(-n_obs // n)
+    return min(t * per, n_obs), min((t + 1) * per, n_obs)
+
+
+def _weighted_sq(p: BAProblem) -> torch.Tensor:
+    """(sum of squared weighted residuals, sum of weights) of ``p``'s
+    observations: the two sums of :func:`rms_error`."""
+    r = residuals(p) * p.obs_w[:, None]
+    return torch.stack([(r * r).sum(), p.obs_w.sum()])
+
+
+def bundle_adjust_sharded(
+    p: BAProblem, mesh, iters: int = 10, damping: float = 1e-3,
+    fix_rotations: bool = False, max_deg: int = 16,
+) -> BAProblem:
+    """:func:`bundle_adjust` with the observations sharded over the mesh's
+    ``view`` axis: every normal-equation block, slot table and partial sum
+    is summed over the ranks with ``all_reduce``; the camera and point
+    state is replicated and stays bitwise the same on every rank.
+
+    The observations are sorted by point first, over all of them, so that
+    each rank fills the blocked Schur slot tables with global slot ranks
+    (each (point, slot) cell is written by one rank, and the sum restores
+    the whole coupling, :func:`_schur_corr_blocked`).  Each rank then takes
+    its contiguous share (:func:`observation_share`).  JAX pads the shares
+    to one length with rows of point id ``n_pt`` and weight 0, which its
+    scatters drop; here a share is just shorter, since PyTorch's scatters
+    raise on an out-of-range id and nothing reduced depends on a share's
+    length.  The accept test compares the RMS of the new and the old state
+    from reduced sums, on the device (``torch.where``), so the ranks decide
+    alike with no host wait.  The sums over ranks add in another order than
+    one device's, so the result equals :func:`bundle_adjust`'s within
+    rounding, not bitwise."""
+    import torch.distributed as dist
+
+    from cl_multiview_stereo_tpu_torch.parallel.mesh import axis_of
+
+    _check_max_deg(p.obs_pt, max_deg)
+    group, t, n = axis_of(mesh, "view")
+    n_cam, n_pt = p.aa.shape[0], p.X.shape[0]
+
+    def reduce(x: torch.Tensor) -> torch.Tensor:
+        if n > 1:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    order, pt_s, slot = _point_slots(p.obs_pt, max_deg)
+    lo, hi = observation_share(p.obs_pt.shape[0], n, t)
+    take = order[lo:hi]
+    prob = p._replace(obs_cam=p.obs_cam[take], obs_pt=pt_s[lo:hi], obs_uv=p.obs_uv[take],
+                      obs_w=p.obs_w[take])
+    slot = slot[lo:hi]
+    for _ in range(iters):
+        r, jc, jp = _obs_blocks(prob)
+        dc, dx = _schur_solve(
+            prob, r, jc, jp, n_cam, n_pt, damping, fix_rotations=fix_rotations,
+            max_deg=max_deg, reduce=reduce, slot_info=slot,
+        )
+        new = prob._replace(aa=prob.aa + dc[:, :3], t=prob.t + dc[:, 3:], X=prob.X + dx)
+        sums = reduce(torch.stack([_weighted_sq(new), _weighted_sq(prob)]))
+        rms = torch.sqrt(sums[:, 0] / (2.0 * torch.clamp(sums[:, 1], min=1.0)))
+        better = rms[0] < rms[1]
+        prob = prob._replace(
+            aa=torch.where(better, new.aa, prob.aa),
+            t=torch.where(better, new.t, prob.t),
+            X=torch.where(better, new.X, prob.X),
+        )
+    return p._replace(aa=prob.aa, t=prob.t, X=prob.X)
 
 
 def ate(t_est: torch.Tensor, t_gt: torch.Tensor) -> torch.Tensor:

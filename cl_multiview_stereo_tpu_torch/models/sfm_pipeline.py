@@ -97,15 +97,13 @@ def run_sfm(
     two-view BA factors (``sfm.two_view_relative``) over the grid-adjacent
     match graph, a relative-pose solve (``sfm.pose_graph_optimize``, loop
     closures from the grid's 4-cycles), and THAT solution seeds the Schur
-    BA.  ``device`` defaults to ``cuda`` and fails without one; the CPU
-    runs only when asked for.  ``timer`` (CUDA only) records the device ms
+    BA.  ``mesh``: a ``DeviceMesh`` with a ``view`` axis
+    (``parallel/mesh.make_mesh``); the bundle adjustment then runs with
+    its observations sharded over that axis (``sfm.bundle_adjust_sharded``),
+    every rank given the same images.  ``device`` defaults to ``cuda`` and
+    fails without one; the CPU runs only when asked for.  ``timer`` (CUDA only) records the device ms
     of each stage and the host seconds of the track building.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sfm(mesh=...) needs the observation-sharded bundle adjustment, "
-            "which waits for parallel/ (ROADMAP.md, queue 1 item 2)"
-        )
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
@@ -227,7 +225,12 @@ def run_sfm(
     # default gauge: translation-only rig (the reference's camera model) —
     # narrow-FOV scenes make free rotations degenerate with translations
     with maybe_stage(timer, "ba"):
-        out = sfm.bundle_adjust(prob, iters=ba_iters, fix_rotations=fix_rotations, max_deg=max_deg)
+        if mesh is not None:
+            out = sfm.bundle_adjust_sharded(
+                prob, mesh, iters=ba_iters, fix_rotations=fix_rotations, max_deg=max_deg,
+            )
+        else:
+            out = sfm.bundle_adjust(prob, iters=ba_iters, fix_rotations=fix_rotations, max_deg=max_deg)
         rms_after = float(sfm.rms_error(out))
         ate = float(sfm.ate(out.t, on_dev(t0)))
     return SfmResult(

@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from cl_multiview_stereo_tpu_torch.ops.fusion import view_bounds
 from cl_multiview_stereo_tpu_torch.ops.superpixel import extent_step
 
 _OOB_PENALTY = 30.0
@@ -58,25 +59,29 @@ def cost_volume_reference(
     bl_ratio: float,
     neib_hor: int = 1,
     neib_ver: int = 1,
+    view_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch cost volume, (V, D, Mh, Mw) float32.
+    """Plain PyTorch cost volume, (nv, D, Mh, Mw) float32.
 
     The same f32 arithmetic as the kernel and the JAX dense/strips forms:
     truncated sample positions, shifts ``ceil(d*gx)``/``ceil((bl*d)*gy)``,
     clamped projected reads, the exact ``-1 < x - c < size`` validity test,
-    samples summed one at a time from 0.
+    samples summed one at a time from 0.  ``view_range`` ``(v0, nv)``
+    computes the reference views ``v0 .. v0 + nv - 1`` only (default: all
+    V views); every view's image stays readable as a neighbour.
     """
     v, h, w = lab.shape[:3]
+    v0, nv_ref = view_bounds(view_range, v)
     mh, mw = centers.shape[1:3]
     dev = lab.device
     dl = torch.as_tensor(disp_levels, dtype=torch.float32, device=dev)
     n_d = dl.shape[0]
     array_height = v // array_width
     flat = lab.reshape(v * h * w, 3)
-    vid = torch.arange(v, dtype=torch.int64, device=dev)
+    vid = torch.arange(v0, v0 + nv_ref, dtype=torch.int64, device=dev)
 
-    cx, cy = centers[..., 0], centers[..., 1]
-    sx, sy = step[..., 0], step[..., 1]
+    cx, cy = centers[v0:v0 + nv_ref, ..., 0], centers[v0:v0 + nv_ref, ..., 1]
+    sx, sy = step[v0:v0 + nv_ref, ..., 0], step[v0:v0 + nv_ref, ..., 1]
     samples = []  # (xr, yr, ref_ok, ref colour), i outer, j inner
     for i in range(-2, 3):
         xr = (cx + float(i) * sx).to(torch.int64)  # C truncation
@@ -86,12 +91,12 @@ def cost_volume_reference(
             ref_idx = (vid[:, None, None] * h + yr.clamp(0, h - 1)) * w + xr.clamp(0, w - 1)
             samples.append((xr, yr, ref_ok, flat[ref_idx]))
 
-    vol = torch.full((v, n_d, mh, mw), _BIG, dtype=torch.float32, device=dev)
+    vol = torch.full((nv_ref, n_d, mh, mw), _BIG, dtype=torch.float32, device=dev)
     bl_d = dl * float(np.float32(bl_ratio))
     for gx, gy in _deltas(neib_hor, neib_ver):
         valid_np = np.array(
             [0 <= z % array_width + gx < array_width and 0 <= z // array_width + gy < array_height
-             for z in range(v)]
+             for z in range(v0, v0 + nv_ref)]
         )
         if not valid_np.any():
             continue
@@ -101,9 +106,9 @@ def cost_volume_reference(
         cys = (bl_d * float(gy))[None, :, None, None]
         shx = torch.ceil(cxs).to(torch.int64)
         shy = torch.ceil(cys).to(torch.int64)
-        acc = torch.zeros((v, n_d, mh, mw), dtype=torch.float32, device=dev)
+        acc = torch.zeros((nv_ref, n_d, mh, mw), dtype=torch.float32, device=dev)
         for xr, yr, ref_ok, ref in samples:
-            xr4, yr4 = xr[:, None], yr[:, None]  # (V, 1, Mh, Mw)
+            xr4, yr4 = xr[:, None], yr[:, None]  # (nv, 1, Mh, Mw)
             px = xr4.to(torch.float32) - cxs
             py = yr4.to(torch.float32) - cys
             ok = ref_ok[:, None] & (px > -1.0) & (px < w) & (py > -1.0) & (py < h)
@@ -132,7 +137,7 @@ def _check_input(name: str, t: torch.Tensor, shape: tuple, device: torch.device)
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(lab, centers, step, dl, array_width, bl_ratio, neib_hor, neib_ver):
+def _launch(lab, centers, step, dl, array_width, bl_ratio, neib_hor, neib_ver, view_range):
     global LAUNCHES
     from cl_multiview_stereo_tpu_torch.kernels.build import load
 
@@ -145,18 +150,20 @@ def _launch(lab, centers, step, dl, array_width, bl_ratio, neib_hor, neib_ver):
     _check_input("disp_levels", dl, (dl.shape[0],), dev)
     if v % array_width:
         raise ValueError(f"{v} views do not fill rows of array_width {array_width}")
+    v0, nv = view_bounds(view_range, v)
 
     lib = load("cost_volume")
     fn = lib.cost_volume_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    out = torch.empty((v, dl.shape[0], mh, mw), dtype=torch.float32, device=dev)
+    out = torch.empty((nv, dl.shape[0], mh, mw), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             lab.data_ptr(), centers.data_ptr(), step.data_ptr(), dl.data_ptr(),
             out.data_ptr(), v, h, w, mh, mw, dl.shape[0], array_width,
-            neib_hor, neib_ver, float(bl_ratio), stream,
+            neib_hor, neib_ver, float(bl_ratio), v0, nv, stream,
         )
     if rc != 0:
         raise RuntimeError(f"cost_volume kernel launch failed with CUDA error {rc}")
@@ -173,19 +180,22 @@ def superpixel_cost_volume(
     bl_ratio: float,
     neib_hor: int = 1,
     neib_ver: int = 1,
+    view_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """(V, D, Mh, Mw) float32 cost volume; 1e6 for views with no valid delta.
+    """(nv, D, Mh, Mw) float32 cost volume of the reference views
+    ``view_range`` = (v0, nv) (default: all V); 1e6 for views with no valid
+    delta.  ``lab``, ``centers`` and ``step`` hold all V views.
 
     A CUDA ``lab`` launches the kernel; a CPU ``lab`` runs the plain twin.
     Nothing falls back from one to the other."""
     if lab.device.type == "cpu":
         return cost_volume_reference(
-            lab, centers, step, disp_levels, array_width, bl_ratio, neib_hor, neib_ver
+            lab, centers, step, disp_levels, array_width, bl_ratio, neib_hor, neib_ver, view_range
         )
     if lab.device.type != "cuda":
         raise ValueError(f"no cost-volume kernel for device {lab.device}")
     dl = torch.as_tensor(disp_levels, dtype=torch.float32, device=lab.device)
-    return _launch(lab, centers, step, dl, array_width, bl_ratio, neib_hor, neib_ver)
+    return _launch(lab, centers, step, dl, array_width, bl_ratio, neib_hor, neib_ver, view_range)
 
 
 def cost_volume_gather(
@@ -196,9 +206,11 @@ def cost_volume_gather(
     view_subset: np.ndarray | torch.Tensor,  # (V, max_n) int, -1 padded
     array_width: int,
     bl_ratio: float,
+    view_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """The gather form of the cost volume (JAX ``superpixel_cost_volume``),
-    (V, D, Mh, Mw) float32; ``_BIG`` for views with no neighbour.
+    (nv, D, Mh, Mw) float32 for the reference views ``view_range`` (as
+    :func:`superpixel_cost_volume`); ``_BIG`` for views with no neighbour.
 
     Per neighbour slot and hypothesis the shifts are f32 products
     ``d * dvx`` and ``(bl * d) * dvy``; each sample's projected position is
@@ -206,20 +218,21 @@ def cost_volume_gather(
     the image; samples add in (i outer, j inner) order from 0 and slots
     reduce by ``min``."""
     v, h, w = lab.shape[:3]
+    v0, nv_ref = view_bounds(view_range, v)
     mh, mw = centers.shape[1:3]
     dev = lab.device
     dl = torch.as_tensor(disp_levels, dtype=torch.float32, device=dev)
     n_d = dl.shape[0]
-    subset = torch.as_tensor(np.asarray(view_subset), dtype=torch.int64, device=dev)
+    subset = torch.as_tensor(np.asarray(view_subset), dtype=torch.int64, device=dev)[v0:v0 + nv_ref]
     flat = lab.reshape(v * h * w, 3)
-    vid = torch.arange(v, dtype=torch.int64, device=dev)
-    views = subset.clamp(0, v - 1)  # (V, max_n)
+    vid = torch.arange(v0, v0 + nv_ref, dtype=torch.int64, device=dev)
+    views = subset.clamp(0, v - 1)  # (nv, max_n)
     dvx = (views % array_width - (vid % array_width)[:, None]).to(torch.float32)
     dvy = (views // array_width - (vid // array_width)[:, None]).to(torch.float32)
     bl_d = float(np.float32(bl_ratio)) * dl  # (D,)
 
-    cx, cy = centers[..., 0], centers[..., 1]
-    sx, sy = step[..., 0], step[..., 1]
+    cx, cy = centers[v0:v0 + nv_ref, ..., 0], centers[v0:v0 + nv_ref, ..., 1]
+    sx, sy = step[v0:v0 + nv_ref, ..., 0], step[v0:v0 + nv_ref, ..., 1]
     samples = []  # (xr, yr, ref_ok, ref colour), i outer, j inner
     for i in range(-2, 3):
         xr = (cx + float(i) * sx).to(torch.int64)  # C truncation
@@ -229,12 +242,12 @@ def cost_volume_gather(
             ref_idx = (vid[:, None, None] * h + yr.clamp(0, h - 1)) * w + xr.clamp(0, w - 1)
             samples.append((xr[:, None], yr[:, None], ref_ok[:, None], flat[ref_idx][:, None]))
 
-    vol = torch.full((v, n_d, mh, mw), _BIG, dtype=torch.float32, device=dev)
+    vol = torch.full((nv_ref, n_d, mh, mw), _BIG, dtype=torch.float32, device=dev)
     for k in range(subset.shape[1]):
         shift_x = (dl[None, :] * dvx[:, k, None])[:, :, None, None]  # (V, D, 1, 1)
         shift_y = (bl_d[None, :] * dvy[:, k, None])[:, :, None, None]
         nbr = views[:, k, None, None, None]
-        acc = torch.zeros((v, n_d, mh, mw), dtype=torch.float32, device=dev)
+        acc = torch.zeros((nv_ref, n_d, mh, mw), dtype=torch.float32, device=dev)
         for xr, yr, ref_ok, ref in samples:
             xp = (xr.to(torch.float32) - shift_x).to(torch.int64)  # C truncation
             yp = (yr.to(torch.float32) - shift_y).to(torch.int64)
@@ -285,23 +298,28 @@ def initial_depth_estimation(
     method: str = "strips",
     neib_hor: int = 1,
     neib_ver: int = 1,
+    view_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """Extent -> adaptive step -> cost volume -> WTA; (V, Mh, Mw) float32.
+    """Extent -> adaptive step -> cost volume -> WTA; (nv, Mh, Mw) float32.
 
     ``method``: ``"strips"`` and ``"dense"`` are one function here and run
     the kernel, with the neighbour views of the camera-grid deltas within
     ``neib_hor``/``neib_ver``; ``"gather"`` runs :func:`cost_volume_gather`
     over the -1 padded ``view_subset`` table (V, max_n), as in JAX.
+    ``view_range`` (v0, nv): the reference views to estimate (default all
+    V); every input holds all V views.
     """
     check_method(method)
     step = extent_step(extent).contiguous()
     if method == "gather":
         vol = cost_volume_gather(
-            lab, centers, step, disp_levels, view_subset, array_width, bl_ratio
+            lab, centers, step, disp_levels, view_subset, array_width, bl_ratio, view_range
         )
     else:
         vol = superpixel_cost_volume(
             lab.contiguous(), centers.contiguous(), step, disp_levels,
-            array_width, bl_ratio, neib_hor, neib_ver,
+            array_width, bl_ratio, neib_hor, neib_ver, view_range,
         )
-    return wta_disparity(vol, disp_levels, subset_num)
+    v0, nv = view_bounds(view_range, lab.shape[0])
+    counts = torch.as_tensor(subset_num, device=lab.device)[v0:v0 + nv]
+    return wta_disparity(vol, disp_levels, counts)

@@ -36,12 +36,13 @@ def gather_cells(labels: torch.Tensor, fields: torch.Tensor) -> torch.Tensor:
     return torch.gather(fields.reshape(v, -1, c), 1, idx).reshape(v, h, w, c)
 
 
-def plane_disparity(g: torch.Tensor) -> torch.Tensor:
+def plane_disparity(g: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """``d(p) = (n . (c - p) + nz * d) / nz`` (cl:1928) from per-pixel
-    ``g = [cx, cy, d, nx, ny, nz]`` (V, H, W, 6)."""
+    ``g = [cx, cy, d, nx, ny, nz]`` (V, H, W, 6) whose first row is the
+    image's row ``row0``."""
     h, w = g.shape[1:3]
     px = torch.arange(w, dtype=torch.float32, device=g.device)[None, None, :]
-    py = torch.arange(h, dtype=torch.float32, device=g.device)[None, :, None]
+    py = torch.arange(row0, row0 + h, dtype=torch.float32, device=g.device)[None, :, None]
     return (
         g[..., 3] * (g[..., 0] - px) + g[..., 4] * (g[..., 1] - py) + g[..., 5] * g[..., 2]
     ) / g[..., 5]
@@ -79,21 +80,33 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def view_bounds(view_range: tuple[int, int] | None, v: int) -> tuple[int, int]:
+    """(first view, count) of a ``view_range`` over ``v`` views (all of them
+    for ``None``): the reference views a per-view step computes."""
+    v0, nv = (0, v) if view_range is None else (int(x) for x in view_range)
+    if not (0 <= v0 and 0 <= nv and v0 + nv <= v):
+        raise ValueError(f"view range ({v0}, {nv}) outside the {v} views")
+    return v0, nv
+
+
 def project_to_reference_inv(
     disp_full: torch.Tensor,  # (V, H, W)
     array_width: int,
     bl_ratio: float,
+    view_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Occlusion-aware inverse warp for every reference view at once
     (cl:1995-2034): the probe chain runs over the source views in index
-    order and shifts by the evolving maximum."""
+    order and shifts by the evolving maximum.  ``view_range`` (v0, nv):
+    warp only those reference views, (nv, H, W) (default: all V)."""
     v, h, w = disp_full.shape
+    v0, nv = view_bounds(view_range, v)
     dev = disp_full.device
     bl = _f32(bl_ratio)
     px = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
     py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-    ref = torch.arange(v, device=dev)[:, None, None]
-    min_disp = disp_full
+    ref = torch.arange(v0, v0 + nv, device=dev)[:, None, None]
+    min_disp = disp_full[v0:v0 + nv]
     for i in range(v):
         dx = (ref % array_width - i % array_width).to(torch.float32)
         dy = (ref // array_width - i // array_width).to(torch.float32)
@@ -111,21 +124,25 @@ def remove_view_inconsistency(
     array_width: int,
     bl_ratio: float,
     fuse: float,
+    view_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Stability vote (cl:2037-2101) for every reference view.  Warped maps
     vote ``> fuse -> -1`` / ``<= fuse -> +1``; cross-view lookups vote
     ``> fuse -> -1`` / ``< fuse -> +1`` and abstain on equality.  Candidates
-    run in view order; the winner is the largest d with stability >= 0."""
+    run in view order; the winner is the largest d with stability >= 0.
+    ``view_range`` (v0, nv): vote only for those reference views, (nv, H,
+    W); both inputs still hold all V views."""
     v, h, w = disp_proj.shape
+    v0, nv = view_bounds(view_range, v)
     dev = disp_proj.device
     bl = _f32(bl_ratio)
     fuse = _f32(fuse)
     px = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
     py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-    ref = torch.arange(v, device=dev)[:, None, None]
+    ref = torch.arange(v0, v0 + nv, device=dev)[:, None, None]
     cam_ref_x = (ref % array_width).to(torch.float32)
     cam_ref_y = (ref // array_width).to(torch.float32)
-    d_est = torch.zeros((v, h, w), dtype=torch.float32, device=dev)
+    d_est = torch.zeros((nv, h, w), dtype=torch.float32, device=dev)
     for i in range(v):
         d = disp_proj[i]  # candidate from view i, the same for every ref
         # vote 1: agreement among the warped maps at the same pixel (the
@@ -135,8 +152,8 @@ def remove_view_inconsistency(
             d_check = disp_proj[j]
             vote = torch.where(torch.abs(d_check - d) > fuse, -1.0, 1.0)
             stab1 = stab1 + torch.where(d_check != 0, vote, 0.0)
-        stability = stab1.expand(v, h, w)
-        d = d.expand(v, h, w)
+        stability = stab1.expand(nv, h, w)
+        d = d.expand(nv, h, w)
         # vote 2: cross-view lookups in the unwarped maps
         for j in range(v):
             xj = px - cl_round(d * (float(j % array_width) - cam_ref_x))

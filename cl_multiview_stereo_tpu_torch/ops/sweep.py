@@ -10,13 +10,19 @@ view, and cuts the ladder into the chunks whose neighbour slabs the
 kernel stages (:func:`chunk_tables`).  All of it goes to the card in one
 copy per call (:func:`kernel_tables`).  The TPU's padded channel-planar
 slabs (``pad_images``) have no counterpart.
+
+A call may sweep a row window (:class:`RowWindow`): ``lab`` then holds
+only a band of each view's rows and the output only some rows, with every
+row test on the global row and height, so that a row tile of the image
+(``parallel/spatial.spatial_plane_sweep``) gets the whole image's rows
+bitwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -24,10 +30,53 @@ import torch
 MAX_RADIUS = 4  # the kernel's shared-memory halo
 CHUNK = 8  # hypotheses a chunk holds at most: csrc/sweep.cu kChunk
 SPARE = 16  # slab rows and columns beyond a tile's halo: csrc/sweep.cu kSpare
+TILE_ROWS = 16  # output rows of a kernel block: csrc/sweep.cu kTileH
 
 # Kernel launches since import (or since the caller reset it): chip_smoke.py
 # reads it to show that the sweep path went through the kernel.
 LAUNCHES = 0
+
+
+class RowWindow(NamedTuple):
+    """Rows of one call: ``lab`` holds the global rows ``band0 ..
+    band0 + Hb - 1`` of an image ``height`` rows high, and the output rows
+    are ``out0 .. out0 + out_rows - 1``."""
+
+    height: int
+    band0: int
+    out0: int
+    out_rows: int
+
+
+def row_reach(
+    ladder: Sequence[float], pairs: Sequence[tuple[int, int, int, int]], bl_ratio: float, radius: int
+) -> tuple[int, int]:
+    """(rows above, rows below) an output row whose reference and clamped
+    neighbour rows the sweep reads: the box radius plus the largest
+    downward and upward shift, counting the reference's own 0."""
+    sy = [shift_window(bl_ratio * d * dvy)[0] for d in ladder for _, _, _, dvy in pairs]
+    return max(sy + [0]) + radius, max([-x for x in sy] + [0]) + radius
+
+
+def check_window(
+    win: RowWindow, band_rows: int, ladder, pairs, bl_ratio: float, radius: int
+) -> None:
+    """Raise unless the band holds every in-image row that the output rows
+    read (the kernel and the plain twin read nothing else)."""
+    h, band0, out0, ho = win
+    if not (0 <= band0 and band_rows >= 1 and band0 + band_rows <= h):
+        raise ValueError(f"band rows {band0}..{band0 + band_rows - 1} outside an image of {h} rows")
+    if not (0 <= out0 and 0 <= ho and out0 + ho <= h):
+        raise ValueError(f"output rows {out0}..{out0 + ho - 1} outside an image of {h} rows")
+    if ho == 0:
+        return
+    up, down = row_reach(ladder, pairs, bl_ratio, radius)
+    lo, hi = max(0, out0 - up), min(h - 1, out0 + ho - 1 + down)
+    if lo < band0 or hi > band0 + band_rows - 1:
+        raise ValueError(
+            f"output rows {out0}..{out0 + ho - 1} read rows {lo}..{hi}, but the band holds "
+            f"{band0}..{band0 + band_rows - 1}"
+        )
 
 
 def shift_window(c: float) -> tuple[int, int]:
@@ -122,8 +171,10 @@ def plane_sweep(
     pairs: Sequence[tuple[int, int, int, int]],
     bl_ratio: float,
     window_radius: int = 2,
+    rows: RowWindow | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the sweep kernel: (disp, cost), each (V, H, W) float32."""
+    """Launch the sweep kernel: (disp, cost), each (V, H, W) float32, or
+    (V, out_rows, W) for a row window ``rows`` (:class:`RowWindow`)."""
     global LAUNCHES
     from cl_multiview_stereo_tpu_torch.kernels.build import load
 
@@ -137,17 +188,32 @@ def plane_sweep(
         raise ValueError("lab must be contiguous")
     if not 0 <= window_radius <= MAX_RADIUS:
         raise ValueError(f"window_radius {window_radius} outside 0..{MAX_RADIUS}")
-    v, h, w = lab.shape[:3]
+    v, hb, w = lab.shape[:3]
     ladder = [float(d) for d in ladder]
-    packed, at = kernel_tables(ladder, pairs, bl_ratio, v)
+    win = RowWindow(hb, 0, 0, hb) if rows is None else RowWindow(*(int(x) for x in rows))
+    check_window(win, hb, ladder, pairs, bl_ratio, window_radius)
     dev = lab.device
+    band0 = win.band0
+    if rows is not None:
+        # the kernel's blocks keep the whole image's tiles of TILE_ROWS: the
+        # first and last block of a window stage rows beyond the output
+        # rows' reach; give the band zero rows there (only outputs outside
+        # the window read them)
+        up, down = row_reach(ladder, pairs, bl_ratio, window_radius)
+        first = max(0, win.out0 // TILE_ROWS * TILE_ROWS - up)
+        last = min(win.height - 1, -(-(win.out0 + win.out_rows) // TILE_ROWS) * TILE_ROWS - 1 + down)
+        top, bottom = max(0, band0 - first), max(0, last - (band0 + hb - 1))
+        if top or bottom:
+            lab = torch.cat([lab.new_zeros((v, top, w, 3)), lab, lab.new_zeros((v, bottom, w, 3))], dim=1)
+            band0, hb = band0 - top, hb + top + bottom
+    packed, at = kernel_tables(ladder, pairs, bl_ratio, v)
 
     lib = load("sweep")
     fn = lib.sweep_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    disp = torch.empty((v, h, w), dtype=torch.float32, device=dev)
-    cost = torch.empty((v, h, w), dtype=torch.float32, device=dev)
+    disp = torch.empty((v, win.out_rows, w), dtype=torch.float32, device=dev)
+    cost = torch.empty((v, win.out_rows, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         # one copy from pinned memory, ordered on the stream before the launch
         tables = torch.from_numpy(packed).pin_memory().to(dev, non_blocking=True)
@@ -157,7 +223,8 @@ def plane_sweep(
         rc = fn(
             lab.data_ptr(), ptr["start"], ptr["view"], ptr["shifts"], ptr["ladder"],
             ptr["bounds"], ptr["box"], disp.data_ptr(), cost.data_ptr(),
-            v, h, w, len(ladder), window_radius, n_chunks, stream,
+            v, win.height, w, len(ladder), window_radius, n_chunks,
+            band0, hb, win.out0, win.out_rows, stream,
         )
     if rc != 0:
         raise RuntimeError(f"sweep kernel launch failed with CUDA error {rc}")

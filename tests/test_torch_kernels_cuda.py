@@ -455,3 +455,80 @@ def test_bundle_adjust_loop_never_waits_for_the_host(cuda):
                    if "Synchronize" in e.key or e.key.startswith("Memcpy DtoH"))
 
     assert waits(2) == waits(6)
+
+
+# the row-window mode of the sweep kernel (parallel/spatial.spatial_plane_sweep)
+ROW_TILES = {"top": (0, 16), "middle": (27, 21), "bottom": (53, 17)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [0, 2])
+@pytest.mark.parametrize("tile", list(ROW_TILES))
+def test_sweep_row_window_matches_full_launch(cuda, tile, radius):
+    """A tile's rows from a band cut to what they read equal the whole
+    image's launch bitwise, and the plain twin's window."""
+    out0, rows = ROW_TILES[tile]
+    lab = _lab((9, 70, 150, 3), 6, cuda)
+    ladder = [float(d) for d in range(10, 21)]
+    full = plane_sweep.plane_sweep_depth(lab, ladder, ODD_PAIRS, 1.0359, radius)
+    up, down = sweep.row_reach(ladder, ODD_PAIRS, 1.0359, radius)
+    b0, b1 = max(0, out0 - up), min(70, out0 + rows + down)
+    win = sweep.RowWindow(70, b0, out0, rows)
+    band = lab[:, b0:b1].contiguous()
+    before = sweep.LAUNCHES
+    got = plane_sweep.plane_sweep_depth(band, ladder, ODD_PAIRS, 1.0359, radius, rows=win)
+    torch.cuda.synchronize()
+    assert sweep.LAUNCHES == before + 1
+    plain = plane_sweep.plane_sweep_reference(band, ladder, ODD_PAIRS, 1.0359, radius, rows=win)
+    for g, f, p in zip(got, full, plain):
+        assert torch.equal(g, f[:, out0:out0 + rows]) and torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_cost_volume_view_range_matches_full_volume(cuda):
+    s = SystemSettings(array_width=3, array_height=3, min_disp=4, max_disp=11, bl_ratio=1.0359)
+    lab, centers, step = _inputs(61, 45, s, cuda)
+    args = (lab, centers, step, build_disp_levels(s), s.array_width, s.bl_ratio)
+    full = cost_volume.superpixel_cost_volume(*args)
+    for v0, nv in ((0, 3), (3, 3), (6, 3), (4, 1), (0, 9)):
+        got = cost_volume.superpixel_cost_volume(*args, view_range=(v0, nv))
+        plain = cost_volume.cost_volume_reference(*args, view_range=(v0, nv))
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[v0:v0 + nv]) and torch.equal(got, plain), (v0, nv)
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """A world-size-1 NCCL group, destroyed after the test."""
+    import torch.distributed as dist
+
+    from cl_multiview_stereo_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(device="cuda")
+    yield cuda
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_world1_halo_and_depth_slabs(nccl_world1):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from cl_multiview_stereo_tpu_torch.parallel import spatial
+
+    dev = nccl_world1
+    tile = init_device_mesh("cuda", (1,), mesh_dim_names=("tile",))
+    disp = init_device_mesh("cuda", (1,), mesh_dim_names=("disp",))
+    x = torch.arange(32 * 3, dtype=torch.float32, device=dev).reshape(32, 3)
+    for halo in (3, 40):
+        got = spatial.halo_exchange_rows(x, halo, tile, "tile")
+        zeros = torch.zeros((halo, 3), device=dev)
+        assert torch.equal(got, torch.cat([zeros, x, zeros]))
+    s = SystemSettings(array_width=3, array_height=3, min_disp=4, max_disp=11)
+    lab, centers, step = _inputs(61, 45, s, dev)
+    subset, counts = build_view_subsets(s)
+    levels = build_disp_levels(s)
+    want = cost_volume.wta_disparity(
+        cost_volume.superpixel_cost_volume(lab, centers, step, levels, s.array_width, s.bl_ratio),
+        levels, torch.as_tensor(counts, device=dev))
+    got = spatial.disp_sharded_depth_init(lab, centers, step, levels, counts, disp, s.array_width, s.bl_ratio)
+    assert torch.equal(got, want)

@@ -90,7 +90,7 @@ def test_pipeline_knob_matches_jax(knob):
     if knob == "enforce_connectivity":
         # the vote moves labels two cells from their home cell, past the
         # one-cell reach of plain SLIC; the port's direct label gathers
-        # (fusion.gather_cells, refine._rasterize_flat, the extent walk)
+        # (fusion.gather_cells, refine.rasterize_table, the extent walk)
         # take any label, where the JAX lookups need label_radius=3
         labels = n(port.labels)
         home_x = np.arange(64)[None, None, :] // s.spixl_size

@@ -177,6 +177,7 @@ def test_kernel_constants_match_the_host():
 
     assert (const("kChunk"), const("kSpare"), const("kMaxR")) == (sweep.CHUNK, sweep.SPARE, sweep.MAX_RADIUS)
     assert (const("kWarpsX"), const("kWarpsY"), const("kRows")) == (KWARPS_X, KWARPS_Y, KROWS)
+    assert KWARPS_Y * KROWS == sweep.TILE_ROWS  # kTileH, the rows a band is padded to
 
 
 def _emulate_kernel(lab, ladder, pairs, bl_ratio, radius):
