@@ -72,7 +72,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    of a warm-up and two timed runs beside the unsharded path's; 7f two
    processes on the one card in a gloo group (NCCL refuses two ranks on
    one device, gloo carries the all-gathers of CUDA tensors that the port
-   uses): 7b at n = 2, and 7d at n = 2 on an 8-view (4x2) 1080p scene.
+   uses): 7b at n = 2, and 7d at n = 2 on an 8-view (4x2) 1080p scene;
+8. host streaming and the one-program forward: 8a phase 5's PNGs decoded
+   by the native loader (``io/native_loader``, g++ built from this
+   checkout) bitwise the PIL loader, both timed, and the decode backend;
+   8b ``MVSPipeline.jitted()`` (one CUDA graph of ``run``) at 9x1080x1920
+   with the default knobs: its capture timed, scene A and a second scene B
+   (another disparity and seed) bitwise ``run()`` on every artifact, the
+   best of two replays against the best of two eager runs, peak memory,
+   and one replay and one eager run under ``torch.profiler`` (device
+   kernels, launch calls, pageable host-to-device copies); 8c at 9x270x480
+   phase 4's knobs and float (SfM-style) pair deltas through ``jitted()``,
+   each bitwise ``run()``; 8d ``io/prefetcher.run_scenes`` over 4 scenes
+   (phase 5's PNGs and scene B's, alternating; depth 2), each
+   ``disp_full`` bitwise ``run()`` on the same decoded images, its views/s
+   against decode-then-``run()`` on the same scenes, then once the
+   ``tools.stream_scenes`` command on the same lists, repeated twice.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -129,6 +144,10 @@ SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
 # run --sfm: share of interior pixels within 1 of the scene's disparity
 SFM_RUN_NEAR = 0.90
 KERNELS = ("cost_volume", "sweep", "consistency")
+# phase 8's scene B: the scene generator at another disparity and seed
+STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
+# phase 8's stream tool, seconds it may take
+STREAM_TOOL_TIMEOUT_S = 300
 # phase 7f's two gloo ranks on the one card: seconds they may take
 GLOO_TIMEOUT_S = 420
 
@@ -1248,6 +1267,194 @@ def phase_gloo_two_ranks(card: str) -> None:
     _times_line("[7f] 7d, rank 0,", r0["7d_s"], r0["7d_unsharded_s"], card)
 
 
+def _leaf_pairs(a, b, prefix: str = ""):
+    """(name, a's tensor, b's tensor) over two nested NamedTuples."""
+    import torch
+
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, torch.Tensor):
+            yield prefix + f, x, y
+        else:
+            yield from _leaf_pairs(x, y, f"{prefix}{f}.")
+
+
+def _artifacts_equal(tag: str, got, want) -> None:
+    for name, x, y in _leaf_pairs(got, want):
+        _require_equal(f"{tag} {name}", x, y)
+
+
+def _trace_counts(fn) -> dict:
+    """One ``fn()`` under torch.profiler: its device kernels, the host's
+    kernel and graph launch calls, pageable host-to-device copies and
+    cost-volume kernels, with the device ms and the wall ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    copies = ("Memcpy", "Memset")
+    return dict(
+        kernels=sum(e.count for e in dev if not e.key.startswith(copies)),
+        launch_calls=sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+        graph_launches=sum(e.count for e in host if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch"))),
+        pageable_htod=sum(e.count for e in dev if "HtoD" in e.key and "Pageable" in e.key),
+        cost_volume=sum(e.count for e in dev if "cost_volume_kernel" in e.key),
+        device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+        wall_ms=wall,
+    )
+
+
+def phase_stream(card: str, root: str, lst: str) -> int:
+    """Phase 8 on phase 5's PNGs ``lst`` in ``root``.  Returns the
+    cost-volume launches of 8b-8d's graph replays."""
+    import numpy as np
+    import torch
+
+    from cl_multiview_stereo_tpu_torch import build_view_subsets, fronto_parallel_scene
+    from cl_multiview_stereo_tpu_torch.io.images import load_image_array
+    from cl_multiview_stereo_tpu_torch.io.native_loader import load_image_array_native, native_available
+    from cl_multiview_stereo_tpu_torch.io.prefetcher import run_scenes
+    from cl_multiview_stereo_tpu_torch.models import mvs_pipeline
+    from cl_multiview_stereo_tpu_torch.native import build as native_build
+    from cl_multiview_stereo_tpu_torch.ops import refine
+
+    t_phase = time.perf_counter()
+    # 8a: the native decode.  Only a missing g++ or missing headers may
+    # leave the PIL backend; any other build failure raises here.
+    try:
+        native_build.load()
+        missing = ""
+    except native_build.ToolchainMissing as e:
+        missing = str(e).splitlines()[0]
+    backend = "native" if native_available() else "pil"
+    if not missing and backend != "native":
+        raise AssertionError("[8a] the native loader built but the backend is not native")
+    nat_s, pil_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        nat = load_image_array_native(lst, 9)
+        nat_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        pil = load_image_array(lst, 9)
+        pil_s.append(time.perf_counter() - t0)
+    if not np.array_equal(nat, pil):
+        raise AssertionError(f"[8a] native and PIL decodes differ at {int((nat != pil).sum())} bytes")
+    print(f"[8a] decode of 9 {FULL_W}x{FULL_H} PNGs: load_image_array_native {[round(x, 4) for x in nat_s]} "
+          f"s, load_image_array (PIL) {[round(x, 4) for x in pil_s]} s, bitwise equal; backend {backend}"
+          + (f" (toolchain missing: {missing})" if missing else "") + f" ({card})")
+
+    # 8b: the graph at full width, default knobs, on two scenes
+    s, rgb_a = _scene(FULL_H, FULL_W)
+    rgb_b, _ = fronto_parallel_scene(FULL_H, FULL_W, 3, 3, disp=STREAM_B_DISP, bl_ratio=s.bl_ratio,
+                                     seed=STREAM_B_SEED)
+    a, b = (torch.as_tensor(x, device="cuda") for x in (rgb_a, rgb_b))
+    pipe = mvs_pipeline.MVSPipeline.create(FULL_W, FULL_H, s, device="cuda")
+    want_a, want_b = pipe.run(a), pipe.run(b)
+    if torch.equal(want_a.disp_full, want_b.disp_full):
+        raise AssertionError("[8b] scenes A and B give the same disparity")
+    mvs_pipeline.REPLAYED_LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    fwd = pipe.jitted()
+    t0 = time.perf_counter()
+    got = fwd(a)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    _artifacts_equal("[8b] scene A", got, want_a)
+    _artifacts_equal("[8b] scene B", fwd(b), want_b)
+    replay_s, eager_s = [], []
+    for _ in range(2):
+        for fn, out in ((lambda: fwd(a), replay_s), (lambda: pipe.run(a), eager_s)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    tr, te = _trace_counts(lambda: fwd(a)), _trace_counts(lambda: pipe.run(a))
+    if tr["pageable_htod"]:
+        raise AssertionError(f"[8b] a replay made {tr['pageable_htod']} pageable host-to-device copies")
+    mp = 9 * FULL_H * FULL_W / 1e6
+    print(f"[8b] jitted() at 9x{FULL_H}x{FULL_W} (dense, packed, gather engine): capture (warm-up, "
+          f"capture, first replay) {capture_s:.3f} s; scene A and scene B (disp {STREAM_B_DISP}, seed "
+          f"{STREAM_B_SEED}) bitwise run() on every artifact; replays {[round(x, 4) for x in replay_s]} s, "
+          f"best {min(replay_s):.4f} s = {mp / min(replay_s):.4f} MP/s; eager run() "
+          f"{[round(x, 4) for x in eager_s]} s, best {min(eager_s):.4f} s = {mp / min(eager_s):.4f} MP/s; "
+          f"best replay / eager {min(replay_s) / min(eager_s):.4f}; peak {peak / 2**30:.3f} GiB ({card})")
+    for tag, t in (("one replay", tr), ("one eager run()", te)):
+        print(f"[8b] {tag} under torch.profiler: {t['kernels']} device kernels ({t['cost_volume']} "
+              f"cost_volume_kernel), {t['launch_calls']} kernel launch calls, {t['graph_launches']} graph "
+              f"launches, {t['pageable_htod']} pageable host-to-device copies; device {t['device_ms']:.1f} "
+              f"ms of {t['wall_ms']:.1f} ms wall ({card})")
+    del fwd, got
+
+    # 8c: the knobs at 9x270x480, and float pair deltas as SfM gives them
+    h, w = 270, 480
+    s_small, rgb_small = _scene(h, w)
+    x = torch.as_tensor(rgb_small, device="cuda")
+    grid = refine.pairs_from_subsets(build_view_subsets(s_small)[0], s_small.array_width)
+    sfm_pairs = tuple((r, nb, dx * 1.0125 + 0.003 * r, dy * 0.9875 - 0.002 * nb) for r, nb, dx, dy in grid)
+    configs = dict(CARD_KNOBS, pair_deltas=({}, dict(pair_deltas=sfm_pairs)))
+    for knob, (overrides, kw) in configs.items():
+        pipe_k = mvs_pipeline.MVSPipeline.create(w, h, s_small.replace(**overrides), device="cuda", **kw)
+        _artifacts_equal(f"[8c] {knob}", pipe_k.jitted()(x), pipe_k.run(x))
+    print(f"[8c] jitted() at 9x{h}x{w} bitwise run() on every artifact with {', '.join(configs)} ({card})")
+
+    # 8d: run_scenes over 4 scenes, against decode-then-run()
+    root_b = os.path.join(root, "scene_b")
+    os.makedirs(root_b)
+    lst_b = _write_scene(root_b, rgb_b)
+    order = [lst, lst_b, lst, lst_b]
+    for p, rgb in ((lst, rgb_a), (lst_b, rgb_b)):
+        if not np.array_equal(load_image_array(p, 9), rgb):
+            raise AssertionError(f"[8d] {p} does not decode to the scene written")
+    want = {lst: want_a.disp_full, lst_b: want_b.disp_full}
+    done, t0 = [], time.perf_counter()
+    for idx, art in run_scenes(pipe, order, depth=2):
+        torch.cuda.synchronize()
+        done.append(time.perf_counter() - t0)
+        _require_equal(f"[8d] run_scenes scene {idx}", art.disp_full, want[order[idx]])
+    if len(done) != len(order):
+        raise AssertionError(f"[8d] run_scenes yielded {len(done)} of {len(order)} scenes")
+    steady = (len(order) - 1) * 9 / (done[-1] - done[0])
+    serial = []
+    for p in order:
+        t1 = time.perf_counter()
+        pipe.run(load_image_array(p, 9))
+        torch.cuda.synchronize()
+        serial.append(time.perf_counter() - t1)
+    per_scene = np.diff([0.0] + done)
+    print(f"[8d] run_scenes, 4 scenes (A, B, A, B from PNGs, depth 2): each disp_full bitwise run(); "
+          f"seconds per scene {[round(float(x), 4) for x in per_scene]} (the first with the capture); "
+          f"scenes 2-4 {steady:.4f} views/s = {steady * FULL_H * FULL_W / 1e6:.4f} MP/s; decode-then-run() "
+          f"{[round(x, 4) for x in serial]} s per scene = {9 * len(serial) / sum(serial):.4f} views/s "
+          f"({card})")
+    launches = mvs_pipeline.REPLAYED_LAUNCHES.get("cost_volume", 0)
+    if launches < 1:
+        raise AssertionError("[8b-8d] no graph replay launched the cost-volume kernel")
+
+    cmd = [sys.executable, "-m", "cl_multiview_stereo_tpu_torch.tools.stream_scenes", lst, lst_b,
+           "--repeat", "2"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=STREAM_TOOL_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"[8d] stream_scenes exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    if rec["scenes"] != 4 or rec["decode_backend"] != backend:
+        raise AssertionError(f"[8d] stream_scenes: {rec}")
+    print(f"[8d] python -m cl_multiview_stereo_tpu_torch.tools.stream_scenes A B --repeat 2: "
+          f"{json.dumps(rec)} ({card})")
+    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s; cost_volume launches of the graph "
+          f"replays {launches} ({card})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1282,8 +1489,10 @@ def main() -> int:
         # --sfm, and of phase 7's sharded paths
         cv_launches += phase_sfm(card, root, lst)
         sharded = phase_sharded(card, art, lst)
+        stream_launches = phase_stream(card, root, lst)
     phase_gloo_two_ranks(card)
-    cv_launches += sharded["cost_volume"]
+    # phase 8's graph replays launch the cost volume from the graph
+    cv_launches += sharded["cost_volume"] + stream_launches
     sw_launches += sharded["sweep"]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format

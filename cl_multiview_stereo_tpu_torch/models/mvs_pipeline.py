@@ -6,13 +6,15 @@
   (plane rasterization [+ the cross-view vote])
 
 All state stays on ``device``; the host touches only the input images and
-whatever the caller pulls from the returned artifacts.
+whatever the caller pulls from the returned artifacts.  ``jitted()`` is the
+one-program forward: on a card, ``run`` captured once into a CUDA graph and
+replayed per scene.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -26,9 +28,16 @@ from cl_multiview_stereo_tpu_torch.config import (
     build_view_subsets,
 )
 from cl_multiview_stereo_tpu_torch import convert
+from cl_multiview_stereo_tpu_torch.device import device_table
 from cl_multiview_stereo_tpu_torch.ops import cost_volume, fusion, refine, slic, superpixel
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer, maybe_stage
+
+
+# Kernel launches made by replays of the CUDA graphs of ``jitted()``, by
+# kernel: each replay adds the launches that its capture recorded.  The
+# kernels' own ``LAUNCHES`` count a captured launch once, at capture.
+REPLAYED_LAUNCHES: dict[str, int] = {}
 
 
 class PipelineArtifacts(NamedTuple):
@@ -104,7 +113,7 @@ class MVSPipeline:
         sched = RefinementSchedule.create(s)
         disp_levels = build_disp_levels(s)
         view_subset_np, subset_num_np = build_view_subsets(s)
-        subset_num = torch.as_tensor(subset_num_np, dtype=torch.int32, device=dev)
+        subset_num = device_table(subset_num_np, torch.int32, dev)
         ck = convert.checkpoint(_ckpt or {}, dev)
         rgb = torch.as_tensor(rgb, device=dev)
 
@@ -206,6 +215,31 @@ class MVSPipeline:
                         f"— wrong scene or settings?"
                     )
 
+    def jitted(self) -> Callable[[np.ndarray | torch.Tensor], PipelineArtifacts]:
+        """The one-program forward, JAX's ``jax.jit(self.run)``: a callable
+        from a (V, H, W, 3) uint8 scene to :class:`PipelineArtifacts`.
+
+        On a CUDA pipeline the first call runs ``run`` once eagerly on a
+        side stream (the warm-up that a capture needs; it also builds the
+        kernel and the device tables), captures one ``run`` into a CUDA
+        graph from a static input, and replays it; every later call copies
+        the scene into the static input and replays.  The artifacts are
+        clones of the graph's outputs, so that the next replay does not
+        overwrite them.  A capture that fails raises: nothing falls back to
+        the eager ``run``.  On a CPU pipeline it is ``run``.  Either way a
+        scene of another shape raises ``ValueError``; there is no timer,
+        since the graph has no stage boundaries."""
+        if self.device.type == "cuda":
+            return _GraphedRun(self)
+        if self.device.type != "cpu":
+            raise ValueError(f"no one-program forward for device {self.device}")
+
+        def forward(rgb: np.ndarray | torch.Tensor) -> PipelineArtifacts:
+            _check_scene(self.geom, rgb)
+            return self.run(rgb)
+
+        return forward
+
     def run_from_list(self, list_path: str) -> PipelineArtifacts:
         """Load the image list (the reference's ``data.txt`` format) and run."""
         from cl_multiview_stereo_tpu_torch.io.images import load_image_array
@@ -217,3 +251,58 @@ class MVSPipeline:
                 f"{self.geom.img_w}x{self.geom.img_h}"
             )
         return self.run(rgb)
+
+
+def _check_scene(geom: DerivedGeometry, rgb) -> None:
+    want = (geom.view_num, geom.img_h, geom.img_w, 3)
+    if tuple(rgb.shape) != want:
+        raise ValueError(f"scene of shape {tuple(rgb.shape)}, the pipeline takes {want}")
+
+
+def _map_tensors(fn, tree):
+    """``fn`` on every tensor of a (nested) NamedTuple."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(*(_map_tensors(fn, x) for x in tree))
+
+
+class _GraphedRun:
+    """``MVSPipeline.jitted()`` on a card: ``run`` as one CUDA graph."""
+
+    def __init__(self, pipe: MVSPipeline):
+        self.pipe = pipe
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.static_in: torch.Tensor | None = None
+        self.static_out: PipelineArtifacts | None = None
+        self.captured_launches: dict[str, int] = {}
+
+    def _capture(self, rgb: torch.Tensor) -> None:
+        dev = self.pipe.device
+        self.static_in = torch.empty(rgb.shape, dtype=rgb.dtype, device=dev)
+        self.static_in.copy_(rgb)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.pipe.run(self.static_in)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = cost_volume.LAUNCHES
+        with torch.cuda.graph(graph):
+            self.static_out = self.pipe.run(self.static_in)
+        self.captured_launches = {"cost_volume": cost_volume.LAUNCHES - before}
+        self.graph = graph
+
+    def __call__(self, rgb: np.ndarray | torch.Tensor) -> PipelineArtifacts:
+        _check_scene(self.pipe.geom, rgb)
+        rgb = torch.as_tensor(rgb)
+        with torch.cuda.device(self.pipe.device):
+            if self.graph is None:
+                self._capture(rgb)
+            elif rgb.dtype != self.static_in.dtype:
+                raise ValueError(f"scene of dtype {rgb.dtype}, the graph was captured for {self.static_in.dtype}")
+            else:
+                self.static_in.copy_(rgb, non_blocking=True)
+            self.graph.replay()
+            for name, n in self.captured_launches.items():
+                REPLAYED_LAUNCHES[name] = REPLAYED_LAUNCHES.get(name, 0) + n
+            return _map_tensors(torch.clone, self.static_out)

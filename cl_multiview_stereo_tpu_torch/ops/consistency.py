@@ -31,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from cl_multiview_stereo_tpu_torch.device import device_table
 from cl_multiview_stereo_tpu_torch.ops.refine import (
     SCORE_CHUNK,
     IterCache,
@@ -41,10 +42,6 @@ from cl_multiview_stereo_tpu_torch.ops.refine import (
 # Kernel launches since import (or since the caller reset it): chip_smoke.py
 # reads it to show that the strips path went through the kernel.
 LAUNCHES = 0
-
-# device pair tables by (pairs, n_views, device), so that a launch copies
-# nothing from the host
-_TABLES: dict = {}
 
 
 def consistency_moves_reference(
@@ -98,13 +95,10 @@ def pair_tables(pairs: tuple, n_views: int) -> tuple[np.ndarray, np.ndarray, np.
 
 
 def device_pair_tables(pairs: tuple, n_views: int, device) -> tuple[torch.Tensor, ...]:
-    """:func:`pair_tables` as tensors on ``device``, made once per
-    (pairs, n_views, device) and kept."""
-    device = torch.device(device)
-    key = (tuple(pairs), n_views, device)
-    if key not in _TABLES:
-        _TABLES[key] = tuple(torch.as_tensor(a, device=device) for a in pair_tables(pairs, n_views))
-    return _TABLES[key]
+    """:func:`pair_tables` as tensors on ``device``, copied there once per
+    value (``device.device_table``), so that a launch copies nothing from
+    the host."""
+    return tuple(device_table(a, torch.from_numpy(a).dtype, device) for a in pair_tables(pairs, n_views))
 
 
 def _launch(ctx, cache, d_c, n_c, *, gamma, alpha, fuse, bl_ratio, pairs):

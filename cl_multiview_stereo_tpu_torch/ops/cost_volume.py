@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from cl_multiview_stereo_tpu_torch.device import device_table
 from cl_multiview_stereo_tpu_torch.ops.fusion import view_bounds
 from cl_multiview_stereo_tpu_torch.ops.superpixel import extent_step
 
@@ -194,7 +195,7 @@ def superpixel_cost_volume(
         )
     if lab.device.type != "cuda":
         raise ValueError(f"no cost-volume kernel for device {lab.device}")
-    dl = torch.as_tensor(disp_levels, dtype=torch.float32, device=lab.device)
+    dl = device_table(disp_levels, torch.float32, lab.device)
     return _launch(lab, centers, step, dl, array_width, bl_ratio, neib_hor, neib_ver, view_range)
 
 
@@ -221,9 +222,9 @@ def cost_volume_gather(
     v0, nv_ref = view_bounds(view_range, v)
     mh, mw = centers.shape[1:3]
     dev = lab.device
-    dl = torch.as_tensor(disp_levels, dtype=torch.float32, device=dev)
+    dl = device_table(disp_levels, torch.float32, dev)
     n_d = dl.shape[0]
-    subset = torch.as_tensor(np.asarray(view_subset), dtype=torch.int64, device=dev)[v0:v0 + nv_ref]
+    subset = device_table(view_subset, torch.int64, dev)[v0:v0 + nv_ref]
     flat = lab.reshape(v * h * w, 3)
     vid = torch.arange(v0, v0 + nv_ref, dtype=torch.int64, device=dev)
     views = subset.clamp(0, v - 1)  # (nv, max_n)
@@ -272,9 +273,9 @@ def wta_disparity(
     """Winner-take-all over the hypothesis axis (clcode.cl:1059-1067):
     ``argmin`` returns the first minimum, the reference's strict ``<``
     ascending scan.  Views with no neighbours keep 0.0."""
-    dl = torch.as_tensor(disp_levels, dtype=torch.float32, device=vol.device)
+    dl = device_table(disp_levels, torch.float32, vol.device)
     disp = dl[torch.argmin(vol, dim=1)]
-    has_views = torch.as_tensor(subset_num, device=vol.device) > 0
+    has_views = device_table(subset_num, torch.int32, vol.device) > 0
     return torch.where(has_views[:, None, None], disp, 0.0)
 
 
@@ -321,5 +322,5 @@ def initial_depth_estimation(
             array_width, bl_ratio, neib_hor, neib_ver, view_range,
         )
     v0, nv = view_bounds(view_range, lab.shape[0])
-    counts = torch.as_tensor(subset_num, device=lab.device)[v0:v0 + nv]
+    counts = device_table(subset_num, torch.int32, lab.device)[v0:v0 + nv]
     return wta_disparity(vol, disp_levels, counts)

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from cl_multiview_stereo_tpu_torch.device import device_table
 from cl_multiview_stereo_tpu_torch.ops.fusion import cl_round, gather_cells, plane_disparity
 from cl_multiview_stereo_tpu_torch.ops.superpixel import consistency_samples
 from cl_multiview_stereo_tpu_torch.utils.timing import maybe_stage
@@ -208,7 +209,7 @@ def build_cell_cache(
         tap = torch.cat([tap, lr], dim=-2)
 
     ok = torch.stack(ok_list, dim=-1)
-    gammas = torch.tensor(g_list, dtype=torch.float32, device=dev)
+    gammas = device_table(g_list, torch.float32, dev)
     cdiff = _sqdist3(color[..., None, :], tap[..., 2:5])
     tap_sim = torch.where(ok, _ftz(torch.exp(-cdiff * gammas)), 0.0)
 
@@ -317,10 +318,10 @@ def consistency_from_cache(
 
     refs_np = np.asarray([p[0] for p in pairs], np.int64)
     bounds = np.searchsorted(refs_np, np.arange(v + 1))
-    refs = torch.as_tensor(refs_np, device=dev)
-    nbrs = torch.tensor([p[1] for p in pairs], dtype=torch.int64, device=dev)
-    dvx = torch.tensor([p[2] for p in pairs], dtype=torch.float32, device=dev)[:, None, None, None]
-    dvy = torch.tensor([p[3] for p in pairs], dtype=torch.float32, device=dev)[:, None, None, None]
+    refs = device_table(refs_np, torch.int64, dev)
+    nbrs = device_table([p[1] for p in pairs], torch.int64, dev)
+    dvx = device_table([p[2] for p in pairs], torch.float32, dev)[:, None, None, None]
+    dvy = device_table([p[3] for p in pairs], torch.float32, dev)[:, None, None, None]
 
     # sample axis at -2: (V, Mh, 9, Mw)
     cx = ctx.center[..., 0][:, :, None, :]
@@ -481,8 +482,8 @@ def gather_update_moves(ctx: RefineContext, state_in: RefineState, offs, gamma: 
     v, mh, mw = state_in.d.shape
     center = ctx.center
     col, row = _grid(mh, mw, center.device)
-    dxs = torch.tensor([o[0] for o in offs], device=center.device)
-    dys = torch.tensor([o[1] for o in offs], device=center.device)
+    dxs = device_table([o[0] for o in offs], torch.int64, center.device)
+    dys = device_table([o[1] for o in offs], torch.int64, center.device)
     tx = col[..., None] + dxs
     ty = row[..., None] + dys
     ok_m = ((tx >= 0) & (ty >= 0) & (tx < mw) & (ty < mh)).expand(v, mh, mw, len(offs))

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from cl_multiview_stereo_tpu_torch.config import DerivedGeometry
+from cl_multiview_stereo_tpu_torch.device import device_table
 
 # Compass slot order nw, w, sw, n, s, ne, e, se as (dx, dy) (clcode.cl:826-851).
 _DIRS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
@@ -81,6 +82,6 @@ def consistency_samples(ext: torch.Tensor) -> torch.Tensor:
          ext[..., 4], ext[..., 5], ext[..., 6], ext[..., 7]],
         dim=-1,
     )
-    ii = torch.tensor([-1, -1, -1, 0, 0, 0, 1, 1, 1], dtype=torch.int32, device=ext.device)
-    jj = torch.tensor([-1, 0, 1, -1, 0, 1, -1, 0, 1], dtype=torch.int32, device=ext.device)
+    ii = device_table([-1, -1, -1, 0, 0, 0, 1, 1, 1], torch.int32, ext.device)
+    jj = device_table([-1, 0, 1, -1, 0, 1, -1, 0, 1], torch.int32, ext.device)
     return torch.stack([radii * ii, radii * jj], dim=-1)

@@ -2,14 +2,14 @@
 ``cl_multiview_stereo_tpu/utils/debug.py``).
 
 ``validate_stage``/``validate_artifacts`` raise the JAX module's
-``FloatingPointError`` messages.  JAX's ``checked`` wraps
-``jax.experimental.checkify``, which has no PyTorch counterpart; it is not
-ported (ROADMAP, queue 1).
+``FloatingPointError`` messages, and :func:`checked` stands in for the JAX
+module's ``checkify`` wrapper.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator
+import functools
+from typing import Any, Callable, Iterator
 
 import torch
 
@@ -28,6 +28,25 @@ def _leaves(value: Any, path: str = "") -> Iterator[tuple[str, Any]]:
             yield from _leaves(value[k], f"{path}[{k!r}]")
     elif value is not None:
         yield path, value
+
+
+def checked(fn: Callable) -> Callable:
+    """Wrap ``fn`` so that it raises ``FloatingPointError`` at the first
+    non-finite floating-point leaf of its outputs, with
+    :func:`validate_stage`'s message under ``fn``'s name: the opt-in debug
+    mode of JAX's ``checkify`` float checks, applied to what ``fn``
+    returns.  Out-of-bounds indices need no check of their own: torch's
+    indexing raises on them (a device-side assert on a card), where XLA
+    clamps, which is what JAX's index checks are for.  The check reads the
+    outputs on the host, so it waits for the device."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        out = fn(*args, **kw)
+        validate_stage(getattr(fn, "__name__", "output"), out)
+        return out
+
+    return wrapper
 
 
 def validate_stage(name: str, value: Any, *, allow_zero: bool = True) -> None:

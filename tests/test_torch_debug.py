@@ -58,3 +58,29 @@ def test_validate_artifacts_walks_every_field():
                         disp=torch.full((2, 3, 4), float("nan")))
     with pytest.raises(FloatingPointError, match="stage 'disp': 24/24 non-finite values"):
         debug.validate_artifacts(art)
+
+
+def test_checked_matches_jax_checked_on_log():
+    """tests/test_utils_io.py's case: log(1) passes as 0, log(-1) raises."""
+    import jax
+    import jax.numpy as jnp
+
+    g = jdebug.checked(jax.jit(jnp.log))
+    f = debug.checked(torch.log)
+    np.testing.assert_allclose(np.asarray(g(jnp.asarray([1.0]))), [0.0])
+    np.testing.assert_array_equal(f(torch.tensor([1.0])).numpy(), np.asarray(g(jnp.asarray([1.0]))))
+    with pytest.raises(Exception, match="nan"):
+        g(jnp.asarray([-1.0]))
+    with pytest.raises(FloatingPointError, match="stage 'log': 1/1 non-finite values"):
+        f(torch.tensor([-1.0]))
+
+
+def test_checked_walks_nested_outputs_and_keeps_the_name():
+    def stages(x):
+        return {"a": x, "b": (x, torch.log(x))}
+
+    f = debug.checked(stages)
+    assert f.__name__ == "stages"
+    f(torch.ones(2))
+    with pytest.raises(FloatingPointError, match=r"stage 'stages\['b'\]\[1\]': 1/2 non-finite"):
+        f(torch.tensor([1.0, -1.0]))

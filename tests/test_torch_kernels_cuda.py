@@ -532,3 +532,120 @@ def test_nccl_world1_halo_and_depth_slabs(nccl_world1):
         levels, torch.as_tensor(counts, device=dev))
     got = spatial.disp_sharded_depth_init(lab, centers, step, levels, counts, disp, s.array_width, s.bl_ratio)
     assert torch.equal(got, want)
+
+
+# MVSPipeline.jitted(): the CUDA graph of run() and the streaming path
+
+JIT_SETTINGS = dict(array_width=3, array_height=3, min_disp=4, max_disp=11)
+
+
+def _leaf_pairs(a, b, prefix=""):
+    """(name, a's tensor, b's tensor) over two nested NamedTuples."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, torch.Tensor):
+            yield prefix + f, x, y
+        else:
+            yield from _leaf_pairs(x, y, f"{prefix}{f}.")
+
+
+def _jit_scene(disp, seed, h=72, w=96):
+    rgb, _ = synthetic.fronto_parallel_scene(h, w, 3, 3, disp=disp, bl_ratio=1.0, seed=seed)
+    return rgb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", ["default", "cross_check", "gather"])
+def test_jitted_two_scenes_bitwise_run(cuda, knobs):
+    """Scene A then scene B through the graph: each bitwise run(), so the
+    replay reads the refreshed static input and returns fresh tensors."""
+    from cl_multiview_stereo_tpu_torch.models import mvs_pipeline
+
+    kw = {"default": {}, "cross_check": dict(cross_check=True), "gather": dict(depth_method="gather")}[knobs]
+    pipe = mvs_pipeline.MVSPipeline.create(96, 72, SystemSettings(**JIT_SETTINGS), device=cuda, **kw)
+    fwd = pipe.jitted()
+    a, b = _jit_scene(7.0, 1), _jit_scene(5.0, 2)
+    before = dict(mvs_pipeline.REPLAYED_LAUNCHES)
+    got_a = fwd(a)
+    got_b = fwd(torch.as_tensor(b, device=cuda))
+    want_a, want_b = pipe.run(a), pipe.run(b)
+    torch.cuda.synchronize()
+    for got, want in ((got_a, want_a), (got_b, want_b)):
+        for name, x, y in _leaf_pairs(got, want):
+            assert torch.equal(x, y), name
+    assert not torch.equal(got_a.disp_full, got_b.disp_full)
+    cv = 0 if knobs == "gather" else 2
+    assert mvs_pipeline.REPLAYED_LAUNCHES.get("cost_volume", 0) - before.get("cost_volume", 0) == cv
+    with pytest.raises(ValueError, match="the pipeline takes"):
+        fwd(a[:, :-1])
+
+
+@pytest.mark.cuda
+def test_jitted_replay_makes_no_pageable_copy(cuda):
+    """After the warm-up neither the replay nor the eager run copies a
+    pageable host buffer to the card: every table is on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+
+    pipe = MVSPipeline.create(96, 72, SystemSettings(**JIT_SETTINGS), device=cuda)
+    rgb = torch.as_tensor(_jit_scene(7.0, 1), device=cuda)
+    fwd = pipe.jitted()
+    fwd(rgb)
+    torch.cuda.synchronize()
+    for fn in (lambda: fwd(rgb), lambda: pipe.run(rgb)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        pageable = [e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and "HtoD" in e.key and "Pageable" in e.key]
+        assert not pageable, pageable
+
+
+def _write_scenes(root, arrays):
+    from PIL import Image
+
+    lists = []
+    for k, rgb in enumerate(arrays):
+        for v, im in enumerate(rgb):
+            Image.fromarray(im).save(root / f"s{k}_v{v}.png")
+        (root / f"s{k}.txt").write_text("".join(f"s{k}_v{v}.png\n" for v in range(len(rgb))))
+        lists.append(str(root / f"s{k}.txt"))
+    return lists
+
+
+@pytest.mark.cuda
+def test_pinned_staging_survives_a_slow_consumer(cuda, tmp_path):
+    """Depth 2 over 4 scenes, and the card kept busy after each scene, so
+    that each copy from a pinned buffer queues behind that work while the
+    host decodes the next scenes: every scene arrives intact."""
+    from cl_multiview_stereo_tpu_torch.io.prefetcher import ScenePrefetcher
+    from cl_multiview_stereo_tpu_torch.io.images import read_image_list
+
+    arrays = [_jit_scene(4.0 + k, k) for k in range(4)]
+    lists = _write_scenes(tmp_path, arrays)
+    got = []
+    with ScenePrefetcher([read_image_list(p) for p in lists], 72, 96, depth=2, device=cuda) as pf:
+        for idx, rgb in pf:
+            assert rgb.device.type == "cuda"
+            got.append((idx, rgb))
+            torch.cuda._sleep(50_000_000)
+    torch.cuda.synchronize()
+    assert [i for i, _ in got] == [0, 1, 2, 3]
+    for (_, rgb), want in zip(got, arrays):
+        assert torch.equal(rgb.cpu(), torch.as_tensor(want))
+
+
+@pytest.mark.cuda
+def test_run_scenes_bitwise_run_on_the_card(cuda, tmp_path):
+    from cl_multiview_stereo_tpu_torch.io.prefetcher import run_scenes
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+
+    arrays = [_jit_scene(7.0, 1), _jit_scene(5.0, 2)]
+    lists = _write_scenes(tmp_path, arrays)
+    pipe = MVSPipeline.create(96, 72, SystemSettings(**JIT_SETTINGS), device=cuda)
+    got = [(i, art.disp_full) for i, art in run_scenes(pipe, lists * 2, depth=2)]
+    assert [i for i, _ in got] == [0, 1, 2, 3]
+    for k, (_, disp) in enumerate(got):
+        assert torch.equal(disp, pipe.run(arrays[k % 2]).disp_full), k
