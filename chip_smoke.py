@@ -87,7 +87,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (phase 5's PNGs and scene B's, alternating; depth 2), each
    ``disp_full`` bitwise ``run()`` on the same decoded images, its views/s
    against decode-then-``run()`` on the same scenes, then once the
-   ``tools.stream_scenes`` command on the same lists, repeated twice.
+   ``tools.stream_scenes`` command on the same lists, repeated twice;
+9. the measurement tools, each in its own process: 9a ``tools.bench
+   --cell slice --runs 5 --profile`` (the graph's replays: median, spread,
+   peak memory, launches, the breakdown by device op and idle gap); 9b
+   ``tools.roofline --kernel all --shapes main``, each kernel's bound equal
+   to phase 2's; 9c ``tools.memcheck`` at BASELINE's config 4 (49 views of
+   2048x2048, 256 hypotheses, the view pair layout), which exits 0 when it
+   fits and 3 when the allocator refuses a request.
+
+The kernels' bound counts, the card query, the profiler helper and the
+strips composition are the package's (``tools/roofline``,
+``device.card_name``, ``tools/profile_stages``).
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -97,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import os
@@ -108,17 +120,6 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# H100 SXM peaks for a kernel's bound (NVIDIA's data sheet, dense, f32
-# outside the tensor cores)
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
-# f32 operations the bounds count: a valid cost-volume sample term (three
-# differences, three absolutes, two adds, the running sum); a sweep
-# (pair, hypothesis, pixel) term is 8 for the SAD, 4r for the separable
-# box sums and 1 for the min over pairs; a consistency (move, cell, pair,
-# sample) term is about 36 (projection, bounds, the two exp terms and five
-# sums, each exp counted as one) and its plane disparity per (move, cell,
-# sample) 8
-CV_OPS_VALID, SWEEP_OPS_SAD, CONS_OPS_TERM, CONS_OPS_DIP = 9, 8, 36, 8
 # consistency kernel vs its plain twin: the same formula, sums over the
 # samples taken in another order by the twin's reductions
 CONS_RTOL, CONS_ATOL = 1e-5, 1e-6
@@ -150,104 +151,13 @@ STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
 STREAM_TOOL_TIMEOUT_S = 300
 # phase 7f's two gloo ranks on the one card: seconds they may take
 GLOO_TIMEOUT_S = 420
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """The least ms the card could take, and what bounds it: the larger of
-    the bytes over the memory rate and the operations over the f32 peak."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def _cost_volume_bound(lab, centers, step, levels, s, out) -> tuple[float, str]:
-    """The cost volume's bound on these inputs: each input read once and the
-    output written once; per sample term CV_OPS_VALID operations where the
-    sample is valid and 1 (the penalty's add) where not, and one min per
-    (cell, hypothesis, valid delta).  Validity as the kernel tests it: the
-    f32 sample positions, truncated, in the image, and -1 < x - d*gx < W,
-    -1 < y - (bl*d)*gy < H."""
-    import numpy as np
-    import torch
-
-    v, h, w = lab.shape[:3]
-    cells = centers.shape[1] * centers.shape[2]
-    n_d = levels.shape[0]
-    xr = torch.stack([(centers[..., 0] + float(i) * step[..., 0]).to(torch.int64) for i in range(-2, 3)], -1)
-    yr = torch.stack([(centers[..., 1] + float(j) * step[..., 1]).to(torch.int64) for j in range(-2, 3)], -1)
-    x_in = ((xr >= 0) & (xr < w))[..., None]  # (V, Mh, Mw, 5, 1)
-    y_in = ((yr >= 0) & (yr < h))[..., None]
-    bl_d = levels * float(np.float32(s.bl_ratio))
-    valid_terms = pairs = 0
-    for gx in range(-s.neib_hor, s.neib_hor + 1):
-        for gy in range(-s.neib_ver, s.neib_ver + 1):
-            if gx == 0 and gy == 0:
-                continue
-            views = [z for z in range(v) if 0 <= z % s.array_width + gx < s.array_width
-                     and 0 <= z // s.array_width + gy < v // s.array_width]
-            if not views:
-                continue
-            pairs += len(views)
-            px = xr[views].to(torch.float32)[..., None] - levels * float(gx)  # (n, Mh, Mw, 5, D)
-            py = yr[views].to(torch.float32)[..., None] - bl_d * float(gy)
-            nx = (x_in[views] & (px > -1.0) & (px < w)).sum(3)  # (n, Mh, Mw, D)
-            ny = (y_in[views] & (py > -1.0) & (py < h)).sum(3)
-            valid_terms += int((nx * ny).sum())
-    terms = 25 * n_d * cells * pairs
-    ops = CV_OPS_VALID * valid_terms + (terms - valid_terms) + n_d * cells * pairs
-    return _bound(_nbytes(lab, centers, step, levels, out), ops)
-
-
-def _in_turns(kernel, plain, k_iters: int, p_iters: int) -> tuple[float, float]:
-    """Kernel and plain ms, each the mean of two windows: kernel, plain,
-    kernel, plain."""
-    k_ms, p_ms = [], []
-    for _ in range(2):
-        k_ms.append(_cuda_ms(kernel, k_iters))
-        p_ms.append(_cuda_ms(plain, p_iters))
-    return sum(k_ms) / 2, sum(p_ms) / 2
-
-
-def _depth_inputs(rgb, settings, device):
-    """Port stages up to the cost volume's inputs: (lab, centers, step)."""
-    import torch
-
-    from cl_multiview_stereo_tpu_torch import DerivedGeometry, SlicParams
-    from cl_multiview_stereo_tpu_torch.ops import slic, superpixel
-    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
-
-    v, h, w = rgb.shape[:3]
-    geom = DerivedGeometry.create(w, h, settings)
-    lab = rgb_to_lab(torch.as_tensor(rgb, device=device))
-    labels, spmap = slic.segment(lab, geom, SlicParams.create(settings))
-    extent = superpixel.superpixel_extent(labels, spmap.center, geom)
-    step = superpixel.extent_step(extent).contiguous()
-    return lab.contiguous(), spmap.center.contiguous(), step
+# phase 9's tools: seconds each may take, the timed runs of 9a, and 9c's
+# configuration (BASELINE's config 4, as tools/memcheck.py spells it) and
+# the exit code by which memcheck answers that it does not fit
+TOOL_TIMEOUT_S, BENCH_RUNS = 300, 5
+CONFIG4 = ["2048", "2048", "array_width=7", "array_height=7", "min_disp=0", "max_disp=255", "inc=1",
+           "--pair-layout", "view"]
+MEMCHECK_OOM_EXIT = 3
 
 
 def _scene(h: int, w: int):
@@ -256,57 +166,6 @@ def _scene(h: int, w: int):
     s = SystemSettings()
     rgb, _ = fronto_parallel_scene(h, w, 3, 3, disp=TRUE_DISP, bl_ratio=s.bl_ratio)
     return s, rgb
-
-
-def _sweep_args(s):
-    """The dense sweep's ladder and pairs for settings ``s``."""
-    from cl_multiview_stereo_tpu_torch import build_disp_levels, build_view_subsets
-    from cl_multiview_stereo_tpu_torch.models.plane_sweep import build_pairs
-
-    return build_disp_levels(s), build_pairs(*build_view_subsets(s), s.array_width)
-
-
-def _strips_scene(pipe, rgb, timer=None):
-    """The slice's stages with the strips consistency engine in the
-    propagation sweeps (composed as ``tools/probe_cons_strips.py``
-    composes the JAX stages).  Returns (refined state, disp_full)."""
-    import torch
-
-    from cl_multiview_stereo_tpu_torch import (
-        RefinementSchedule,
-        SlicParams,
-        build_disp_levels,
-        build_view_subsets,
-    )
-    from cl_multiview_stereo_tpu_torch.ops import cost_volume, fusion, refine, slic, superpixel
-    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
-    from cl_multiview_stereo_tpu_torch.utils.timing import maybe_stage
-
-    s, geom, dev = pipe.settings, pipe.geom, pipe.device
-    sched = RefinementSchedule.create(s)
-    subset, counts = build_view_subsets(s)
-    with maybe_stage(timer, "lab"):
-        lab = rgb_to_lab(torch.as_tensor(rgb, device=dev))
-    with maybe_stage(timer, "slic"):
-        labels, spmap = slic.segment(lab, geom, SlicParams.create(s))
-    with maybe_stage(timer, "extent"):
-        extent = superpixel.superpixel_extent(labels, spmap.center, geom)
-    with maybe_stage(timer, "depth_init"):
-        disp_init = cost_volume.initial_depth_estimation(
-            lab, spmap.center, extent, build_disp_levels(s), subset,
-            torch.as_tensor(counts, dtype=torch.int32, device=dev), s.array_width, s.bl_ratio,
-            method="strips", neib_hor=s.neib_hor, neib_ver=s.neib_ver,
-        )
-    with maybe_stage(timer, "context"):
-        flatness = refine.compute_flatness(spmap.color, sched.gamma_eff)
-        ctx = refine.make_context(spmap.center, spmap.color, disp_init, labels, extent, flatness)
-    state = refine.refine(
-        ctx, sched, pairs=refine.pairs_from_subsets(subset, s.array_width),
-        cons_engine="strips", timer=timer,
-    )
-    with maybe_stage(timer, "fusion"):
-        disp_full = fusion.fuse_views(labels, spmap.center, state.d, state.n)
-    return state, disp_full
 
 
 def phase_build() -> None:
@@ -351,6 +210,7 @@ def phase_kernel_vs_plain(card: str) -> dict:
         fronto_parallel_scene,
     )
     from cl_multiview_stereo_tpu_torch.ops import cost_volume
+    from cl_multiview_stereo_tpu_torch.tools.roofline import bound, cost_volume_work, depth_inputs, in_turns
 
     dev = torch.device("cuda")
     cases = [
@@ -362,7 +222,7 @@ def phase_kernel_vs_plain(card: str) -> dict:
     rec = {}
     for label, s, (h, w), disp in cases:
         rgb, _ = fronto_parallel_scene(h, w, s.array_width, s.array_height, disp=disp, bl_ratio=s.bl_ratio)
-        lab, centers, step = _depth_inputs(rgb, s, dev)
+        lab, centers, step = depth_inputs(rgb, s, dev)
         levels = torch.as_tensor(build_disp_levels(s), device=dev)
         args = (lab, centers, step, levels, s.array_width, s.bl_ratio, s.neib_hor, s.neib_ver)
         kern = cost_volume.superpixel_cost_volume(*args)
@@ -371,13 +231,13 @@ def phase_kernel_vs_plain(card: str) -> dict:
         if not torch.equal(kern, plain):
             bad = int((kern != plain).sum())
             raise AssertionError(f"cost_volume {label}: kernel and plain differ at {bad} outputs")
-        k, p = _in_turns(lambda: cost_volume.superpixel_cost_volume(*args),
-                         lambda: cost_volume.cost_volume_reference(*args), 10, 2)
-        bound, bound_by = _cost_volume_bound(lab, centers, step, levels, s, kern)
+        k, p = in_turns(lambda: cost_volume.superpixel_cost_volume(*args),
+                        lambda: cost_volume.cost_volume_reference(*args), 10, 2)
+        bound_ms, bound_by = bound(*cost_volume_work(lab, centers, step, levels, s, kern))
         print(f"[2] cost_volume {label}: shape {tuple(kern.shape)} bitwise equal, step max "
-              f"{step.max().item():.1f}, kernel {k:.3f} ms, bound {bound:.4g} ms ({bound_by}), "
+              f"{step.max().item():.1f}, kernel {k:.3f} ms, bound {bound_ms:.4g} ms ({bound_by}), "
               f"plain {p:.3f} ms ({card})")
-        rec[label] = dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=bound_by)
+        rec[label] = dict(ms=k, plain_ms=p, bound_ms=bound_ms, bound_by=bound_by)
     return rec["full 9x1080x1920"] | {"max_abs_err": 0.0}
 
 
@@ -386,9 +246,10 @@ def phase_sweep_vs_plain(card: str) -> dict:
     import torch
 
     from cl_multiview_stereo_tpu_torch import SystemSettings
-    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_reference
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_reference, sweep_args
     from cl_multiview_stereo_tpu_torch.ops import sweep
     from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+    from cl_multiview_stereo_tpu_torch.tools.roofline import bound, in_turns, sweep_work
 
     dev = torch.device("cuda")
     s_full, rgb = _scene(FULL_H, FULL_W)
@@ -397,14 +258,14 @@ def phase_sweep_vs_plain(card: str) -> dict:
     cases = [
         # the slice's scene, the reference ladder (31) and pairs (40)
         ("full 9x1080x1920 D31 P40", rgb_to_lab(torch.as_tensor(rgb, device=dev)).contiguous(),
-         *_sweep_args(s_full), s_full.bl_ratio),
+         *sweep_args(s_full), s_full.bl_ratio),
         # tools/roofline.py's case: 2 views, D = 64, horizontal pairs
         ("roofline 2x1080x1920 D64 P2",
          torch.as_tensor(rng.uniform(0, 100, (2, FULL_H, FULL_W, 3)).astype(np.float32), device=dev),
          [float(d) for d in range(4, 68)], ((0, 1, 1, 0), (1, 0, -1, 0)), 1.0),
         ("odd 9x53x131 D11 P40",
          torch.as_tensor(rng.uniform(0, 100, (9, 53, 131, 3)).astype(np.float32), device=dev),
-         *_sweep_args(odd), odd.bl_ratio),
+         *sweep_args(odd), odd.bl_ratio),
     ]
     rec = {}
     radius = 2
@@ -416,66 +277,23 @@ def phase_sweep_vs_plain(card: str) -> dict:
         if not (torch.equal(kd, pd) and torch.equal(kc, pc)):
             bad = int((kd != pd).sum() + (kc != pc).sum())
             raise AssertionError(f"sweep {label}: kernel and plain differ at {bad} outputs")
-        k, p = _in_turns(lambda: sweep.plane_sweep(*args), lambda: plane_sweep_reference(*args), 3, 1)
-        # per (pair, hypothesis, pixel) the SAD, the box sums and the min
-        # over pairs; per (view, hypothesis, pixel) the WTA compare
-        v, h, w = lab.shape[:3]
-        n_d = len(args[1])
-        ops = (len(pairs) * (SWEEP_OPS_SAD + 4 * radius + 1) + v) * n_d * h * w
-        tables = sweep.kernel_tables(args[1], pairs, bl, v)[0].nbytes
-        bound, bound_by = _bound(_nbytes(lab, kd, kc) + tables, ops)
-        print(f"[2] sweep {label}: bitwise equal, kernel {k:.3f} ms, bound {bound:.4g} ms "
+        k, p = in_turns(lambda: sweep.plane_sweep(*args), lambda: plane_sweep_reference(*args), 3, 1)
+        bound_ms, bound_by = bound(*sweep_work(*args))
+        print(f"[2] sweep {label}: bitwise equal, kernel {k:.3f} ms, bound {bound_ms:.4g} ms "
               f"({bound_by}), plain {p:.3f} ms ({card})")
-        rec[label] = dict(ms=k, plain_ms=p, bound_ms=bound, bound_by=bound_by)
+        rec[label] = dict(ms=k, plain_ms=p, bound_ms=bound_ms, bound_by=bound_by)
     return rec["full 9x1080x1920 D31 P40"] | {"max_abs_err": 0.0}
-
-
-def sweep0_calls() -> list:
-    """The strips engine's two calls of sweep 0 of the 9-view 1080p scene
-    (the update moves, then the refits), as (args, keywords)."""
-    from cl_multiview_stereo_tpu_torch import RefinementSchedule, build_view_subsets
-    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.ops import consistency, refine
-
-    s, rgb = _scene(FULL_H, FULL_W)
-    pipe = MVSPipeline.create(FULL_W, FULL_H, s, depth_method="strips", device="cuda")
-    art = pipe.run(rgb)
-    sched = RefinementSchedule.create(s)
-    ctx = refine.make_context(
-        art.spmap.center, art.spmap.color, art.disp_init, art.labels, art.extent, art.flatness
-    )
-    kw = dict(gamma=sched.gamma_eff, alpha=sched.alpha_eff, fuse=sched.fuse_eff,
-              bl_ratio=sched.bl_ratio,
-              pairs=refine.pairs_from_subsets(build_view_subsets(s)[0], s.array_width))
-    state0 = refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
-
-    # record the engine's calls of sweep 0 (the update moves, then the refits)
-    calls, engine = [], consistency.consistency_moves
-
-    def record(*a, **k):
-        calls.append((a, k))
-        return engine(*a, **k)
-
-    consistency.consistency_moves = record
-    try:
-        refine.propagate_iteration(
-            ctx, state0, 0, **kw, steps=sched.steps_per_iter[0],
-            step_size=sched.step_size_per_iter[0], cons_engine="strips",
-        )
-    finally:
-        consistency.consistency_moves = engine
-    if len(calls) != 2:
-        raise AssertionError(f"sweep 0 made {len(calls)} consistency calls, expected 2")
-    return calls
 
 
 def phase_consistency_vs_plain(card: str) -> dict:
     import torch
 
     from cl_multiview_stereo_tpu_torch.ops import consistency
+    from cl_multiview_stereo_tpu_torch.tools.roofline import bound, consistency_work, in_turns, sweep0_calls
 
+    s, rgb = _scene(FULL_H, FULL_W)
     errs, k_tot, p_tot, bound_tot, bound_by = [], 0.0, 0.0, 0.0, ""
-    for phase, (a, k) in zip(("update", "refit"), sweep0_calls()):
+    for phase, (a, k) in zip(("update", "refit"), sweep0_calls(s, rgb, "cuda")):
         kern = consistency.consistency_moves(*a, **k)
         plain = consistency.consistency_moves_reference(*a, **k)
         torch.cuda.synchronize()
@@ -484,25 +302,16 @@ def phase_consistency_vs_plain(card: str) -> dict:
         both = torch.isfinite(kern) & torch.isfinite(plain)
         err = (kern - plain).abs()[both].max().item()
         n_bad = int((~torch.isfinite(kern)).sum())
-        km, pm = _in_turns(lambda: consistency.consistency_moves(*a, **k),
-                           lambda: consistency.consistency_moves_reference(*a, **k), 10, 1)
-        # bytes: every input the kernel takes, once; operations: every
-        # (move, cell, pair, sample) term counted valid, at most what the
-        # data needs (the bytes bound it at these shapes all the same)
-        c_ctx, c_cache, d_c, n_c = a
-        m, v, mh, mw = d_c.shape
-        n_pairs = len(k["pairs"])
-        ops = m * mh * mw * 9 * (n_pairs * CONS_OPS_TERM + v * CONS_OPS_DIP)
-        n_bytes = _nbytes(c_ctx.center, c_ctx.color, c_ctx.samples, c_ctx.fl, c_cache.ras,
-                          d_c, n_c, kern) + 4 * (v + 1 + 3 * n_pairs)
-        bound, bound_by = _bound(n_bytes, ops)
+        km, pm = in_turns(lambda: consistency.consistency_moves(*a, **k),
+                          lambda: consistency.consistency_moves_reference(*a, **k), 10, 1)
+        bound_ms, bound_by = bound(*consistency_work(*a, k["pairs"]))
         print(f"[2] consistency sweep 0 {phase}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
-              f"non-finite {n_bad} kernel {km:.3f} ms, bound {bound:.4g} ms ({bound_by}), "
+              f"non-finite {n_bad} kernel {km:.3f} ms, bound {bound_ms:.4g} ms ({bound_by}), "
               f"plain {pm:.3f} ms ({card})")
         errs.append(err)
         k_tot += km
         p_tot += pm
-        bound_tot += bound
+        bound_tot += bound_ms
     print(f"[2] consistency per sweep (2 launches): kernel {k_tot:.3f} ms, bound {bound_tot:.4g} ms; "
           f"its first form took {CONS_FIRST_FORM_MS} ms on an NVIDIA H100 80GB HBM3, 700.00 W ({card})")
     # per sweep: both phases' calls
@@ -560,10 +369,11 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
     import torch
 
     from cl_multiview_stereo_tpu_torch.ops import consistency
+    from cl_multiview_stereo_tpu_torch.tools.profile_stages import profiled, strips_scene
     from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer
 
     t0 = time.perf_counter()
-    _strips_scene(pipe, rgb_dev)
+    strips_scene(pipe, rgb_dev)
     torch.cuda.synchronize()
     print(f"[3b] warm-up run {time.perf_counter() - t0:.3f} s ({card})")
 
@@ -573,7 +383,7 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
     for _ in range(2):
         timer = StageTimer()
         t0 = time.perf_counter()
-        state, disp_full = _strips_scene(pipe, rgb_dev, timer)
+        state, disp_full = strips_scene(pipe, rgb_dev, timer)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = consistency.LAUNCHES
@@ -592,44 +402,26 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
           f"peak {peak / 2**30:.3f} GiB; state.d vs gather (1e-3) {agree:.6f}; "
           f"launches {launches} ({card})")
     print("[3b] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
-    wall, device, by_name = _profiled(lambda: _strips_scene(pipe, rgb_dev))
+    prof = profiled(lambda: strips_scene(pipe, rgb_dev))
+    by_name = prof.device_ops
     cons_ms, cons_n = next(((ms, n) for name, (ms, n) in by_name.items() if "consistency_kernel" in name),
                            (0.0, 0))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
-    print(f"[3b] one strips scene under torch.profiler: wall {wall:.1f} ms, device {device:.1f} ms "
-          f"(busy {100 * device / wall:.1f} %); consistency kernel {cons_ms:.3f} ms in {cons_n} "
+    print(f"[3b] one strips scene under torch.profiler: wall {prof.wall_ms:.1f} ms, device "
+          f"{prof.device_ms:.1f} ms (busy {100 * prof.device_ms / prof.wall_ms:.1f} %); consistency kernel {cons_ms:.3f} ms in {cons_n} "
           f"launches; most device time: "
           + "; ".join(f"{name[:48]} {ms:.1f} ms" for name, (ms, _) in top) + f" ({card})")
     return launches
-
-
-def _profiled(fn) -> tuple[float, float, dict]:
-    """One ``fn()`` under torch.profiler: (wall ms, device ms, {name: (device
-    ms, count)}), the device time summed as the profiler's "Self CUDA time
-    total" sums it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    by_name = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
-    return wall, sum(ms for ms, _ in by_name.values()), by_name
 
 
 def phase_dense_sweep(card: str, lab, settings) -> int:
     import numpy as np
     import torch
 
-    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth, sweep_args
     from cl_multiview_stereo_tpu_torch.ops import sweep
 
-    ladder, pairs = _sweep_args(settings)
+    ladder, pairs = sweep_args(settings)
     lab = lab.contiguous()
     t0 = time.perf_counter()
     plane_sweep_depth(lab, ladder, pairs, settings.bl_ratio)
@@ -680,18 +472,19 @@ def phase_card_vs_cpu(card: str) -> None:
 
     from cl_multiview_stereo_tpu_torch import RefinementSchedule
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth, sweep_args
     from cl_multiview_stereo_tpu_torch.ops import fusion
+    from cl_multiview_stereo_tpu_torch.tools.profile_stages import strips_scene
 
     h, w = 270, 480
     s, rgb = _scene(h, w)
-    ladder, pairs = _sweep_args(s)
+    ladder, pairs = sweep_args(s)
     fields = ("labels", "disp_init", "disp_full")
     out, cpu_state = {}, {}
     for dev in ("cuda", "cpu"):
         pipe = MVSPipeline.create(w, h, s, depth_method="strips", device=dev)
         art = pipe.run(rgb)
-        _, strips_full = _strips_scene(pipe, rgb)
+        _, strips_full = strips_scene(pipe, rgb)
         disp, _ = plane_sweep_depth(art.lab.contiguous(), ladder, pairs, s.bl_ratio)
         out[dev] = {k: getattr(art, k).cpu().numpy() for k in fields}
         out[dev]["strips_full"] = strips_full.cpu().numpy()
@@ -739,20 +532,6 @@ def phase_card_vs_cpu(card: str) -> None:
             raise AssertionError("the card's output departs from the port's CPU path")
     if strips_full < FULL_CLOSE or sweep_disp < 0.999:
         raise AssertionError("the card's strips or sweep output departs from the port's CPU path")
-
-
-def _write_scene(root: str, rgb) -> str:
-    """The views as PNGs and a list file (the reference's data.txt format)."""
-    from PIL import Image
-
-    names = []
-    for i, im in enumerate(rgb):
-        names.append(f"view_{i}.png")
-        Image.fromarray(im).save(os.path.join(root, names[-1]))
-    lst = os.path.join(root, "data.txt")
-    with open(lst, "w") as f:
-        f.write("".join(n + "\n" for n in names))
-    return lst
 
 
 def _cli(argv: list[str], tag: str, lines: list | None = None) -> tuple[float, dict]:
@@ -828,6 +607,7 @@ def phase_cli(card: str, art3, root: str, lst: str) -> int:
     from cl_multiview_stereo_tpu_torch import build_disp_levels, build_view_subsets
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
     from cl_multiview_stereo_tpu_torch.ops import cost_volume
+    from cl_multiview_stereo_tpu_torch.tools.roofline import in_turns
 
     s, rgb = _scene(FULL_H, FULL_W)
     base = ["run", lst, "--device", "cuda", "--cross-check", "--checkpoint", "--ply"]
@@ -878,8 +658,8 @@ def phase_cli(card: str, art3, root: str, lst: str) -> int:
     agree = float((kern == gath).float().mean())
     if agree < 0.999:
         raise AssertionError(f"[5d] gather depth init agrees with the kernel's on only {agree:.6f}")
-    k_ms, g_ms = _in_turns(lambda: cost_volume.initial_depth_estimation(*args, method="dense"),
-                           lambda: cost_volume.initial_depth_estimation(*args, method="gather"), 5, 2)
+    k_ms, g_ms = in_turns(lambda: cost_volume.initial_depth_estimation(*args, method="dense"),
+                          lambda: cost_volume.initial_depth_estimation(*args, method="gather"), 5, 2)
     print(f"[5d] depth init at 9x{FULL_H}x{FULL_W}: kernel (dense) {k_ms:.3f} ms, gather form "
           f"{g_ms:.3f} ms, WTA agreement {agree:.6f} ({card})")
     return r["launches"]
@@ -1041,12 +821,13 @@ def phase_sharded(card: str, art, lst: str) -> dict:
     from cl_multiview_stereo_tpu_torch import RefinementSchedule, build_disp_levels, build_view_subsets
     from cl_multiview_stereo_tpu_torch.io.images import load_image_array
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth, sweep_args
     from cl_multiview_stereo_tpu_torch.models.sfm_pipeline import run_sfm
     from cl_multiview_stereo_tpu_torch.ops import cost_volume, refine, sweep
     from cl_multiview_stereo_tpu_torch.ops.superpixel import extent_step
     from cl_multiview_stereo_tpu_torch.parallel import initialize_distributed, make_mesh, spatial
     from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import run_sharded
+    from cl_multiview_stereo_tpu_torch.tools.roofline import bound, in_turns, sweep_work
 
     initialize_distributed(device="cuda")
     try:
@@ -1087,7 +868,7 @@ def phase_sharded(card: str, art, lst: str) -> dict:
               f"launches {launches['cost_volume']} ({card})")
 
         # 7b: row tiles
-        ladder, pairs = _sweep_args(s)
+        ladder, pairs = sweep_args(s)
         ladder = [float(d) for d in ladder]
         want_d, want_c = plane_sweep_depth(lab, ladder, pairs, s.bl_ratio)
         sweep.LAUNCHES = 0
@@ -1098,7 +879,6 @@ def phase_sharded(card: str, art, lst: str) -> dict:
             raise AssertionError("[7b] spatial_plane_sweep never launched the sweep kernel")
         _require_equal("[7b] spatial_plane_sweep disp", got_d, want_d)
         _require_equal("[7b] spatial_plane_sweep cost", got_c, want_c)
-        v = lab.shape[0]
         halo = spatial.sweep_halo(ladder, pairs, s.bl_ratio, 2)
         for n in (2, 4, 8):
             rows = FULL_H // n
@@ -1113,11 +893,9 @@ def phase_sharded(card: str, art, lst: str) -> dict:
         b0, b1 = t * rows - halo, (t + 1) * rows + halo
         band = lab[:, b0:b1].contiguous()
         win = sweep.RowWindow(FULL_H, b0, t * rows, rows)
-        tile_ms, full_ms = _in_turns(lambda: sweep.plane_sweep(band, ladder, pairs, s.bl_ratio, 2, win),
-                                     lambda: sweep.plane_sweep(lab, ladder, pairs, s.bl_ratio, 2), 5, 5)
-        ops = (len(pairs) * (SWEEP_OPS_SAD + 4 * 2 + 1) + v) * len(ladder) * rows * FULL_W
-        tables = sweep.kernel_tables(ladder, pairs, s.bl_ratio, v)[0].nbytes
-        tile_bound, tile_by = _bound(_nbytes(band) + 2 * 4 * v * rows * FULL_W + tables, ops)
+        tile_ms, full_ms = in_turns(lambda: sweep.plane_sweep(band, ladder, pairs, s.bl_ratio, 2, win),
+                                    lambda: sweep.plane_sweep(lab, ladder, pairs, s.bl_ratio, 2), 5, 5)
+        tile_bound, tile_by = bound(*sweep_work(band, ladder, pairs, s.bl_ratio, 2, rows))
         print(f"[7b] spatial_plane_sweep: bitwise equal to plane_sweep_depth; the row-window kernel "
               f"bitwise equal to the whole launch's rows on every tile of 2, 4 and 8 (halo {halo} rows); "
               f"tile 3 of 8 ({rows} rows from a band of {b1 - b0}): kernel {tile_ms:.3f} ms, bound "
@@ -1195,7 +973,7 @@ def gloo_worker(rank: int, init: str, out: str) -> None:
 
     from cl_multiview_stereo_tpu_torch import SystemSettings, fronto_parallel_scene
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth
+    from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth, sweep_args
     from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
     from cl_multiview_stereo_tpu_torch.parallel import make_mesh, spatial
     from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import run_sharded
@@ -1207,7 +985,7 @@ def gloo_worker(rank: int, init: str, out: str) -> None:
         rec = {"backend": dist.get_backend()}
         s9, rgb9 = _scene(FULL_H, FULL_W)
         lab = rgb_to_lab(torch.as_tensor(rgb9, device="cuda")).contiguous()
-        ladder, pairs = _sweep_args(s9)
+        ladder, pairs = sweep_args(s9)
         tile = init_device_mesh("cuda", (2,), mesh_dim_names=("tile",))
         want = plane_sweep_depth(lab, ladder, pairs, s9.bl_ratio)
         got = spatial.spatial_plane_sweep(lab, ladder, pairs, s9.bl_ratio, tile)
@@ -1288,27 +1066,21 @@ def _trace_counts(fn) -> dict:
     """One ``fn()`` under torch.profiler: its device kernels, the host's
     kernel and graph launch calls, pageable host-to-device copies and
     cost-volume kernels, with the device ms and the wall ms."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from cl_multiview_stereo_tpu_torch.tools.profile_stages import profiled
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    p = profiled(fn)
+    dev = {name: n for name, (_, n) in p.device_ops.items()}
     copies = ("Memcpy", "Memset")
     return dict(
-        kernels=sum(e.count for e in dev if not e.key.startswith(copies)),
-        launch_calls=sum(e.count for e in host if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
-        graph_launches=sum(e.count for e in host if e.key.startswith(("cudaGraphLaunch", "cuGraphLaunch"))),
-        pageable_htod=sum(e.count for e in dev if "HtoD" in e.key and "Pageable" in e.key),
-        cost_volume=sum(e.count for e in dev if "cost_volume_kernel" in e.key),
-        device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
-        wall_ms=wall,
+        kernels=sum(n for name, n in dev.items() if not name.startswith(copies)),
+        launch_calls=sum(n for name, n in p.host_calls.items()
+                         if name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")),
+        graph_launches=sum(n for name, n in p.host_calls.items()
+                           if name.startswith(("cudaGraphLaunch", "cuGraphLaunch"))),
+        pageable_htod=sum(n for name, n in dev.items() if "HtoD" in name and "Pageable" in name),
+        cost_volume=sum(n for name, n in dev.items() if "cost_volume_kernel" in name),
+        device_ms=p.device_ms,
+        wall_ms=p.wall_ms,
     )
 
 
@@ -1325,6 +1097,7 @@ def phase_stream(card: str, root: str, lst: str) -> int:
     from cl_multiview_stereo_tpu_torch.models import mvs_pipeline
     from cl_multiview_stereo_tpu_torch.native import build as native_build
     from cl_multiview_stereo_tpu_torch.ops import refine
+    from cl_multiview_stereo_tpu_torch.tools.bench import write_scene
 
     t_phase = time.perf_counter()
     # 8a: the native decode.  Only a missing g++ or missing headers may
@@ -1409,7 +1182,7 @@ def phase_stream(card: str, root: str, lst: str) -> int:
     # 8d: run_scenes over 4 scenes, against decode-then-run()
     root_b = os.path.join(root, "scene_b")
     os.makedirs(root_b)
-    lst_b = _write_scene(root_b, rgb_b)
+    lst_b = write_scene(root_b, rgb_b)
     order = [lst, lst_b, lst, lst_b]
     for p, rgb in ((lst, rgb_a), (lst_b, rgb_b)):
         if not np.array_equal(load_image_array(p, 9), rgb):
@@ -1455,6 +1228,64 @@ def phase_stream(card: str, root: str, lst: str) -> int:
     return launches
 
 
+def _tool(name: str, argv: list[str]) -> tuple[int, list[str], str, float]:
+    """``python -m cl_multiview_stereo_tpu_torch.tools.<name> argv`` from this
+    checkout: (exit code, stdout lines, stderr, seconds); killed after
+    TOOL_TIMEOUT_S."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"cl_multiview_stereo_tpu_torch.tools.{name}", *argv],
+                          capture_output=True, text=True, timeout=TOOL_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc.returncode, proc.stdout.strip().splitlines(), proc.stderr, time.perf_counter() - t0
+
+
+def phase_tools(card: str, phase2: dict) -> int:
+    """Phase 9: the measurement tools, each in its own process on the card
+    (this process's cached blocks released first).  ``phase2`` holds phase
+    2's record per kernel.  Returns 9a's cost-volume launches."""
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--cell", "slice", "--runs", str(BENCH_RUNS), "--profile"]
+    rc, out, err, dt = _tool("bench", argv)
+    if rc != 0:
+        raise AssertionError(f"[9a] bench exited {rc}:\n{err[-4000:]}")
+    rec = json.loads(out[-1])
+    launches = rec["launches"]["cost_volume"]
+    if (rec["metric"] != "depth_mp_per_s" or len(rec["runs_s"]) != BENCH_RUNS or rec["card"] != card
+            or launches < BENCH_RUNS):
+        raise AssertionError(f"[9a] bench: {rec}")
+    print(f"[9a] python -m cl_multiview_stereo_tpu_torch.tools.bench {' '.join(argv)} ({dt:.1f} s): "
+          f"{json.dumps(rec)}")
+
+    argv = ["--kernel", "all", "--shapes", "main"]
+    rc, out, err, dt = _tool("roofline", argv)
+    if rc != 0:
+        raise AssertionError(f"[9b] roofline exited {rc}:\n{err[-4000:]}")
+    recs = [json.loads(line) for line in out]
+    if [r["kernel"] for r in recs] != list(KERNELS):
+        raise AssertionError(f"[9b] roofline printed {recs}")
+    for r in recs:
+        print(f"[9b] python -m cl_multiview_stereo_tpu_torch.tools.roofline {' '.join(argv)}: {json.dumps(r)}")
+        if r["bound_ms"] != phase2[r["kernel"]]["bound_ms"] or r["card"] != card:
+            raise AssertionError(f"[9b] {r['kernel']}: bound {r['bound_ms']} ms, phase 2's "
+                                 f"{phase2[r['kernel']]['bound_ms']} ms")
+    print(f"[9b] each kernel's bound_ms equals phase 2's ({dt:.1f} s)")
+
+    rc, out, err, dt = _tool("memcheck", CONFIG4)
+    if rc not in (0, MEMCHECK_OOM_EXIT):
+        raise AssertionError(f"[9c] memcheck exited {rc}:\n{err[-4000:]}")
+    rec = json.loads(out[-1])
+    if rec["fits"] != (rc == 0):
+        raise AssertionError(f"[9c] memcheck exited {rc} with {rec}")
+    print(f"[9c] python -m cl_multiview_stereo_tpu_torch.tools.memcheck {' '.join(CONFIG4)}: exit {rc} "
+          f"({'fits' if rc == 0 else 'does not fit'}; {dt:.1f} s): {json.dumps(rec)}")
+    print(f"[9] phase 9 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1465,13 +1296,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     try:
-        from cl_multiview_stereo_tpu_torch.device import require_cuda
+        from cl_multiview_stereo_tpu_torch.device import card_name, require_cuda
+        from cl_multiview_stereo_tpu_torch.tools.bench import write_scene
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout of the repo ({e})", file=sys.stderr)
         return 1
 
     require_cuda()
-    card = _card()
+    card = card_name()
     print(f"[0] {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     phase_build()
@@ -1483,7 +1315,7 @@ def main() -> int:
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
     with tempfile.TemporaryDirectory() as root:
-        lst = _write_scene(root, _scene(FULL_H, FULL_W)[1])
+        lst = write_scene(root, _scene(FULL_H, FULL_W)[1])
         cv_launches = phase_cli(card, art, root, lst)
         # the cost-volume launches of each main path: 5a's CLI and 6c's run
         # --sfm, and of phase 7's sharded paths
@@ -1491,8 +1323,10 @@ def main() -> int:
         sharded = phase_sharded(card, art, lst)
         stream_launches = phase_stream(card, root, lst)
     phase_gloo_two_ranks(card)
-    # phase 8's graph replays launch the cost volume from the graph
-    cv_launches += sharded["cost_volume"] + stream_launches
+    del pipe, rgb_dev, art  # phase 9's tools each want the whole card
+    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons})
+    # phase 8's graph replays and 9a's launch the cost volume from the graph
+    cv_launches += sharded["cost_volume"] + stream_launches + bench_launches
     sw_launches += sharded["sweep"]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format

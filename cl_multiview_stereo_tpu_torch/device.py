@@ -6,6 +6,7 @@ back to the CPU."""
 from __future__ import annotations
 
 import functools
+import subprocess
 
 import numpy as np
 import torch
@@ -18,6 +19,17 @@ def require_cuda() -> torch.device:
             "a CUDA device is required, but torch.cuda.is_available() is False"
         )
     return torch.device("cuda")
+
+
+def card_name() -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, the
+    string every chip number of the port is written beside."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 @functools.lru_cache(maxsize=1024)

@@ -22,6 +22,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from cl_multiview_stereo_tpu_torch.config import build_disp_levels, build_view_subsets
 from cl_multiview_stereo_tpu_torch.ops import sweep
 
 _OOB_PENALTY = 30.0
@@ -41,6 +42,12 @@ def build_pairs(view_subset, subset_num, array_width: int) -> tuple[tuple[int, i
             dvy = view // array_width - z // array_width
             pairs.append((z, view, dvx, dvy))
     return tuple(pairs)
+
+
+def sweep_args(settings) -> tuple[np.ndarray, tuple[tuple[int, int, int, int], ...]]:
+    """The dense sweep's ladder and pairs for ``settings``: the config's
+    disparity levels and its view subsets as pairs."""
+    return build_disp_levels(settings), build_pairs(*build_view_subsets(settings), settings.array_width)
 
 
 def _ladder(disp_levels) -> tuple[float, ...]:

@@ -4,7 +4,9 @@ A :class:`StageTimer` records an event pair around each stage on the
 current stream; nothing synchronises until :meth:`StageTimer.ms` reads the
 times, so timing does not change how the stages overlap with the host.
 Host-only stages (``host=True``) are timed on the host clock instead, into
-:attr:`StageTimer.host_s`.
+:attr:`StageTimer.host_s`.  Every stage is also a
+``torch.profiler.record_function`` range of its name, by which
+``tools/profile_stages`` names the device's idle gaps.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ class StageTimer:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         try:
-            yield
+            with torch.profiler.record_function(name):
+                yield
         finally:
             end.record()
             self._events.append((name, start, end))
@@ -50,7 +53,8 @@ class StageTimer:
         """Host seconds of a stage that runs no device work (summed per name)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with torch.profiler.record_function(name):
+                yield
         finally:
             self.host_s[name] = self.host_s.get(name, 0.0) + time.perf_counter() - t0
 
