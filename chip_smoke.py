@@ -94,7 +94,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``tools.roofline --kernel all --shapes main``, each kernel's bound equal
    to phase 2's; 9c ``tools.memcheck`` at BASELINE's config 4 (49 views of
    2048x2048, 256 hypotheses, the view pair layout), which exits 0 when it
-   fits and 3 when the allocator refuses a request.
+   fits and 3 when the allocator refuses a request;
+10. the tools ported last, each in its own process: 10a
+   ``tools.profile_propagate --engine both`` at 9x1080x1920 (each
+   component of sweep 0 under both engines with its ms, launches and share
+   of the sweep, and the gather-rate ladder with each entry's bound), its
+   total's state bitwise a plain ``refine.propagate_iteration`` call here
+   on the same initial state; 10b ``tools.scaling_sweep --device cuda --n
+   1`` (NCCL, one card: no scaling efficiency), every rank bitwise the
+   unsharded run; 10c ``tools.memcheck --sharded 1`` at the slice's shape.
 
 The kernels' bound counts, the card query, the profiler helper and the
 strips composition are the package's (``tools/roofline``,
@@ -158,6 +166,8 @@ TOOL_TIMEOUT_S, BENCH_RUNS = 300, 5
 CONFIG4 = ["2048", "2048", "array_width=7", "array_height=7", "min_disp=0", "max_disp=255", "inc=1",
            "--pair-layout", "view"]
 MEMCHECK_OOM_EXIT = 3
+# phase 10b: the scaling sweep's largest rank count on the one card
+SWEEP_N = 1
 
 
 def _scene(h: int, w: int):
@@ -1286,6 +1296,83 @@ def phase_tools(card: str, phase2: dict) -> int:
     return launches
 
 
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def phase_propagate_tools(card: str) -> None:
+    """Phase 10: the propagate profile, the scaling sweep and memcheck
+    --sharded, each in its own process on the card."""
+    import numpy as np
+    import torch
+
+    from cl_multiview_stereo_tpu_torch import SystemSettings
+    from cl_multiview_stereo_tpu_torch.ops import refine
+    from cl_multiview_stereo_tpu_torch.tools import profile_propagate
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "state.npz")
+        argv = ["--engine", "both", "--save", npz]
+        rc, out, err, dt = _tool("profile_propagate", argv)
+        if rc != 0:
+            raise AssertionError(f"[10a] profile_propagate exited {rc}:\n{err[-4000:]}")
+        for line in out[:-1]:
+            print(f"[10a] {line}")
+        rec = json.loads(out[-1])
+        comps = rec["components"]
+        if list(comps) != list(profile_propagate.ENGINES) or rec["card"] != card:
+            raise AssertionError(f"[10a] profile_propagate: {rec}")
+        for engine, named in comps.items():
+            for name, c in named.items():
+                if not (c["ms"] > 0 and c["launches"] > 0):
+                    raise AssertionError(f"[10a] {engine} {name}: {c}")
+        for name, e in rec["ladder"].items():
+            if not (e["ms"] > 0 and e["bound_ms"] > 0):
+                raise AssertionError(f"[10a] ladder {name}: {e}")
+        print(f"[10a] python -m cl_multiview_stereo_tpu_torch.tools.profile_propagate {' '.join(argv[:2])} "
+              f"({dt:.1f} s): {len(comps)} engines x {len(comps['gather'])} components and "
+              f"{len(rec['ladder'])} ladder entries, each timed ({rec['card']})")
+        sw = profile_propagate.setup(SystemSettings(), FULL_H, FULL_W, "cuda")
+        sched = sw.sched
+        with np.load(npz) as z:
+            for engine in profile_propagate.ENGINES:
+                want = refine.propagate_iteration(
+                    sw.ctx, sw.state, 0, **sw.kw, steps=sched.steps_per_iter[0],
+                    step_size=sched.step_size_per_iter[0], cons_engine=engine)
+                for f in refine.RefineState._fields:
+                    if not _same_bits(z[f"{engine}_{f}"], getattr(want, f).cpu().numpy()):
+                        raise AssertionError(f"[10a] {engine}: the tool's state.{f} is not propagate_iteration's")
+        del sw, want
+    print(f"[10a] the tool's propagate_iteration[0] state is bitwise a plain refine.propagate_iteration call "
+          f"on the same initial state, gather and strips ({card})")
+
+    argv = ["--device", "cuda", "--n", str(SWEEP_N)]
+    rc, out, err, dt = _tool("scaling_sweep", argv)
+    if rc != 0:
+        raise AssertionError(f"[10b] scaling_sweep exited {rc}:\n{err[-4000:]}")
+    res = json.loads(out[-1])
+    if [r["devices"] for r in res] != [SWEEP_N] or not all(r["bitwise"] and r["backend"] == "nccl" for r in res):
+        raise AssertionError(f"[10b] scaling_sweep: {res}")
+    for line in out[:-1]:
+        print(f"[10b] {line}")
+    print(f"[10b] python -m cl_multiview_stereo_tpu_torch.tools.scaling_sweep {' '.join(argv)} ({dt:.1f} s): "
+          f"{json.dumps(res)}")
+
+    argv = ["--sharded", "1"]
+    rc, out, err, dt = _tool("memcheck", argv)
+    if rc != 0:
+        raise AssertionError(f"[10c] memcheck exited {rc}:\n{err[-4000:]}")
+    rec = json.loads(out[-1])
+    if not (rec["fits"] and rec["sharded"] == 1 and rec["backend"] == "nccl" and rec["card"] == card):
+        raise AssertionError(f"[10c] memcheck: {rec}")
+    print(f"[10c] python -m cl_multiview_stereo_tpu_torch.tools.memcheck {' '.join(argv)} ({dt:.1f} s): "
+          f"{json.dumps(rec)}")
+    print(f"[10] phase 10 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -1325,6 +1412,7 @@ def main() -> int:
     phase_gloo_two_ranks(card)
     del pipe, rgb_dev, art  # phase 9's tools each want the whole card
     bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons})
+    phase_propagate_tools(card)
     # phase 8's graph replays and 9a's launch the cost volume from the graph
     cv_launches += sharded["cost_volume"] + stream_launches + bench_launches
     sw_launches += sharded["sweep"]

@@ -7,6 +7,8 @@ owns one device.  A process group must be up first
 
 from __future__ import annotations
 
+import math
+
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
@@ -37,9 +39,30 @@ def replicated(mesh: DeviceMesh) -> tuple:
     return (Replicate(),) * mesh.ndim
 
 
-def axis_of(mesh: DeviceMesh, axis: str) -> tuple[dist.ProcessGroup, int, int]:
-    """(process group, this rank's index, size) of mesh axis ``axis``."""
-    if axis not in (mesh.mesh_dim_names or ()):
-        raise ValueError(f"mesh has no axis {axis!r}: {mesh.mesh_dim_names}")
-    dim = mesh.mesh_dim_names.index(axis)
-    return mesh.get_group(axis), mesh.get_local_rank(axis), mesh.size(dim)
+def axis_of(mesh: DeviceMesh, axis: str | tuple[str, ...]) -> tuple[dist.ProcessGroup, int, int]:
+    """(process group, this rank's index, size) of mesh axis ``axis``, or
+    of several axes flattened in the order named (JAX's ``P(("host",
+    "view"))``): the ranks that share this rank's coordinates on the other
+    axes, the first named axis major.  The names must follow the mesh's own
+    order, so that the flattened index is the rank's index in the group.
+    A tuple of two or more names builds its groups with
+    ``new_subgroups_by_enumeration``, a collective: every rank of the world
+    calls it together."""
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in names:
+        if a not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"mesh has no axis {a!r}: {mesh.mesh_dim_names}")
+    dims = [mesh.mesh_dim_names.index(a) for a in names]
+    if len(dims) == 1:
+        return mesh.get_group(names[0]), mesh.get_local_rank(names[0]), mesh.size(dims[0])
+    if dims != sorted(set(dims)):
+        raise ValueError(f"axes {names} must be distinct and in the mesh's order {mesh.mesh_dim_names}")
+    others = [d for d in range(mesh.ndim) if d not in dims]
+    size = math.prod(mesh.size(d) for d in dims)
+    rows = mesh.mesh.permute(*others, *dims).reshape(-1, size).tolist()
+    group, _ = dist.new_subgroups_by_enumeration(rows)
+    me = dist.get_rank()
+    row = next(r for r in rows if me in r)
+    if row != sorted(row):
+        raise ValueError(f"the flattened axes {names} order the ranks {row}, not ascending")
+    return group, row.index(me), size

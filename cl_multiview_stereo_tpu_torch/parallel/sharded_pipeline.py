@@ -115,12 +115,13 @@ def run_views(pipe: MVSPipeline, rgb, t: int, n: int, gather) -> torch.Tensor:
     return gather(disp_own)
 
 
-def sharded_pipeline_fn(pipe: MVSPipeline, mesh):
+def sharded_pipeline_fn(pipe: MVSPipeline, mesh, axis: str | tuple[str, ...] = "view"):
     """A function (V, H, W, 3) uint8 -> (V, H, W) float32 disparity that
-    runs ``pipe`` with the views sharded over ``mesh``'s ``view`` axis.
-    Every rank passes the whole batch and gets the whole map; ``V`` must be
-    a multiple of the axis size."""
-    group, t, n = axis_of(mesh, "view")
+    runs ``pipe`` with the views sharded over ``mesh``'s axis ``axis``, or
+    over several axes flattened (``("host", "view")``, JAX's ``P(("host",
+    "view"))``; see ``mesh.axis_of``).  Every rank passes the whole batch
+    and gets the whole map; ``V`` must be a multiple of the axis size."""
+    group, t, n = axis_of(mesh, axis)
     return partial(run_views, pipe, t=t, n=n, gather=partial(all_gather_cat, group=group, n=n, dim=0))
 
 

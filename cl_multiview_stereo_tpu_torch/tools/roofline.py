@@ -8,6 +8,8 @@ Each kernel has one work function that counts (bytes, operations) from its
 real inputs: :func:`cost_volume_work`, :func:`sweep_work` and
 :func:`consistency_work`.  ``chip_smoke.py`` and this tool both use them,
 so a kernel's roofline share reads the same work whatever implements it.
+:func:`gather_work` counts the row gathers of ``tools.profile_propagate``'s
+gather-rate ladder the same way.
 
 Usage:
 
@@ -50,6 +52,8 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # sums, each exp counted as one) and its plane disparity per (move, cell,
 # sample) 8
 CV_OPS_VALID, SWEEP_OPS_SAD, CONS_OPS_TERM, CONS_OPS_DIP = 9, 8, 36, 8
+# the bytes of one device memory sector, the unit a gather reads rows in
+SECTOR = 32
 # CUDA-event iterations of (kernel, plain twin) in each of the two turns
 ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1)}
 KERNELS = tuple(ITERS)
@@ -139,6 +143,21 @@ def consistency_work(ctx, cache, d_c, n_c, pairs) -> tuple[int, int]:
     return n_bytes + 4 * (v + 1 + 3 * len(pairs)), ops
 
 
+def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, int]:
+    """(bytes, operations) of a row gather ``out`` from a contiguous table
+    of ``n_rows`` rows of ``row_bytes`` each (``tools.profile_propagate``'s
+    ladder): the rows that ``rows`` (flat row ids) reads, in the distinct
+    SECTOR-byte sectors that hold them, each read once; the index tensors
+    ``indices`` read once; the output written once.  No arithmetic."""
+    first = rows * row_bytes // SECTOR
+    last = (rows * row_bytes + row_bytes - 1) // SECTOR
+    touched = torch.zeros(-(-n_rows * row_bytes // SECTOR), dtype=torch.bool, device=rows.device)
+    for k in range(-(-row_bytes // SECTOR) + 1):  # the most sectors a row can span
+        sector = first + k
+        touched[sector[sector <= last]] = True
+    return SECTOR * int(touched.sum()) + nbytes(*indices, out), 0
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls."""
     start = torch.cuda.Event(enable_timing=True)
@@ -176,17 +195,16 @@ def depth_inputs(rgb, settings, device):
     return lab.contiguous(), spmap.center.contiguous(), step
 
 
-def sweep0_calls(settings, rgb, device) -> list:
-    """The strips engine's two calls of sweep 0 on scene ``rgb`` (the update
-    moves, then the refits), as (args, keywords)."""
+def sweep0_state(settings, rgb, device):
+    """The slice's stages on scene ``rgb`` up to the refinement's initial
+    state: (context, initial state, the scoring keywords, the schedule)."""
     from cl_multiview_stereo_tpu_torch.config import RefinementSchedule, build_view_subsets
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.ops import consistency, refine
+    from cl_multiview_stereo_tpu_torch.ops import refine
 
     s = settings
     h, w = rgb.shape[1:3]
-    pipe = MVSPipeline.create(w, h, s, depth_method="strips", device=device)
-    art = pipe.run(rgb)
+    art = MVSPipeline.create(w, h, s, device=device).run(rgb)
     sched = RefinementSchedule.create(s)
     ctx = refine.make_context(
         art.spmap.center, art.spmap.color, art.disp_init, art.labels, art.extent, art.flatness
@@ -195,6 +213,15 @@ def sweep0_calls(settings, rgb, device) -> list:
               bl_ratio=sched.bl_ratio,
               pairs=refine.pairs_from_subsets(build_view_subsets(s)[0], s.array_width))
     state0 = refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
+    return ctx, state0, kw, sched
+
+
+def sweep0_calls(settings, rgb, device) -> list:
+    """The strips engine's two calls of sweep 0 on scene ``rgb`` (the update
+    moves, then the refits), as (args, keywords)."""
+    from cl_multiview_stereo_tpu_torch.ops import consistency, refine
+
+    ctx, state0, kw, sched = sweep0_state(settings, rgb, device)
 
     # record the engine's calls of sweep 0 (the update moves, then the refits)
     calls, engine = [], consistency.consistency_moves

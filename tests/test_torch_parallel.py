@@ -328,6 +328,20 @@ def test_world1_meshes_and_placements(world1, monkeypatch):
         distributed.make_host_view_mesh(2, device_type="cpu")
 
 
+def test_world1_axis_of_flattened(world1, monkeypatch):
+    """``axis_of`` over several axes: the flattened group, index and size;
+    names out of the mesh's order or unknown are refused."""
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    hv = distributed.make_host_view_mesh(device_type="cpu")
+    group, t_idx, size = mesh.axis_of(hv, ("host", "view"))
+    assert (t_idx, size) == (0, 1) and dist.get_world_size(group) == 1
+    assert mesh.axis_of(hv, ("view",))[1:] == mesh.axis_of(hv, "view")[1:] == (0, 1)
+    with pytest.raises(ValueError, match="in the mesh's order"):
+        mesh.axis_of(hv, ("view", "host"))
+    with pytest.raises(ValueError, match="no axis 'disp'"):
+        mesh.axis_of(hv, ("host", "disp"))
+
+
 def test_world1_collectives_are_the_unsharded_functions(world1, scene, port):
     """At world size 1 the collective layer runs on the real backend and
     gives the unsharded results."""

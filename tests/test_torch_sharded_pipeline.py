@@ -8,7 +8,8 @@ views).
 rank given the whole batch: with both pair layouts, with ``cross_check``,
 with the gather depth init, and over the view axis of the ``(host, view)``
 mesh that ``make_host_view_mesh`` builds with two ranks a host, ``(2, 2)``
-at world size 4 (the port's form of tests/test_multihost.py).  Every
+at world size 4, and over both of its axes flattened (the port's form of
+tests/test_multihost.py).  Every
 rank's ``disp_full`` is held bitwise to the unsharded run's, and to JAX's
 sharded run (4 virtual CPU devices) at tests/test_torch_pipeline.py's
 bound.  The view-range pieces that each rank runs are held against the
@@ -103,6 +104,20 @@ def test_host_view_mesh(runs, unsharded):
         np.testing.assert_array_equal(outs[r]["host_view_shape"], [world // 2, 2])
         np.testing.assert_array_equal(outs[r]["host_view_ranks"], np.arange(world).reshape(-1, 2))
         np.testing.assert_array_equal(outs[r]["host_view"], want, err_msg=f"rank {r}")
+
+
+def test_host_view_flattened(runs, unsharded, jax_sharded):
+    """The views sharded over both axes of that mesh, flattened host major
+    (tests/multihost_worker.py's ``P(("host", "view"))``): rank r is index
+    r of the world, every rank's ``disp_full`` is bitwise the unsharded
+    run's and within the JAX worker's bound (rtol = atol = 1e-5) of JAX's
+    sharded run."""
+    world, outs = runs
+    want = n(unsharded["packed"].disp_full)
+    for r in range(world):
+        np.testing.assert_array_equal(outs[r]["host_view_flat_index"], [r, world])
+        np.testing.assert_array_equal(outs[r]["host_view_flat"], want, err_msg=f"rank {r}")
+        np.testing.assert_allclose(outs[r]["host_view_flat"], jax_sharded["packed"], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_ranks", [2, 4, 8])

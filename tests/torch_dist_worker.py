@@ -117,10 +117,12 @@ def job_spatial(inputs, rank, world) -> dict:
 def job_pipeline(inputs, rank, world) -> dict:
     """run_sharded on tests/test_sharded_pipeline.py's scene: each pipeline
     configuration over a ``make_mesh`` view axis, and over the view axis of
-    a ``(host, view)`` mesh of hosts of two ranks."""
+    a ``(host, view)`` mesh of hosts of two ranks and over both of its axes
+    flattened (tests/multihost_worker.py's ``P(("host", "view"))``)."""
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
     from cl_multiview_stereo_tpu_torch.parallel import make_host_view_mesh, make_mesh
-    from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import run_sharded
+    from cl_multiview_stereo_tpu_torch.parallel.mesh import axis_of
+    from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import run_sharded, sharded_pipeline_fn
 
     s = _settings(inputs)
     rgb = inputs["rgb"]
@@ -136,6 +138,10 @@ def job_pipeline(inputs, rank, world) -> dict:
     out["host_view_shape"] = np.asarray(hv.mesh.shape)
     out["host_view_ranks"] = hv.mesh.numpy()
     out["host_view"] = run_sharded(MVSPipeline.create(w, h, s, device="cpu"), rgb, hv).numpy()
+    _, t, n = axis_of(hv, ("host", "view"))
+    out["host_view_flat_index"] = np.asarray([t, n])
+    flat = sharded_pipeline_fn(MVSPipeline.create(w, h, s, device="cpu"), hv, axis=("host", "view"))
+    out["host_view_flat"] = flat(rgb).numpy()
     return out
 
 
