@@ -17,13 +17,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bitwise, at the full 9-view 1080p size, one odd small shape and 9x543x967
    with 16-pixel superpixels (ragged tiles, sample steps up to 7); the
    dense sweep, bitwise, at 9x1080x1920 (31 hypotheses, 40 pairs),
-   2x1080x1920 (64 hypotheses, horizontal pairs) and 9x53x131; the strips
-   consistency kernel on the update and refit candidates of sweep 0 of the
-   9-view 1080p scene;
+   2x1080x1920 (64 hypotheses, horizontal pairs) and 9x53x131; the
+   consistency kernel, NaN at the same places as its twin, on the 9-view
+   1080p scene's launches: under the gather rule the init state's (M = 1)
+   and sweep 0's update and refit phases (M = 8), under the strips rule
+   the strips engine's two, and the sharded paths' modes on sweep 0's
+   update phase: the row window of tile 1 of 3 with the "auto" halo and
+   views 3..5 with their own pairs against the whole table (bitwise the
+   whole launch's rows);
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
-   per-stage device times, MP/s and peak memory;
+   per-stage device times, MP/s and peak memory; each run must launch the
+   consistency kernel 1 + 2 x 5 = 11 times (the gather engine on the card);
 3b. the same stages with the strips consistency engine
    (``refine.refine(cons_engine="strips")``): timed the same way, and its
    refined disparity held against phase 3's gather engine;
@@ -76,8 +82,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. host streaming and the one-program forward: 8a phase 5's PNGs decoded
    by the native loader (``io/native_loader``, g++ built from this
    checkout) bitwise the PIL loader, both timed, and the decode backend;
-   8b ``MVSPipeline.jitted()`` (one CUDA graph of ``run``) at 9x1080x1920
-   with the default knobs: its capture timed, scene A and a second scene B
+   8b ``MVSPipeline.jitted()`` (one CUDA graph of ``run``, the cost-volume
+   and consistency kernels inside it) at 9x1080x1920 with the default
+   knobs: its capture timed, scene A and a second scene B
    (another disparity and seed) bitwise ``run()`` on every artifact, the
    best of two replays against the best of two eager runs, peak memory,
    and one replay and one eager run under ``torch.profiler`` (device
@@ -94,11 +101,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``tools.roofline --kernel all --shapes main``, each kernel's bound equal
    to phase 2's; 9c ``tools.memcheck`` at BASELINE's config 4 (49 views of
    2048x2048, 256 hypotheses, the view pair layout), which exits 0 when it
-   fits and 3 when the allocator refuses a request;
+   fits and 3 when the allocator refuses a request; 9a's replays must
+   launch the cost volume once and the consistency kernel 11 times each;
 10. the tools ported last, each in its own process: 10a
    ``tools.profile_propagate --engine both`` at 9x1080x1920 (each
    component of sweep 0 under both engines with its ms, launches and share
-   of the sweep, and the gather-rate ladder with each entry's bound), its
+   of the sweep, the gather engine's sweep also with its plain form,
+   ``consistency_from_cache`` per batch, and the gather-rate ladder with
+   each entry's bound), its
    total's state bitwise a plain ``refine.propagate_iteration`` call here
    on the same initial state; 10b ``tools.scaling_sweep --device cuda --n
    1`` (NCCL, one card: no scaling efficiency), every rank bitwise the
@@ -295,37 +305,96 @@ def phase_sweep_vs_plain(card: str) -> dict:
     return rec["full 9x1080x1920 D31 P40"] | {"max_abs_err": 0.0}
 
 
-def phase_consistency_vs_plain(card: str) -> dict:
+def _cons_check(tag: str, kern, plain, k_fn, p_fn, work, card: str) -> dict:
+    """One consistency launch against its plain twin on the same inputs:
+    NaN at the same places, the rest within CONS_RTOL/CONS_ATOL; both
+    timed in turns, the bound beside them."""
     import torch
 
-    from cl_multiview_stereo_tpu_torch.ops import consistency
-    from cl_multiview_stereo_tpu_torch.tools.roofline import bound, consistency_work, in_turns, sweep0_calls
+    from cl_multiview_stereo_tpu_torch.tools.roofline import bound, in_turns
+
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isnan(kern), torch.isnan(plain)):
+        raise AssertionError(f"consistency {tag}: kernel and plain are NaN at different places")
+    if not torch.allclose(kern, plain, rtol=CONS_RTOL, atol=CONS_ATOL, equal_nan=True):
+        raise AssertionError(f"consistency {tag}: kernel and plain disagree")
+    both = torch.isfinite(kern) & torch.isfinite(plain)
+    err = (kern - plain).abs()[both].max().item()
+    km, pm = in_turns(k_fn, p_fn, 10, 1)
+    bound_ms, bound_by = bound(*work)
+    print(f"[2] consistency {tag}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
+          f"NaN {int(torch.isnan(kern).sum())} kernel {km:.3f} ms, bound {bound_ms:.4g} ms ({bound_by}), "
+          f"plain {pm:.3f} ms ({card})")
+    return dict(max_abs_err=err, ms=km, plain_ms=pm, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_consistency_vs_plain(card: str) -> dict:
+    """The consistency kernel against its plain twin at the slice's size:
+    the gather rule on the main path's launches (the init state's, M = 1,
+    and sweep 0's update and refit phases, M = 8), the strips rule on the
+    strips engine's, the row window of a tile of 3 (``spatial``'s
+    "auto" halo) and a block of 3 views against the whole table.  Returns
+    the main path's record: sweep 0's two gather launches."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch import RefinementSchedule
+    from cl_multiview_stereo_tpu_torch.ops import consistency, refine
+    from cl_multiview_stereo_tpu_torch.parallel import spatial
+    from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import own_pairs
+    from cl_multiview_stereo_tpu_torch.tools.roofline import consistency_work, refine_calls
 
     s, rgb = _scene(FULL_H, FULL_W)
-    errs, k_tot, p_tot, bound_tot, bound_by = [], 0.0, 0.0, 0.0, ""
-    for phase, (a, k) in zip(("update", "refit"), sweep0_calls(s, rgb, "cuda")):
-        kern = consistency.consistency_moves(*a, **k)
-        plain = consistency.consistency_moves_reference(*a, **k)
-        torch.cuda.synchronize()
-        if not torch.allclose(kern, plain, rtol=CONS_RTOL, atol=CONS_ATOL, equal_nan=True):
-            raise AssertionError(f"consistency {phase}: kernel and plain disagree")
-        both = torch.isfinite(kern) & torch.isfinite(plain)
-        err = (kern - plain).abs()[both].max().item()
-        n_bad = int((~torch.isfinite(kern)).sum())
-        km, pm = in_turns(lambda: consistency.consistency_moves(*a, **k),
-                          lambda: consistency.consistency_moves_reference(*a, **k), 10, 1)
-        bound_ms, bound_by = bound(*consistency_work(*a, k["pairs"]))
-        print(f"[2] consistency sweep 0 {phase}: shape {tuple(kern.shape)} max_abs_err {err:.3e} "
-              f"non-finite {n_bad} kernel {km:.3f} ms, bound {bound_ms:.4g} ms ({bound_by}), "
-              f"plain {pm:.3f} ms ({card})")
-        errs.append(err)
-        k_tot += km
-        p_tot += pm
-        bound_tot += bound_ms
-    print(f"[2] consistency per sweep (2 launches): kernel {k_tot:.3f} ms, bound {bound_tot:.4g} ms; "
-          f"its first form took {CONS_FIRST_FORM_MS} ms on an NVIDIA H100 80GB HBM3, 700.00 W ({card})")
-    # per sweep: both phases' calls
-    return dict(max_abs_err=max(errs), ms=k_tot, plain_ms=p_tot, bound_ms=bound_tot, bound_by=bound_by)
+    recs = {}
+    for engine in ("strips", "gather"):
+        calls = refine_calls(s, rgb, "cuda", engine)
+        for phase, (a, k) in calls.items():
+            if engine == "strips" and phase == "init":
+                continue  # the init state is the gather rule's under every engine
+            tag = f"{engine} rule, {phase} (M = {a[2].shape[0]})"
+            recs[(engine, phase)] = _cons_check(
+                tag, consistency.consistency_moves(*a, **k), consistency.consistency_moves_reference(*a, **k),
+                lambda a=a, k=k: consistency.consistency_moves(*a, **k),
+                lambda a=a, k=k: consistency.consistency_moves_reference(*a, **k),
+                consistency_work(*a, k["pairs"]), card)
+    per = {e: {f: sum(recs[(e, p)][f] for p in ("update", "refit")) for f in ("ms", "plain_ms", "bound_ms")}
+           for e in ("strips", "gather")}
+    print(f"[2] consistency per sweep (2 launches): gather rule kernel {per['gather']['ms']:.3f} ms, strips rule "
+          f"{per['strips']['ms']:.3f} ms, bound {per['gather']['bound_ms']:.4g} ms; its first form took "
+          f"{CONS_FIRST_FORM_MS} ms on an NVIDIA H100 80GB HBM3, 700.00 W ({card})")
+
+    # the sharded paths' launch modes on sweep 0's gather update call
+    (ctx, cache, d_c, n_c), k = calls["update"]
+    sched = RefinementSchedule.create(s)
+    n_tiles, t = 3, 1
+    v, h, w = ctx.labels.shape
+    bh, bhp = ctx.center.shape[1] // n_tiles, h // n_tiles
+    halo = spatial.refine_halo(ctx, sched, k["pairs"], "auto")
+    row_lo, rows = t * bhp - halo, bhp + 2 * halo
+    if row_lo < 0 or row_lo + rows > h:
+        raise AssertionError(f"consistency: a halo of {halo} rows leaves the image from tile {t} of {n_tiles}")
+    win = cache.ras.view(v, h, w, 4)[:, row_lo:row_lo + rows].contiguous().view(-1, 4)
+    blk = spatial.block_context(ctx, t, n_tiles)
+    a = (blk, cache._replace(ras=win), *(x[:, :, t * bh:(t + 1) * bh].contiguous() for x in (d_c, n_c)))
+    kw = dict(k, img_hw=(h, w), ras_rows=(row_lo, rows))
+    recs["window"] = _cons_check(
+        f"gather rule, row window of tile {t} of {n_tiles} (halo {halo} rows)",
+        consistency.consistency_moves(*a, **kw), consistency.consistency_moves_reference(*a, **kw),
+        lambda: consistency.consistency_moves(*a, **kw), lambda: consistency.consistency_moves_reference(*a, **kw),
+        consistency_work(*a, kw["pairs"]), card)
+    v0, nv = 3, 3
+    vctx = refine.RefineContext(*(x[v0:v0 + nv].contiguous() if x.ndim > 2 else x for x in ctx))
+    a = (vctx, cache, d_c[:, v0:v0 + nv].contiguous(), n_c[:, v0:v0 + nv].contiguous())
+    kw = dict(k, pairs=own_pairs(k["pairs"], v0, nv))
+    block = consistency.consistency_moves(*a, **kw)
+    recs["block"] = _cons_check(
+        f"gather rule, views {v0}..{v0 + nv - 1} against the whole table", block,
+        consistency.consistency_moves_reference(*a, **kw), lambda: consistency.consistency_moves(*a, **kw),
+        lambda: consistency.consistency_moves_reference(*a, **kw), consistency_work(*a, kw["pairs"]), card)
+    if not torch.equal(block, consistency.consistency_moves(ctx, cache, d_c, n_c, **k)[:, v0:v0 + nv]):
+        raise AssertionError("consistency: the view block's launch is not the whole launch's rows")
+    print(f"[2] consistency view block bitwise equal to the whole launch's rows ({card})")
+    return dict(per["gather"], bound_by=recs[("gather", "update")]["bound_by"],
+                max_abs_err=max(r["max_abs_err"] for r in recs.values()))
 
 
 def phase_slice(card: str):
@@ -333,7 +402,7 @@ def phase_slice(card: str):
     import torch
 
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.ops import cost_volume
+    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume
     from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer
 
     s, rgb = _scene(FULL_H, FULL_W)
@@ -347,17 +416,24 @@ def phase_slice(card: str):
 
     torch.cuda.reset_peak_memory_stats()
     cost_volume.LAUNCHES = 0
-    times, timer = [], None
+    times, timer, cons = [], None, []
+    # the consistency kernel: the init state's launch and two a sweep
+    cons_per_run = 1 + 2 * s.no_prop
     for _ in range(2):
         timer = StageTimer()
+        consistency.LAUNCHES = 0
         t0 = time.perf_counter()
         art = pipe.run(rgb_dev, timer=timer)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        cons.append(consistency.LAUNCHES)
     launches = cost_volume.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
         raise AssertionError("the main path never launched the cost-volume kernel")
+    if cons != [cons_per_run] * 2:
+        raise AssertionError(f"the main path launched the consistency kernel {cons} times a run, "
+                             f"expected {cons_per_run}")
 
     d = art.disp_full
     if not bool(torch.isfinite(d).all()):
@@ -370,9 +446,10 @@ def phase_slice(card: str):
     t = min(times)
     mp_s = 9 * FULL_H * FULL_W / t / 1e6
     print(f"[3] runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
-          f"peak {peak / 2**30:.3f} GiB; disp_init near GT {near:.4f}; launches {launches} ({card})")
+          f"peak {peak / 2**30:.3f} GiB; disp_init near GT {near:.4f}; launches: cost_volume {launches}, "
+          f"consistency {cons} (gather engine) ({card})")
     print("[3] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
-    return launches, pipe, rgb_dev, art
+    return launches, sum(cons), pipe, rgb_dev, art
 
 
 def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
@@ -414,8 +491,9 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
     print("[3b] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
     prof = profiled(lambda: strips_scene(pipe, rgb_dev))
     by_name = prof.device_ops
-    cons_ms, cons_n = next(((ms, n) for name, (ms, n) in by_name.items() if "consistency_kernel" in name),
-                           (0.0, 0))
+    # both rules' instantiations: the init state's gather rule and the sweeps' strips rule
+    cons = [(ms, n) for name, (ms, n) in by_name.items() if "consistency_kernel" in name]
+    cons_ms, cons_n = sum(ms for ms, _ in cons), sum(n for _, n in cons)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
     print(f"[3b] one strips scene under torch.profiler: wall {prof.wall_ms:.1f} ms, device "
           f"{prof.device_ms:.1f} ms (busy {100 * prof.device_ms / prof.wall_ms:.1f} %); consistency kernel {cons_ms:.3f} ms in {cons_n} "
@@ -1094,9 +1172,9 @@ def _trace_counts(fn) -> dict:
     )
 
 
-def phase_stream(card: str, root: str, lst: str) -> int:
-    """Phase 8 on phase 5's PNGs ``lst`` in ``root``.  Returns the
-    cost-volume launches of 8b-8d's graph replays."""
+def phase_stream(card: str, root: str, lst: str) -> dict:
+    """Phase 8 on phase 5's PNGs ``lst`` in ``root``.  Returns each kernel's
+    launches in 8b-8d's graph replays."""
     import numpy as np
     import torch
 
@@ -1218,9 +1296,10 @@ def phase_stream(card: str, root: str, lst: str) -> int:
           f"scenes 2-4 {steady:.4f} views/s = {steady * FULL_H * FULL_W / 1e6:.4f} MP/s; decode-then-run() "
           f"{[round(x, 4) for x in serial]} s per scene = {9 * len(serial) / sum(serial):.4f} views/s "
           f"({card})")
-    launches = mvs_pipeline.REPLAYED_LAUNCHES.get("cost_volume", 0)
-    if launches < 1:
-        raise AssertionError("[8b-8d] no graph replay launched the cost-volume kernel")
+    launches = dict(mvs_pipeline.REPLAYED_LAUNCHES)
+    for name in ("cost_volume", "consistency"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"[8b-8d] no graph replay launched the {name} kernel")
 
     cmd = [sys.executable, "-m", "cl_multiview_stereo_tpu_torch.tools.stream_scenes", lst, lst_b,
            "--repeat", "2"]
@@ -1233,7 +1312,7 @@ def phase_stream(card: str, root: str, lst: str) -> int:
         raise AssertionError(f"[8d] stream_scenes: {rec}")
     print(f"[8d] python -m cl_multiview_stereo_tpu_torch.tools.stream_scenes A B --repeat 2: "
           f"{json.dumps(rec)} ({card})")
-    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s; cost_volume launches of the graph "
+    print(f"[8] phase 8 took {time.perf_counter() - t_phase:.1f} s; kernel launches of the graph "
           f"replays {launches} ({card})")
     return launches
 
@@ -1249,11 +1328,13 @@ def _tool(name: str, argv: list[str]) -> tuple[int, list[str], str, float]:
     return proc.returncode, proc.stdout.strip().splitlines(), proc.stderr, time.perf_counter() - t0
 
 
-def phase_tools(card: str, phase2: dict) -> int:
+def phase_tools(card: str, phase2: dict) -> dict:
     """Phase 9: the measurement tools, each in its own process on the card
     (this process's cached blocks released first).  ``phase2`` holds phase
-    2's record per kernel.  Returns 9a's cost-volume launches."""
+    2's record per kernel.  Returns 9a's launches per kernel."""
     import torch
+
+    from cl_multiview_stereo_tpu_torch import SystemSettings
 
     t_phase = time.perf_counter()
     gc.collect()
@@ -1263,9 +1344,12 @@ def phase_tools(card: str, phase2: dict) -> int:
     if rc != 0:
         raise AssertionError(f"[9a] bench exited {rc}:\n{err[-4000:]}")
     rec = json.loads(out[-1])
-    launches = rec["launches"]["cost_volume"]
+    launches = rec["launches"]
+    # each replay launches the cost volume once and the consistency kernel
+    # at the init state and twice a sweep
+    per_run = {"cost_volume": 1, "consistency": 1 + 2 * SystemSettings().no_prop}
     if (rec["metric"] != "depth_mp_per_s" or len(rec["runs_s"]) != BENCH_RUNS or rec["card"] != card
-            or launches < BENCH_RUNS):
+            or any(launches[k] != BENCH_RUNS * n for k, n in per_run.items())):
         raise AssertionError(f"[9a] bench: {rec}")
     print(f"[9a] python -m cl_multiview_stereo_tpu_torch.tools.bench {' '.join(argv)} ({dt:.1f} s): "
           f"{json.dumps(rec)}")
@@ -1397,8 +1481,8 @@ def main() -> int:
     cv = phase_kernel_vs_plain(card)
     sw = phase_sweep_vs_plain(card)
     cons = phase_consistency_vs_plain(card)
-    _, pipe, rgb_dev, art = phase_slice(card)
-    cons_launches = phase_strips(card, pipe, rgb_dev, art.state.d)
+    _, cons_launches, pipe, rgb_dev, art = phase_slice(card)
+    cons_launches += phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
     with tempfile.TemporaryDirectory() as root:
@@ -1413,8 +1497,10 @@ def main() -> int:
     del pipe, rgb_dev, art  # phase 9's tools each want the whole card
     bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons})
     phase_propagate_tools(card)
-    # phase 8's graph replays and 9a's launch the cost volume from the graph
-    cv_launches += sharded["cost_volume"] + stream_launches + bench_launches
+    # phase 8's graph replays and 9a's launch the cost volume and the
+    # consistency kernel from the graph
+    cv_launches += sharded["cost_volume"] + stream_launches["cost_volume"] + bench_launches["cost_volume"]
+    cons_launches += stream_launches["consistency"] + bench_launches["consistency"]
     sw_launches += sharded["sweep"]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format

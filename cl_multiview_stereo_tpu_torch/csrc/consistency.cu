@@ -19,10 +19,27 @@
 //   + 0.5*fl1 if any sample is occluded; the per-view mean over the pairs
 //   in subset order, floored at 0.01.
 //
-// A sample whose dip is not finite, or whose projection leaves the image,
-// adds 0 to every sum (the strips engine's rule for blown-up planes).  The
-// in-image test is made on floats before any float-to-int conversion, so a
+// Two rules for the samples that do not project into the table, picked per
+// launch (kGather):
+//   strips: a sample whose dip is not finite, or whose projection leaves
+//     the image, adds 0 to every sum (the strips engine's rule for blown-up
+//     planes);
+//   gather: the gather engine's plain form, term for term.  A NaN shift
+//     reads offset 0 (the form's nan_to_num), the in-image test gives
+//     inb in {0, 1}, every sample reads ras at its clamped pixel and adds
+//     inb*wv*exp(..), inb*wv, inb*(1 - wv), inb*exp(..) and inb as written,
+//     so an out-of-image sample still adds 0*NaN = NaN where its dip is
+//     NaN, as the form does.
+// Both test the image on floats before any float-to-int conversion, so a
 // finite but huge dip never reaches an undefined cast.
+//
+// Row window: ras may hold only the rows row_lo .. row_lo + rows - 1 of each
+// table view (the row-sharded refinement's halo band); a projection outside
+// them counts as outside the image, and the pixel (yp, xp) of view n is row
+// n * rows * W + (yp - row_lo) * W + xp.  The table's views are indexed by
+// the pair table, so it may hold more views than the launch scores (the
+// view-sharded pipeline scores a block of its own views against every
+// view's table).  The whole table is row_lo = 0, rows = H.
 //
 // Arithmetic: every product, sum and quotient is written with the _rn
 // intrinsics and the library is built with --fmad=false; exp is the
@@ -103,29 +120,52 @@ struct PairSums {
 };
 
 // Adds the terms of the sample at (sx, sy) (integral floats) for
-// disparity dp to s, or nothing if dp is not finite or its projection
-// leaves the image.
+// disparity dp to s.  Strips rule: nothing if dp is not finite or its
+// projection leaves the image or the row window.  Gather rule: the plain
+// form's terms, each weighted by the in-image flag.
+template <bool kGather>
 __device__ __forceinline__ void add_sample(PairSums& s, float sx, float sy, float dp,
                                            const float4* __restrict__ nb, float dvx, float dvy,
-                                           int H, int W, float c0, float c1, float c2,
-                                           float gamma, float alpha, float fuse, float bl) {
-  if (!isfinite(dp)) return;
-  const float rx = cl_round(__fmul_rn(dp, dvx));
-  const float ry = cl_round(__fmul_rn(__fmul_rn(bl, dp), dvy));
+                                           int H, int W, int row_lo, int rows, float c0, float c1,
+                                           float c2, float gamma, float alpha, float fuse,
+                                           float bl) {
+  if (!kGather && !isfinite(dp)) return;
+  float rx = cl_round(__fmul_rn(dp, dvx));
+  float ry = cl_round(__fmul_rn(__fmul_rn(bl, dp), dvy));
+  if (kGather) {  // a NaN shift reads offset 0; +-inf leaves the image either way
+    rx = isnan(rx) ? 0.0f : rx;
+    ry = isnan(ry) ? 0.0f : ry;
+  }
   // sx - rx and sy - ry: exact while |rx|, |ry| < 2**24, and beyond that
   // far outside the image either way
   const float xf = __fsub_rn(sx, rx), yf = __fsub_rn(sy, ry);
-  if (!(xf >= 0.0f && xf < (float)W && yf >= 0.0f && yf < (float)H)) return;
-  const float4 g = __ldg(nb + ((int)yf * W + (int)xf));  // H * W < 2**31, checked at launch
+  const bool in = xf >= 0.0f && xf < (float)W && yf >= 0.0f && yf < (float)H &&
+                  yf >= (float)row_lo && yf < (float)(row_lo + rows);
+  float4 g;
+  float inb = 1.0f;
+  if (kGather) {
+    // the plain form clamps after the float test, then truncates
+    inb = in ? 1.0f : 0.0f;
+    const int ix = (int)fminf(fmaxf(xf, 0.0f), (float)(W - 1));
+    const int iy = (int)fminf(fmaxf(__fsub_rn(yf, (float)row_lo), 0.0f), (float)(rows - 1));
+    g = __ldg(nb + (iy * W + ix));  // rows * W < 2**31, checked at launch
+  } else {
+    if (!in) return;
+    g = __ldg(nb + (((int)yf - row_lo) * W + (int)xf));
+  }
   const float diff = __fsub_rn(g.x, dp);
   const float wv = fabsf(diff) < fuse ? 1.0f : 0.0f;
-  s.visible = __fadd_rn(s.visible, __fmul_rn(wv, ftz(expf(__fmul_rn(__fmul_rn(-diff, diff), alpha)))));
-  s.visib_sum = __fadd_rn(s.visib_sum, wv);
-  s.occl_sum = __fadd_rn(s.occl_sum, __fsub_rn(1.0f, wv));
+  // inb * wv and inb * (1 - wv): wv and 1 - wv themselves under the strips rule
+  const float iw = kGather ? __fmul_rn(inb, wv) : wv;
+  const float io = kGather ? __fmul_rn(inb, __fsub_rn(1.0f, wv)) : __fsub_rn(1.0f, wv);
+  s.visible = __fadd_rn(s.visible, __fmul_rn(iw, ftz(expf(__fmul_rn(__fmul_rn(-diff, diff), alpha)))));
+  s.visib_sum = __fadd_rn(s.visib_sum, iw);
+  s.occl_sum = __fadd_rn(s.occl_sum, io);
   const float cdiff = __fadd_rn(__fadd_rn(sq(__fsub_rn(g.y, c0)), sq(__fsub_rn(g.z, c1))),
                                 sq(__fsub_rn(g.w, c2)));
-  s.visibility = __fadd_rn(s.visibility, ftz(expf(__fmul_rn(-cdiff, gamma))));
-  s.num = __fadd_rn(s.num, 1.0f);
+  const float vis = ftz(expf(__fmul_rn(-cdiff, gamma)));
+  s.visibility = __fadd_rn(s.visibility, kGather ? __fmul_rn(inb, vis) : vis);
+  s.num = __fadd_rn(s.num, inb);
 }
 
 // A pair's contribution to the view's running sums.
@@ -156,19 +196,20 @@ __device__ __forceinline__ float final_score(float cons, float cnt) {
 // l of a cell scores the moves l, l + lanes, ...
 // Shared memory: the pair table, then a column per thread of 9 sample x,
 // 9 sample y and 9 dip, one row of kThreads words for each.
+template <bool kGather>
 __global__ void __launch_bounds__(kThreads) consistency_kernel(
     const float* __restrict__ center,   // (V, Mh, Mw, 2)
     const float* __restrict__ color,    // (V, Mh, Mw, 3)
     const int* __restrict__ samples,    // (V, Mh, 9, Mw, 2)
     const float* __restrict__ fl,       // (V, Mh, Mw, 2)
-    const float4* __restrict__ ras,     // (V * H * W,) [disp, L, a, b]
+    const float4* __restrict__ ras,     // (views * rows * W,) [disp, L, a, b]
     const float* __restrict__ d_c,      // (M, V, Mh, Mw)
     const float* __restrict__ n_c,      // (M, V, Mh, Mw, 3)
     const int* __restrict__ pair_start, // (V + 1,) CSR over reference views
-    const int* __restrict__ pair_view,  // (P,)
+    const int* __restrict__ pair_view,  // (P,) table views
     const float* __restrict__ pair_dv,  // (P, 2) dvx, dvy
     float* __restrict__ out,            // (M, V, Mh, Mw)
-    int M, int V, int Mh, int Mw, int H, int W, int P, int lanes,
+    int M, int V, int Mh, int Mw, int H, int W, int row_lo, int rows, int P, int lanes,
     float gamma, float alpha, float fuse, float bl) {
   extern __shared__ int s_tab[];
   int* s_start = s_tab;               // V + 1
@@ -208,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) consistency_kernel(
   }
 
   const long long move_stride = (long long)V * N;
-  const long long plane = (long long)H * W;
+  const long long plane = (long long)rows * W;
   const int p_lo = s_start[v], p_hi = s_start[v + 1];
   for (int m = lane % lanes; m < M; m += lanes) {
     const long long o = m * move_stride + vc;
@@ -228,8 +269,8 @@ __global__ void __launch_bounds__(kThreads) consistency_kernel(
       PairSums s = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int k = 0; k < kSamples; ++k)
-        add_sample(s, s_x[k * kThreads], s_y[k * kThreads], s_dip[k * kThreads], nb, dvx, dvy,
-                   H, W, c0, c1, c2, gamma, alpha, fuse, bl);
+        add_sample<kGather>(s, s_x[k * kThreads], s_y[k * kThreads], s_dip[k * kThreads], nb,
+                            dvx, dvy, H, W, row_lo, rows, c0, c1, c2, gamma, alpha, fuse, bl);
       end_pair(s, half_fl1, cons, cnt);
     }
     out[o] = final_score(cons, cnt);
@@ -239,16 +280,18 @@ __global__ void __launch_bounds__(kThreads) consistency_kernel(
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  ``P`` is the number of pairs
-// (the length of pair_view).  Launches on ``stream`` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a pair
-// table beyond 48 KB of shared memory or an image of 2**31 pixels or more;
-// it does not synchronise.
+// (the length of pair_view); ``H``, ``W`` the image size; ras holds the rows
+// row_lo .. row_lo + rows - 1 of each table view; ``gather_rule`` picks the
+// gather engine's rule (1) or the strips rule (0).  Launches on ``stream``
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for a pair table beyond 48 KB of shared memory, a table view of 2**31
+// pixels or more, or an empty window; it does not synchronise.
 extern "C" int consistency_launch(
     const float* center, const float* color, const int* samples,
     const float* fl, const float* ras, const float* d_c, const float* n_c,
     const int* pair_start, const int* pair_view, const float* pair_dv,
-    float* out, int M, int V, int Mh, int Mw, int H, int W, int P, float gamma,
-    float alpha, float fuse, float bl_ratio, void* stream) {
+    float* out, int M, int V, int Mh, int Mw, int H, int W, int row_lo, int rows, int P,
+    int gather_rule, float gamma, float alpha, float fuse, float bl_ratio, void* stream) {
   if ((long long)M * V * Mh * Mw == 0) return 0;
   int lanes = 1;
   while (lanes < M && lanes < kMaxLanes) lanes *= 2;
@@ -257,10 +300,18 @@ extern "C" int consistency_launch(
   const long long blocks = (V * tiles * kWarp + kThreads - 1) / kThreads;
   const size_t smem =
       sizeof(int) * ((size_t)(V + 1 + 3 * P + 31) / 32 * 32 + (size_t)3 * kSamples * kThreads);
-  if (smem > 48 * 1024 || blocks > 0x7fffffffLL || (long long)H * W > 0x7fffffffLL)
+  if (smem > 48 * 1024 || blocks > 0x7fffffffLL || rows < 1 || W < 1 ||
+      (long long)rows * W > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  consistency_kernel<<<(unsigned int)blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      center, color, samples, fl, reinterpret_cast<const float4*>(ras), d_c, n_c, pair_start,
-      pair_view, pair_dv, out, M, V, Mh, Mw, H, W, P, lanes, gamma, alpha, fuse, bl_ratio);
+  const float4* table = reinterpret_cast<const float4*>(ras);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gather_rule)
+    consistency_kernel<true><<<(unsigned int)blocks, kThreads, smem, s>>>(
+        center, color, samples, fl, table, d_c, n_c, pair_start, pair_view, pair_dv, out, M, V, Mh,
+        Mw, H, W, row_lo, rows, P, lanes, gamma, alpha, fuse, bl_ratio);
+  else
+    consistency_kernel<false><<<(unsigned int)blocks, kThreads, smem, s>>>(
+        center, color, samples, fl, table, d_c, n_c, pair_start, pair_view, pair_dv, out, M, V, Mh,
+        Mw, H, W, row_lo, rows, P, lanes, gamma, alpha, fuse, bl_ratio);
   return (int)cudaGetLastError();
 }

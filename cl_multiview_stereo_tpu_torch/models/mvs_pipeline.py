@@ -29,7 +29,7 @@ from cl_multiview_stereo_tpu_torch.config import (
 )
 from cl_multiview_stereo_tpu_torch import convert
 from cl_multiview_stereo_tpu_torch.device import device_table
-from cl_multiview_stereo_tpu_torch.ops import cost_volume, fusion, refine, slic, superpixel
+from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, fusion, refine, slic, superpixel
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer, maybe_stage
 
@@ -221,7 +221,8 @@ class MVSPipeline:
 
         On a CUDA pipeline the first call runs ``run`` once eagerly on a
         side stream (the warm-up that a capture needs; it also builds the
-        kernel and the device tables), captures one ``run`` into a CUDA
+        kernels and the device tables, the consistency kernel's pair tables
+        among them), captures one ``run`` into a CUDA
         graph from a static input, and replays it; every later call copies
         the scene into the static input and replays.  The artifacts are
         clones of the graph's outputs, so that the next replay does not
@@ -286,10 +287,11 @@ class _GraphedRun:
             self.pipe.run(self.static_in)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = cost_volume.LAUNCHES
+        kernels = {"cost_volume": cost_volume, "consistency": consistency}
+        before = {name: mod.LAUNCHES for name, mod in kernels.items()}
         with torch.cuda.graph(graph):
             self.static_out = self.pipe.run(self.static_in)
-        self.captured_launches = {"cost_volume": cost_volume.LAUNCHES - before}
+        self.captured_launches = {name: mod.LAUNCHES - before[name] for name, mod in kernels.items()}
         self.graph = graph
 
     def __call__(self, rgb: np.ndarray | torch.Tensor) -> PipelineArtifacts:

@@ -18,11 +18,13 @@ reference views, which is the job the view layout does in JAX.  The move
 chain of a sweep (:func:`move_chain`) and its scorer (:func:`score_moves`)
 are shared with the row-sharded refinement (``parallel/spatial``) and the
 view-sharded pipeline, so the accept rule lives here only.
-Consistency is scored by the ``"gather"`` engine
-(:func:`consistency_from_cache`, per move batch) or by the ``"strips"``
-engine (``ops/consistency.py``, all moves of a phase at once, a CUDA
-kernel on the card); ``"strips_xla"`` names the same function as
+Consistency is scored by the ``"gather"`` engine (:func:`consistency_from_cache`)
+or by the ``"strips"`` engine, which differs only for candidates whose
+disparity is not finite; ``"strips_xla"`` names the same function as
 ``"strips"``, since its lane resolve differs from Pallas only on a TPU.
+Both go through ``ops/consistency.consistency_moves``: on the CPU its plain
+twin (per ``score_chunk`` batch of moves), on a card one launch of the CUDA
+kernel for all moves of a phase, under the engine's rule.
 """
 
 from __future__ import annotations
@@ -438,11 +440,15 @@ def init_scores(
     bl_ratio: float, pairs: tuple, img_hw=None, ras_rows=None,
 ) -> RefineState:
     """The state of planes ``(d0, n0)`` scored against ``cache`` (the cells
-    of ``ctx``: a whole map, a band of rows or a block of views)."""
+    of ``ctx``: a whole map, a band of rows or a block of views), by the
+    gather form: :func:`consistency_from_cache` on the CPU, one launch of
+    the consistency kernel under its gather rule on a card."""
+    from cl_multiview_stereo_tpu_torch.ops import consistency
+
     sm = smoothness_from_cache(cache, d0, n0, alpha=alpha)
-    cs = consistency_from_cache(
-        ctx, cache, d0[None], n0[None], gamma=gamma, alpha=alpha, fuse=fuse,
-        bl_ratio=bl_ratio, pairs=pairs, img_hw=img_hw, ras_rows=ras_rows,
+    cs = consistency.consistency_moves(
+        ctx, cache, d0[None].contiguous(), n0[None].contiguous(), gamma=gamma, alpha=alpha,
+        fuse=fuse, bl_ratio=bl_ratio, pairs=pairs, rule="gather", img_hw=img_hw, ras_rows=ras_rows,
     )[0]
     return RefineState(d=d0, sm=sm, cs=cs, n=n0)
 
@@ -525,28 +531,24 @@ def score_moves(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(M, V, Mh, Mw), (M, V, Mh, Mw, 3) candidates -> (sm1, cs1), each
     (M, V, Mh, Mw), scored against the frozen input state in ``cache``.
-    Smoothness is scored in ``score_chunk`` batches; consistency too under
-    the gather engine, the strips engines take all moves in one call.
+    Smoothness is scored in ``score_chunk`` batches.  Consistency goes to
+    ``ops/consistency.consistency_moves`` under the engine's rule: on the
+    CPU its plain twin (under the gather engine :func:`consistency_from_cache`
+    per ``score_chunk`` batch), on a card one kernel launch for all moves.
     ``img_hw``/``ras_rows``: see :func:`consistency_from_cache` (gather
     engine only)."""
-    cons_kw = dict(gamma=gamma, alpha=alpha, fuse=fuse, bl_ratio=bl_ratio, pairs=pairs)
-    sm_parts, cs_parts = [], []
-    for k in range(0, d_c.shape[0], score_chunk):
-        dci, nci = d_c[k:k + score_chunk], n_c[k:k + score_chunk]
-        sm_parts.append(smoothness_from_cache(cache, dci, nci, alpha=alpha))
-        if cons_engine == "gather":
-            cs_parts.append(consistency_from_cache(
-                ctx, cache, dci, nci, **cons_kw, img_hw=img_hw, ras_rows=ras_rows,
-            ))
-    if cons_engine != "gather":
-        if img_hw is not None or ras_rows is not None:
-            raise ValueError("the strips engines score a whole map against the whole table")
-        from cl_multiview_stereo_tpu_torch.ops import consistency
+    from cl_multiview_stereo_tpu_torch.ops import consistency
 
-        cs_parts = [consistency.consistency_moves(
-            ctx, cache, d_c.contiguous(), n_c.contiguous(), score_chunk=score_chunk, **cons_kw,
-        )]
-    return torch.cat(sm_parts), torch.cat(cs_parts)
+    if cons_engine != "gather" and (img_hw is not None or ras_rows is not None):
+        raise ValueError("the strips engines score a whole map against the whole table")
+    sm = torch.cat([smoothness_from_cache(cache, d_c[k:k + score_chunk], n_c[k:k + score_chunk], alpha=alpha)
+                    for k in range(0, d_c.shape[0], score_chunk)])
+    cs = consistency.consistency_moves(
+        ctx, cache, d_c.contiguous(), n_c.contiguous(), gamma=gamma, alpha=alpha, fuse=fuse,
+        bl_ratio=bl_ratio, pairs=pairs, score_chunk=score_chunk,
+        rule="gather" if cons_engine == "gather" else "strips", img_hw=img_hw, ras_rows=ras_rows,
+    )
+    return sm, cs
 
 
 def move_chain(cache: IterCache, state: RefineState, moves, it: int, score) -> RefineState:

@@ -274,14 +274,16 @@ def _rows(a: torch.Tensor, t: int, rows: int) -> torch.Tensor:
 
 def block_context(ctx: refine.RefineContext, t: int, n: int) -> refine.RefineContext:
     """Block ``t``'s cell rows of the context (labels and the per-pixel
-    colour its pixel rows)."""
+    colour its pixel rows), each a contiguous tensor as the consistency
+    kernel takes them."""
     mh, h = ctx.disp0.shape[1], ctx.labels.shape[1]
     bh, bhp = mh // n, h // n
     labels = _rows(ctx.labels, t, bhp)
+    cells = lambda a: _rows(a, t, bh).contiguous()  # noqa: E731
     return refine.RefineContext(
-        center=_rows(ctx.center, t, bh), color=_rows(ctx.color, t, bh),
-        disp0=_rows(ctx.disp0, t, bh), labels=labels, samples=_rows(ctx.samples, t, bh),
-        fl=_rows(ctx.fl, t, bh), ras_color=gather_cells(labels, ctx.color).reshape(-1, 3),
+        center=cells(ctx.center), color=cells(ctx.color), disp0=cells(ctx.disp0), labels=labels,
+        samples=cells(ctx.samples), fl=cells(ctx.fl),
+        ras_color=gather_cells(labels, ctx.color).reshape(-1, 3),
     )
 
 

@@ -13,17 +13,25 @@ build the refinement's initial state (``roofline.sweep0_state``); every
 component then runs at sweep 0's ``steps``/``step_size`` on that state:
 
 - ``propagate_iteration[0]``: the whole sweep (``refine.propagate_iteration``);
+- under the gather engine ``propagate_iteration[0], plain form``: the same
+  sweep scored by the gather engine's plain form, ``consistency_from_cache``
+  per ``score_chunk`` batch, as the card ran it before the engine went to
+  the kernel (on the CPU the two are one function);
 - ``rasterize_table`` and ``build_cell_cache``: the sweep's cache;
-- the consistency of one ``score_chunk`` batch of the update moves,
-  ``consistency_from_cache`` (its ``cache.ras[flat]`` gather) under the
-  gather engine, or ``consistency.consistency_moves`` on all update moves
-  (the CUDA kernel) under strips;
+- ``consistency_moves (update)``: the consistency of all update moves as
+  the sweep scores them, ``consistency.consistency_moves`` under the
+  engine's rule (on a card one launch of the CUDA kernel);
+- under the gather engine ``consistency_from_cache x1``: the plain form on
+  one ``score_chunk`` batch of the update moves (its ``cache.ras[flat]``
+  gather), beside the sweep;
 - ``smoothness_from_cache`` on one batch;
 - ``update_candidates``: the update moves' candidate planes;
 - ``accept_chain``: ``refine.move_chain`` scored by a function that returns
   the real scorer's outputs, recorded beforehand, so only the accept work
   and the refit normals run;
 - ``init_state``: the initial state's own stage, beside the sweep.
+
+A component beside the sweep has ``per_iteration`` 0 and no share.
 
 Each is timed with CUDA events on the current stream after one warm-up:
 the median of ``--runs`` runs, each started on an idle device (a
@@ -164,20 +172,23 @@ def components(sw: Sweep0, engine: str) -> dict[str, Component]:
         replay = iter(scores)
         return refine.move_chain(cache, state, moves, 0, lambda d_c, n_c: next(replay))
 
+    d_c, n_c = d_upd.contiguous(), n_upd.contiguous()
+    rule = "gather" if engine == "gather" else "strips"
+    cons = [("consistency_moves (update)", Component(
+        lambda: consistency.consistency_moves(ctx, cache, d_c, n_c, score_chunk=chunk, rule=rule, **kw), 2))]
+    plain = []
     if engine == "gather":
-        cons = ("consistency_from_cache x1", Component(
-            lambda: refine.consistency_from_cache(ctx, cache, d_b, n_b, **kw), batches))
-    else:
-        d_c, n_c = d_upd.contiguous(), n_upd.contiguous()
-        cons = ("consistency_moves (update)", Component(
-            lambda: consistency.consistency_moves(ctx, cache, d_c, n_c, score_chunk=chunk, **kw), 2))
+        plain = [(f"{TOTAL}, plain form", Component(lambda: plain_sweep(sw), 0))]
+        cons.append(("consistency_from_cache x1", Component(
+            lambda: refine.consistency_from_cache(ctx, cache, d_b, n_b, **kw), 0)))
     return dict([
         (TOTAL, Component(total, 1)),
+        *plain,
         ("rasterize_table", Component(
             lambda: refine.rasterize_table(ctx.labels, ctx.center, ctx.ras_color, state.d, state.n), 1)),
         ("build_cell_cache", Component(
             lambda: refine.build_cell_cache(ctx, state.d, gamma=kw["gamma"], steps=steps, step_size=step_size), 1)),
-        cons,
+        *cons,
         ("smoothness_from_cache x1", Component(
             lambda: refine.smoothness_from_cache(cache, d_b, n_b, alpha=kw["alpha"]), batches)),
         ("update_candidates", Component(
@@ -187,6 +198,27 @@ def components(sw: Sweep0, engine: str) -> dict[str, Component]:
         ("init_state", Component(lambda: refine.init_state(
             ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step), 0)),
     ])
+
+
+def plain_sweep(sw: Sweep0):
+    """Sweep 0 scored by the gather engine's plain form on any device:
+    ``refine.propagate_iteration`` with ``consistency_from_cache`` per
+    ``score_chunk`` batch in place of the routed scorer."""
+    from cl_multiview_stereo_tpu_torch.ops import consistency, refine
+
+    ctx, state, kw, sched, chunk = sw.ctx, sw.state, sw.kw, sw.sched, sw.score_chunk
+    steps, step_size = sched.steps_per_iter[0], sched.step_size_per_iter[0]
+    cache = refine.build_cache(ctx, state.d, state.n, gamma=kw["gamma"], steps=steps, step_size=step_size)
+    mh, mw = state.d.shape[1:]
+    moves = refine.update_candidates(ctx, state, refine._update_move_offsets(steps, step_size, mw, mh), kw["gamma"])
+
+    def score(d_c, n_c):
+        sm = torch.cat([refine.smoothness_from_cache(cache, d_c[k:k + chunk], n_c[k:k + chunk], alpha=kw["alpha"])
+                        for k in range(0, d_c.shape[0], chunk)])
+        return sm, consistency.consistency_moves_reference(ctx, cache, d_c.contiguous(), n_c.contiguous(),
+                                                           score_chunk=chunk, rule="gather", **kw)
+
+    return refine.move_chain(cache, state, moves, 0, score)
 
 
 def real_indices(sw: Sweep0) -> torch.Tensor:
@@ -280,7 +312,7 @@ def profile_engine(sw: Sweep0, engine: str, runs: int, on_card: bool) -> tuple[d
         ms = "not measured" if r["ms"] is None else f"{r['ms']:10.3f} ms"
         launches = "" if r["launches"] is None else f"{r['launches']:6d} launches"
         share = "" if r["share"] is None else f"{r['share']:7.1%} of the sweep"
-        how = "own stage" if r["per_iteration"] == 0 else f"x{r['per_iteration']}"
+        how = "beside" if r["per_iteration"] == 0 else f"x{r['per_iteration']}"
         print(f"[{engine}] {name:28s} {how:9s} {ms} {launches} {share}", flush=True)
     if on_card:
         print(f"[{engine}] sum of the parts {parts['parts_ms']:.3f} ms ({parts['parts_launches']} launches) "

@@ -19,10 +19,10 @@ Usage:
 
 ``--shapes main`` is the slice's scene: 9 views of 1080x1920 at
 ``SystemSettings()`` (31 hypotheses, 40 pairs; the consistency kernel on
-sweep 0's two calls of the strips engine).  ``--shapes row`` is the JAX
-tool's case: ``--views`` views in one row, ``--height`` x ``--width``, the
-ladder 4 .. 3 + ``--d``; the sweep there reads random Lab with each view
-against its right and left neighbour.  Without ``--shapes`` the sweep takes
+sweep 0's two calls of the gather engine, the main path's launches).
+``--shapes row`` is the JAX tool's case: ``--views`` views in one row,
+``--height`` x ``--width``, the ladder 4 .. 3 + ``--d``; the sweep there
+reads random Lab with each view against its right and left neighbour.  Without ``--shapes`` the sweep takes
 ``row`` (2x480x640, D = 64: BASELINE config 1) and the other two ``main``.
 
 Each kernel and its plain twin run once, then their times are taken with
@@ -216,31 +216,32 @@ def sweep0_state(settings, rgb, device):
     return ctx, state0, kw, sched
 
 
-def sweep0_calls(settings, rgb, device) -> list:
-    """The strips engine's two calls of sweep 0 on scene ``rgb`` (the update
-    moves, then the refits), as (args, keywords)."""
+def refine_calls(settings, rgb, device, engine: str = "gather") -> dict:
+    """The consistency calls of the refinement on scene ``rgb``, as (args,
+    keywords): ``init``, the init state's (one move, the gather rule under
+    every engine), then ``update`` and ``refit``, sweep 0's two calls under
+    ``engine`` ("gather": the main path's)."""
     from cl_multiview_stereo_tpu_torch.ops import consistency, refine
 
     ctx, state0, kw, sched = sweep0_state(settings, rgb, device)
-
-    # record the engine's calls of sweep 0 (the update moves, then the refits)
-    calls, engine = [], consistency.consistency_moves
+    calls, real = [], consistency.consistency_moves
 
     def record(*a, **k):
         calls.append((a, k))
-        return engine(*a, **k)
+        return real(*a, **k)
 
     consistency.consistency_moves = record
     try:
+        refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
         refine.propagate_iteration(
             ctx, state0, 0, **kw, steps=sched.steps_per_iter[0],
-            step_size=sched.step_size_per_iter[0], cons_engine="strips",
+            step_size=sched.step_size_per_iter[0], cons_engine=engine,
         )
     finally:
-        consistency.consistency_moves = engine
-    if len(calls) != 2:
-        raise AssertionError(f"sweep 0 made {len(calls)} consistency calls, expected 2")
-    return calls
+        consistency.consistency_moves = real
+    if len(calls) != 3:
+        raise AssertionError(f"the init and sweep 0 made {len(calls)} consistency calls, expected 3")
+    return dict(zip(("init", "update", "refit"), calls))
 
 
 def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
@@ -285,7 +286,7 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
         sw = (lab, ladder, pairs, bl, 2)
         label = f"{lab.shape[0]}x{h}x{w} D{len(ladder)} P{len(pairs)}"
         return label, [(lambda: sweep.plane_sweep(*sw), lambda: plane_sweep_reference(*sw), sweep_work(*sw))]
-    calls = sweep0_calls(s, rgb, device)
+    calls = [c for name, c in refine_calls(s, rgb, device).items() if name != "init"]
     label = "sweep 0's launches " + ", ".join(str(tuple(a[2].shape)) for a, _ in calls)
     return label, [(lambda a=a, k=k: consistency.consistency_moves(*a, **k),
                     lambda a=a, k=k: consistency.consistency_moves_reference(*a, **k),

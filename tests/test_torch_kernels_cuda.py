@@ -248,7 +248,7 @@ def strips_scene(cuda):
     n_c = n_c / torch.linalg.norm(n_c, dim=-1, keepdim=True)
     n_c[4] = torch.tensor([1.0, 0.0, 0.0], device=cuda)  # nz = 0: every sample blows up
     n_c[5, :, ::2] = torch.tensor([0.6, 0.8, 0.0], device=cuda)
-    return dict(ctx=ctx, cache=cache, kw=kw, d_c=d_c.contiguous(), n_c=n_c.contiguous())
+    return dict(ctx=ctx, cache=cache, kw=kw, d_c=d_c.contiguous(), n_c=n_c.contiguous(), sched=sched)
 
 
 def _moves(sc, m):
@@ -302,6 +302,134 @@ def test_consistency_kernel_moves_independent(strips_scene):
         alone = consistency.consistency_moves(ctx, cache, d_c[k:k + 1].contiguous(),
                                               n_c[k:k + 1].contiguous(), **sc["kw"])
         assert torch.equal(alone[0], batched[k]), k
+
+
+def _gather_close(got, want):
+    """The kernel against its plain twin: NaN at the same places, the rest
+    within the twin's bound (the same formula, the samples' sums in
+    another order)."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+def _nan_table(ras, h, w):
+    """``ras`` with NaN disparity on the image's edge rows and columns,
+    where samples outside the image clamp, and on scattered pixels."""
+    t = ras.clone().view(-1, h, w, 4)
+    t[:, (0, h - 1), :, 0] = float("nan")
+    t[:, :, (0, w - 1), 0] = float("nan")
+    t.view(-1, 4)[::53, 0] = float("nan")
+    return t.view(-1, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["clean", "nan"])
+@pytest.mark.parametrize("m", [1, 8, 13])
+def test_consistency_gather_rule_matches_reference(strips_scene, m, table):
+    """The gather engine's rule (the main path's launches: M = 1 at the
+    init, 8 a phase) against the plain gather form on the card, nz = 0
+    moves included; with a table that is NaN where samples outside the
+    image clamp, the kernel adds the form's 0 * NaN terms."""
+    sc = strips_scene
+    rows, d_c, n_c = _moves(sc, m)
+    cache = sc["cache"]
+    if table == "nan":
+        cache = cache._replace(ras=_nan_table(cache.ras, *sc["ctx"].labels.shape[1:]))
+    args = (sc["ctx"], cache, d_c, n_c)
+    before = consistency.LAUNCHES
+    got = consistency.consistency_moves(*args, **sc["kw"], rule="gather")
+    torch.cuda.synchronize()
+    assert consistency.LAUNCHES == before + 1
+    want = consistency.consistency_moves_reference(*args, **sc["kw"], rule="gather")
+    _gather_close(got, want)
+    if table == "nan":
+        # M = 1 is the nz = 0 move alone: no sample of it is visible, so no
+        # pair takes its NaN terms into a contribution
+        assert bool(torch.isnan(got).any()) == (m > 1)
+    else:
+        assert bool(torch.isfinite(got).all())
+        # the strips rule differs only where a sample's disparity is not finite
+        strips = consistency.consistency_moves(*args, **sc["kw"])
+        finite = n_c[..., 2] != 0
+        assert torch.equal(strips[finite], got[finite])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [0, 1])
+def test_consistency_row_window_matches_reference(strips_scene, tile):
+    """The row-sharded refinement's launch: a tile's cells against its
+    rows of the table and 8 halo rows each side (zero rows past the
+    image), ``img_hw``/``ras_rows`` as ``spatial.block_sweep`` passes them."""
+    from cl_multiview_stereo_tpu_torch.parallel import spatial
+
+    sc = strips_scene
+    ctx, cache = sc["ctx"], sc["cache"]
+    v, h, w = ctx.labels.shape
+    bh, bhp, halo = ctx.center.shape[1] // 2, h // 2, 8
+    row_lo, rows = tile * bhp - halo, bhp + 2 * halo
+    pad = torch.zeros((v, halo, w, 4), device=cache.ras.device)
+    table = torch.cat([pad, cache.ras.view(v, h, w, 4), pad], 1)
+    win = table[:, row_lo + halo:row_lo + halo + rows].contiguous().view(-1, 4)
+    blk = spatial.block_context(ctx, tile, 2)
+    _, d_c, n_c = _moves(sc, 8)
+    d_c, n_c = (a[:, :, tile * bh:(tile + 1) * bh].contiguous() for a in (d_c, n_c))
+    geom = dict(img_hw=(h, w), ras_rows=(row_lo, rows))
+    args = (blk, cache._replace(ras=win), d_c, n_c)
+    got = consistency.consistency_moves(*args, **sc["kw"], rule="gather", **geom)
+    want = consistency.consistency_moves_reference(*args, **sc["kw"], rule="gather", **geom)
+    torch.cuda.synchronize()
+    _gather_close(got, want)
+
+
+@pytest.mark.cuda
+def test_consistency_view_block_matches_whole_launch(strips_scene):
+    """The view-sharded pipeline's launch: views 3..5 with their own
+    pairs (neighbours global) against the whole table: the plain twin's
+    scores, and the whole launch's rows bitwise."""
+    from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import own_pairs
+
+    sc = strips_scene
+    v0, nv = 3, 3
+    kw = dict(sc["kw"], pairs=own_pairs(sc["kw"]["pairs"], v0, nv))
+    assert max(p[1] for p in kw["pairs"]) >= nv
+    ctx = refine.RefineContext(*(x[v0:v0 + nv].contiguous() if x.ndim > 2 else x for x in sc["ctx"]))
+    _, d_c, n_c = _moves(sc, 8)
+    args = (ctx, sc["cache"], d_c[:, v0:v0 + nv].contiguous(), n_c[:, v0:v0 + nv].contiguous())
+    got = consistency.consistency_moves(*args, **kw, rule="gather")
+    want = consistency.consistency_moves_reference(*args, **kw, rule="gather")
+    whole = consistency.consistency_moves(sc["ctx"], sc["cache"], d_c, n_c, **sc["kw"], rule="gather")
+    torch.cuda.synchronize()
+    _gather_close(got, want)
+    assert torch.equal(got, whole[:, v0:v0 + nv])
+
+
+@pytest.mark.cuda
+def test_gather_engine_on_the_card_launches_the_kernel(strips_scene, monkeypatch):
+    """``score_moves`` (one launch for all moves), ``init_scores`` (one)
+    and ``refine`` (1 + 2 a sweep) under the gather engine never call the
+    plain form on CUDA tensors, and a wrong input raises instead of falling
+    back to it."""
+    def plain(*a, **k):
+        raise AssertionError("the card called the plain gather form")
+
+    sc = strips_scene
+    want_sm, want_cs = refine.score_moves(sc["ctx"], sc["cache"], sc["d_c"], sc["n_c"], **sc["kw"])
+    monkeypatch.setattr(refine, "consistency_from_cache", plain)
+    monkeypatch.setattr(consistency, "consistency_from_cache", plain)
+    before = consistency.LAUNCHES
+    sm, cs = refine.score_moves(sc["ctx"], sc["cache"], sc["d_c"], sc["n_c"], **sc["kw"])
+    assert consistency.LAUNCHES == before + 1
+    # the nz = 0 moves' smoothness is NaN
+    torch.testing.assert_close((sm, cs), (want_sm, want_cs), rtol=0, atol=0, equal_nan=True)
+    d0 = sc["ctx"].disp0
+    refine.init_scores(sc["ctx"], sc["cache"], d0, refine._fronto_normals(d0), **sc["kw"])
+    assert consistency.LAUNCHES == before + 2
+    refine.refine(sc["ctx"], sc["sched"], pairs=sc["kw"]["pairs"])
+    torch.cuda.synchronize()
+    assert consistency.LAUNCHES == before + 2 + 1 + 2 * sc["sched"].no_prop
+    with pytest.raises(ValueError):
+        refine.score_moves(sc["ctx"], sc["cache"]._replace(ras=sc["cache"].ras[1:]), sc["d_c"], sc["n_c"],
+                           **sc["kw"])
 
 
 @pytest.mark.cuda
@@ -576,6 +704,9 @@ def test_jitted_two_scenes_bitwise_run(cuda, knobs):
     assert not torch.equal(got_a.disp_full, got_b.disp_full)
     cv = 0 if knobs == "gather" else 2
     assert mvs_pipeline.REPLAYED_LAUNCHES.get("cost_volume", 0) - before.get("cost_volume", 0) == cv
+    # the consistency kernel inside the graph: 1 + 2 a sweep per replay
+    per_run = 1 + 2 * pipe.settings.no_prop
+    assert mvs_pipeline.REPLAYED_LAUNCHES.get("consistency", 0) - before.get("consistency", 0) == 2 * per_run
     with pytest.raises(ValueError, match="the pipeline takes"):
         fwd(a[:, :-1])
 

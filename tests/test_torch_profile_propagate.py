@@ -3,7 +3,7 @@ tools/profile_propagate.py and tools/profile_gathers.py) on the CPU at a
 tiny scene (2x2 views of 48x64): every component of both engines and the
 gather-rate ladder listed with null times; the timed total is the state
 ``refine.propagate_iteration`` returns on an independently built initial
-state, bitwise; the isolated accept chain is ``move_chain`` with the real
+state, bitwise, and so is the gather engine's plain-form sweep; the isolated accept chain is ``move_chain`` with the real
 scorer, bitwise; each ladder gather is ``np.take`` on the same table and
 rows; the ladder's byte bound is the sector count written out here."""
 
@@ -24,8 +24,9 @@ SMALL = ["array_width=2", "array_height=2", "min_disp=4", "max_disp=11"]
 H, W = 48, 64
 S = SystemSettings(array_width=2, array_height=2, min_disp=4, max_disp=11)
 COMPONENTS = {
-    "gather": ["propagate_iteration[0]", "rasterize_table", "build_cell_cache", "consistency_from_cache x1",
-               "smoothness_from_cache x1", "update_candidates", "accept_chain", "init_state"],
+    "gather": ["propagate_iteration[0]", "propagate_iteration[0], plain form", "rasterize_table", "build_cell_cache",
+               "consistency_moves (update)", "consistency_from_cache x1", "smoothness_from_cache x1",
+               "update_candidates", "accept_chain", "init_state"],
     "strips": ["propagate_iteration[0]", "rasterize_table", "build_cell_cache", "consistency_moves (update)",
                "smoothness_from_cache x1", "update_candidates", "accept_chain", "init_state"],
 }
@@ -58,8 +59,13 @@ def test_cpu_record_lists_every_component_and_entry(record, capsys):
         assert comps["init_state"]["per_iteration"] == 0
         assert record["parts_vs_total"][engine] == {"parts_ms": None, "total_ms": None, "parts_launches": None,
                                                     "total_launches": None}
-    assert record["components"]["gather"]["consistency_from_cache x1"]["per_iteration"] == 4
-    assert record["components"]["strips"]["consistency_moves (update)"]["per_iteration"] == 2
+    # the routed scorer makes the sweep's consistency calls; the plain form
+    # is measured beside the sweep
+    for engine in COMPONENTS:
+        assert record["components"][engine]["consistency_moves (update)"]["per_iteration"] == 2
+    gather = record["components"]["gather"]
+    assert gather["consistency_from_cache x1"]["per_iteration"] == 0
+    assert gather["propagate_iteration[0], plain form"]["per_iteration"] == 0
     assert list(record["ladder"]) == LADDER
     # one batch of 4 moves over 12 pairs, 6x8 cells, 9 samples
     rows = 4 * 12 * 6 * 9 * 8
@@ -95,6 +101,15 @@ def test_total_is_propagate_iteration(sw, engine):
     # and the tool's initial state is init_state's
     for f in refine.RefineState._fields:
         assert torch.equal(getattr(sw.state, f), getattr(state0, f)), f
+
+
+def test_plain_sweep_is_the_gather_sweep_on_the_cpu(sw):
+    """On the CPU the gather engine's routed scorer is its plain form, so
+    the plain-form sweep gives the routed sweep's bits."""
+    want = pp.components(sw, "gather")[pp.TOTAL].fn()
+    got = pp.components(sw, "gather")["propagate_iteration[0], plain form"].fn()
+    for f in refine.RefineState._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("engine", pp.ENGINES)

@@ -7,7 +7,8 @@
 and returns every rank's outputs.  A worker imports only torch, numpy and
 the port (no JAX): it joins a gloo group through ``INIT_FILE`` (a
 ``file://`` rendezvous, no TCP port), reads its inputs from ``IN_NPZ``,
-runs the job's cases and writes ``OUT_PREFIX<rank>.npz``.  Each worker
+runs the job's cases and writes ``OUT_PREFIX<rank>.npz``.  ``kernels.build.load``
+raises in a worker: CPU tensors never reach a kernel.  Each worker
 uses one thread: several ranks share the host with pytest-xdist's workers.
 """
 
@@ -177,6 +178,14 @@ def main(job, init, world, rank, in_npz, prefix) -> None:
     sys.path.insert(0, os.path.dirname(_HERE))
     from cl_multiview_stereo_tpu_torch.parallel import initialize_distributed
 
+    from cl_multiview_stereo_tpu_torch.kernels import build
+
+    def refuse(name):
+        raise AssertionError(f"a CPU rank tried to build the {name} kernel")
+
+    # every job runs on CPU tensors, which go to the plain forms: none may
+    # reach a kernel's build (the consistency scorer above all)
+    build.load = refuse
     world, rank = int(world), int(rank)
     initialize_distributed(f"file://{init}", world, rank, device="cpu")
     try:
