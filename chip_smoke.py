@@ -6,10 +6,11 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 0. device: a CUDA device is visible; print its name and power limit;
-1. build: compile ``csrc/{cost_volume,sweep,consistency}.cu`` with nvcc
-   from this checkout, one nvcc each, all started together; print what
+1. build: compile ``csrc/{cost_volume,sweep,consistency,slic}.cu`` with
+   nvcc from this checkout, one nvcc each, all started together; print what
    ptxas reports, check that two cost-volume blocks and two sweep blocks
-   fit on an SM and that the sweep and consistency kernels do not spill;
+   fit on an SM and that the sweep, consistency and SLIC kernels do not
+   spill;
 2. kernels against their plain twins, on the same device tensors, with
    both times from CUDA events, in turns, beside each kernel's bound (the
    larger of its bytes over the card's memory rate and its f32 operations
@@ -24,12 +25,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the strips engine's two, and the sharded paths' modes on sweep 0's
    update phase: the row window of tile 1 of 3 with the "auto" halo and
    views 3..5 with their own pairs against the whole table (bitwise the
-   whole launch's rows);
+   whole launch's rows); SLIC's three kernels on the 9-view 1080p scene's
+   converged labels and map: the assignment and the vote bitwise, the
+   update bitwise in centre and count and its colour within
+   SLIC_COLOR_RTOL/SLIC_COLOR_ATOL, with ``index_add_``'s time beside the
+   update's;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
    per-stage device times, MP/s and peak memory; each run must launch the
-   consistency kernel 1 + 2 x 5 = 11 times (the gather engine on the card);
+   consistency kernel 1 + 2 x 5 = 11 times (the gather engine on the card),
+   the SLIC assignment 5 + 1 = 6 times and the update 5 times;
 3b. the same stages with the strips consistency engine
    (``refine.refine(cons_engine="strips")``): timed the same way, and its
    refined disparity held against phase 3's gather engine;
@@ -40,7 +46,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    slice, the strips path, the dense sweep, and the pipeline with each
    other knob on alone and all at once (cross-check, SLIC edge snap and
    connectivity, gather depth init, view pair layout); and the card's
-   cross-check fusion of the CPU's refined state, bitwise the CPU's;
+   cross-check fusion of the CPU's refined state, bitwise the CPU's; the
+   SLIC flags' runs launch the vote on the card;
 5. the CLI path at full size (``cli.main(["run", ...])`` on the scene
    written as 9 PNGs, default depth method "dense" through the cost-volume
    kernel, cross-check fusion, PLY and checkpoint): 5a one warm-up and two
@@ -48,8 +55,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the disparity recovered; 5b a ``--resume`` from 5a's checkpoint, whose
    ``disp_full`` must be bitwise 5a's; 5c the SLIC flags
    (``--set enforce_connectivity=true --set edge_enable=true``), timed as
-   5a; 5d ``pair_layout="view"`` (the packed scorer in the port) bitwise
-   equal to phase 3's packed state,
+   5a, their vote launches counted; 5d ``pair_layout="view"`` (the
+   packed scorer in the port) bitwise equal to phase 3's packed state,
    and the gather depth init timed against the kernel's, their WTA
    agreeing on >= 0.999 of cells;
 6. the SfM path (plain PyTorch, no kernel of its own) on phase 5's PNGs:
@@ -102,7 +109,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    to phase 2's; 9c ``tools.memcheck`` at BASELINE's config 4 (49 views of
    2048x2048, 256 hypotheses, the view pair layout), which exits 0 when it
    fits and 3 when the allocator refuses a request; 9a's replays must
-   launch the cost volume once and the consistency kernel 11 times each;
+   launch the cost volume once, the consistency kernel 11 times, the SLIC
+   assignment 6 and the update 5 times each;
 10. the tools ported last, each in its own process: 10a
    ``tools.profile_propagate --engine both`` at 9x1080x1920 (each
    component of sweep 0 under both engines with its ms, launches and share
@@ -162,7 +170,12 @@ SFM_MATCHES_SHARE, SFM_RMS_TOL, SFM_ATE_MAX, SFM_RMS_SLACK = 0.98, 0.01, 0.01, 1
 SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
 # run --sfm: share of interior pixels within 1 of the scene's disparity
 SFM_RUN_NEAR = 0.90
-KERNELS = ("cost_volume", "sweep", "consistency")
+# the kernels' sources (csrc/<name>.cu), and the kernels of the JSON record
+SOURCES = ("cost_volume", "sweep", "consistency", "slic")
+KERNELS = ("cost_volume", "sweep", "consistency", "slic_assign", "slic_update", "slic_vote")
+# the SLIC update kernel's colour against its plain form's (centre and
+# count add integers below 2**24: bitwise)
+SLIC_COLOR_RTOL, SLIC_COLOR_ATOL = 1e-5, 1e-4
 # phase 8's scene B: the scene generator at another disparity and seed
 STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
 # phase 8's stream tool, seconds it may take
@@ -194,17 +207,17 @@ def phase_build() -> None:
     # every kernel from this checkout's sources, with ptxas's report
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        logs = dict(zip(KERNELS, (log for _, log in pool.map(build.build, KERNELS))))
-    for name in KERNELS:
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = dict(zip(SOURCES, (log for _, log in pool.map(build.build, SOURCES))))
+    for name in SOURCES:
         build.load(name)
-    print(f"[1] built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
-    for name in KERNELS:
+    print(f"[1] built {', '.join(SOURCES)} in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
         for line in logs[name].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
-    # the sweep and consistency kernels build without spills
-    for name in ("sweep", "consistency"):
+    # the sweep, consistency and SLIC kernels build without spills
+    for name in ("sweep", "consistency", "slic"):
         spills = [ln.strip() for ln in logs[name].splitlines()
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
@@ -397,12 +410,92 @@ def phase_consistency_vs_plain(card: str) -> dict:
                 max_abs_err=max(r["max_abs_err"] for r in recs.values()))
 
 
+def _reset_slic() -> None:
+    from cl_multiview_stereo_tpu_torch.ops import slic
+
+    slic.LAUNCHES.update(dict.fromkeys(slic.LAUNCHES, 0))
+
+
+def phase_slic_vs_plain(card: str) -> dict:
+    """SLIC's three kernels against their plain forms on the 9-view 1080p
+    scene's converged labels and map (``tools.roofline.slic_inputs``, the
+    roofline tool's inputs too), and the vote also on labels with 40 %
+    flipped, where it fires.  Returns each kernel's record."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.tools.roofline import (
+        ITERS,
+        SLIC_KERNELS,
+        bound,
+        cuda_ms,
+        in_turns,
+        slic_calls,
+        slic_inputs,
+        slic_members,
+        slic_work,
+    )
+
+    s, rgb = _scene(FULL_H, FULL_W)
+    lab, geom, p, labels, spmap = slic_inputs(rgb, s, "cuda")
+    v, h, w = labels.shape
+    recs = {}
+    for name in SLIC_KERNELS:
+        kern, plain = slic_calls(name, lab, geom, p, labels, spmap)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, lib_ms = 0.0, None
+        if name == "slic_update":
+            for f in ("center", "count"):
+                _require_equal(f"[2] slic update {f}", getattr(got, f), getattr(want, f))
+            if not torch.allclose(got.color, want.color, rtol=SLIC_COLOR_RTOL, atol=SLIC_COLOR_ATOL):
+                raise AssertionError("[2] slic update: the kernel's colour departs from the plain form's")
+            err = (got.color - want.color).abs().max().item()
+            verdict = (f"centre and count bitwise, colour max_abs_err {err:.3e} (bitwise "
+                       f"{torch.equal(got.color, want.color)})")
+            # the one PyTorch call that computes the update's sums (every
+            # member of these labels lies within one cell of its home
+            # cell); atomics, so its order varies: timed, used nowhere
+            n = geom.map_h * geom.map_w
+            idx = (labels.long() + torch.arange(v, device="cuda")[:, None, None] * n).reshape(-1)
+            xs = torch.arange(w, device="cuda", dtype=torch.float32).expand(v, h, w)
+            ys = torch.arange(h, device="cuda", dtype=torch.float32)[:, None].expand(v, h, w)
+            planes = torch.stack([lab[..., 0], lab[..., 1], lab[..., 2], xs, ys, torch.ones_like(xs)]).reshape(6, -1)
+
+            def library():
+                return torch.zeros((6, v * n), device="cuda").index_add_(1, idx, planes)
+
+            lib_sums = library()
+            if not torch.equal(lib_sums[5].reshape(v, geom.map_h, geom.map_w), want.count):
+                raise AssertionError("[2] index_add_'s counts are not the update's")
+            lib_ms = cuda_ms(library, ITERS[name][0])
+            members = slic_members(labels, geom)
+            verdict += f"; index_add_ {lib_ms:.3f} ms ({members} of {v * h * w} pixels members)"
+        else:
+            _require_equal(f"[2] slic {name}", got, want)
+            verdict = "bitwise"
+        k_ms, p_ms = in_turns(kern, plain, *ITERS[name])
+        b_ms, by = bound(*slic_work(name, lab, labels, geom))
+        print(f"[2] slic {name[5:]} at {v}x{h}x{w} S{geom.spixl_size} (converged map): {verdict}; kernel "
+              f"{k_ms:.3f} ms, bound {b_ms:.4g} ms ({by}), plain {p_ms:.3f} ms ({card})")
+        recs[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    flip = (torch.rand(labels.shape, generator=gen) < 0.4).cuda()
+    other = torch.randint(0, geom.map_h * geom.map_w, labels.shape, generator=gen, dtype=torch.int32).cuda()
+    noisy = torch.where(flip, other, labels)
+    kern, plain = slic_calls("slic_vote", lab, geom, p, noisy, spmap)
+    got = kern()
+    _require_equal("[2] slic vote on noisy labels", got, plain())
+    print(f"[2] slic vote on 40 % flipped labels: bitwise, {float((got != noisy).float().mean()):.4f} of the "
+          f"labels changed ({card})")
+    return recs
+
+
 def phase_slice(card: str):
     import numpy as np
     import torch
 
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume
+    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, slic
     from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer
 
     s, rgb = _scene(FULL_H, FULL_W)
@@ -419,14 +512,19 @@ def phase_slice(card: str):
     times, timer, cons = [], None, []
     # the consistency kernel: the init state's launch and two a sweep
     cons_per_run = 1 + 2 * s.no_prop
+    # SLIC: an assignment, then no_iter x (update, assignment); no vote
+    slic_per_run = {"slic_assign": s.no_iter + 1, "slic_update": s.no_iter, "slic_vote": 0}
+    slic_runs = []
     for _ in range(2):
         timer = StageTimer()
         consistency.LAUNCHES = 0
+        _reset_slic()
         t0 = time.perf_counter()
         art = pipe.run(rgb_dev, timer=timer)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         cons.append(consistency.LAUNCHES)
+        slic_runs.append(dict(slic.LAUNCHES))
     launches = cost_volume.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
@@ -434,6 +532,8 @@ def phase_slice(card: str):
     if cons != [cons_per_run] * 2:
         raise AssertionError(f"the main path launched the consistency kernel {cons} times a run, "
                              f"expected {cons_per_run}")
+    if slic_runs != [slic_per_run] * 2:
+        raise AssertionError(f"the main path launched the SLIC kernels {slic_runs} a run, expected {slic_per_run}")
 
     d = art.disp_full
     if not bool(torch.isfinite(d).all()):
@@ -447,9 +547,12 @@ def phase_slice(card: str):
     mp_s = 9 * FULL_H * FULL_W / t / 1e6
     print(f"[3] runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
           f"peak {peak / 2**30:.3f} GiB; disp_init near GT {near:.4f}; launches: cost_volume {launches}, "
-          f"consistency {cons} (gather engine) ({card})")
-    print("[3] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
-    return launches, sum(cons), pipe, rgb_dev, art
+          f"consistency {cons} (gather engine), slic {slic_runs[0]} a run ({card})")
+    stage_ms = timer.ms()
+    print("[3] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}))
+    print(f"[3] eager slic stage {stage_ms['slic']:.3f} ms of {sum(stage_ms.values()):.3f} ms of stages ({card})")
+    slic_launches = {k: sum(r[k] for r in slic_runs) for k in slic_per_run}
+    return launches, sum(cons), slic_launches, pipe, rgb_dev, art
 
 
 def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
@@ -561,7 +664,7 @@ def phase_card_vs_cpu(card: str) -> None:
     from cl_multiview_stereo_tpu_torch import RefinementSchedule
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
     from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_depth, sweep_args
-    from cl_multiview_stereo_tpu_torch.ops import fusion
+    from cl_multiview_stereo_tpu_torch.ops import fusion, slic
     from cl_multiview_stereo_tpu_torch.tools.profile_stages import strips_scene
 
     h, w = 270, 480
@@ -569,6 +672,7 @@ def phase_card_vs_cpu(card: str) -> None:
     ladder, pairs = sweep_args(s)
     fields = ("labels", "disp_init", "disp_full")
     out, cpu_state = {}, {}
+    votes = slic.LAUNCHES["slic_vote"]
     for dev in ("cuda", "cpu"):
         pipe = MVSPipeline.create(w, h, s, depth_method="strips", device=dev)
         art = pipe.run(rgb)
@@ -583,6 +687,8 @@ def phase_card_vs_cpu(card: str) -> None:
             if knob == "cross_check" and dev == "cpu":
                 cpu_state = dict(labels=art_k.labels, centers=art_k.spmap.center,
                                  d=art_k.state.d, n=art_k.state.n)
+        if dev == "cuda":
+            votes = slic.LAUNCHES["slic_vote"] - votes
     g, c = out["cuda"], out["cpu"]
 
     def agree(pre: str) -> tuple[float, float, float]:
@@ -599,6 +705,12 @@ def phase_card_vs_cpu(card: str) -> None:
     for name, (lab_a, init_a, full_a) in rows.items():
         print(f"[4] card vs CPU at 9x{h}x{w}, {name}: labels {lab_a:.6f} disp_init {init_a:.6f} "
               f"disp_full(1e-3) {full_a:.6f} ({card})")
+    flagged = [k for k, (o, _) in CARD_KNOBS.items() if o.get("enforce_connectivity")]
+    print(f"[4] SLIC labels card (csrc/slic.cu) vs CPU (plain forms): lowest agreement "
+          f"{min(r[0] for r in rows.values()):.6f} over the runs; slic_vote launched {votes} times on the card "
+          f"({', '.join(flagged)}: two a run) ({card})")
+    if votes != 2 * len(flagged):
+        raise AssertionError(f"[4] the card launched the SLIC vote {votes} times, expected {2 * len(flagged)}")
     # the vote's own witness: the card's cross-check fusion of the CPU's
     # refined state against the CPU's, so that the vote is judged apart
     # from the refinement's ulps
@@ -685,16 +797,17 @@ def _timed_cli(argv: list[str], tag: str, card: str) -> dict:
     return dict(times=times, stages=stages, launches=launches, peak=peak)
 
 
-def phase_cli(card: str, art3, root: str, lst: str) -> int:
+def phase_cli(card: str, art3, root: str, lst: str) -> tuple[int, int]:
     """Phase 5 on the scene's PNGs ``lst`` in ``root``; ``art3`` is phase
     3's artifacts (strips depth init, packed layout).  Returns the
-    cost-volume launches of 5a's timed runs."""
+    cost-volume launches of 5a's timed runs and the SLIC vote's of 5c's
+    runs."""
     import numpy as np
     import torch
 
     from cl_multiview_stereo_tpu_torch import build_disp_levels, build_view_subsets
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.ops import cost_volume
+    from cl_multiview_stereo_tpu_torch.ops import cost_volume, slic
     from cl_multiview_stereo_tpu_torch.tools.roofline import in_turns
 
     s, rgb = _scene(FULL_H, FULL_W)
@@ -720,13 +833,17 @@ def phase_cli(card: str, art3, root: str, lst: str) -> int:
           f"equal to 5a; stage ms {json.dumps(stages)} ({card})")
 
     out_c = os.path.join(root, "c")
+    _reset_slic()
     r_c = _timed_cli(base + ["--out", out_c, "--set", "enforce_connectivity=true",
                              "--set", "edge_enable=true"], "[5c]", card)
+    votes = slic.LAUNCHES["slic_vote"]
+    if votes != 2 * 3:  # warm-up and two timed runs, two rounds each
+        raise AssertionError(f"[5c] the SLIC flags' runs launched the vote {votes} times, expected 6")
     _, near_c, rejected_c = _disp_checks(os.path.join(out_c, "pipeline_state.npz"), "[5c]")
     t = min(r_c["times"])
     print(f"[5c] SLIC flags: CLI runs {[round(x, 4) for x in r_c['times']]} s; best {t:.4f} s "
           f"per scene; peak {r_c['peak'] / 2**30:.3f} GiB; disp_full near GT {near_c:.6f}; "
-          f"vote rejected {rejected_c:.6f} ({card})")
+          f"vote rejected {rejected_c:.6f}; slic_vote launches {votes} ({card})")
     print("[5c] stage ms (last run): " + json.dumps(r_c["stages"]))
 
     rgb_dev = torch.as_tensor(rgb, device="cuda")
@@ -750,7 +867,7 @@ def phase_cli(card: str, art3, root: str, lst: str) -> int:
                           lambda: cost_volume.initial_depth_estimation(*args, method="gather"), 5, 2)
     print(f"[5d] depth init at 9x{FULL_H}x{FULL_W}: kernel (dense) {k_ms:.3f} ms, gather form "
           f"{g_ms:.3f} ms, WTA agreement {agree:.6f} ({card})")
-    return r["launches"]
+    return r["launches"], votes
 
 
 def _sfm_run(argv: list[str], tag: str) -> dict:
@@ -1297,7 +1414,7 @@ def phase_stream(card: str, root: str, lst: str) -> dict:
           f"{[round(x, 4) for x in serial]} s per scene = {9 * len(serial) / sum(serial):.4f} views/s "
           f"({card})")
     launches = dict(mvs_pipeline.REPLAYED_LAUNCHES)
-    for name in ("cost_volume", "consistency"):
+    for name in ("cost_volume", "consistency", "slic_assign", "slic_update"):
         if launches.get(name, 0) < 1:
             raise AssertionError(f"[8b-8d] no graph replay launched the {name} kernel")
 
@@ -1345,9 +1462,11 @@ def phase_tools(card: str, phase2: dict) -> dict:
         raise AssertionError(f"[9a] bench exited {rc}:\n{err[-4000:]}")
     rec = json.loads(out[-1])
     launches = rec["launches"]
-    # each replay launches the cost volume once and the consistency kernel
-    # at the init state and twice a sweep
-    per_run = {"cost_volume": 1, "consistency": 1 + 2 * SystemSettings().no_prop}
+    # each replay launches the cost volume once, the consistency kernel at
+    # the init state and twice a sweep, and SLIC's assignment and update
+    d = SystemSettings()
+    per_run = {"cost_volume": 1, "consistency": 1 + 2 * d.no_prop, "slic_assign": d.no_iter + 1,
+               "slic_update": d.no_iter, "slic_vote": 0}
     if (rec["metric"] != "depth_mp_per_s" or len(rec["runs_s"]) != BENCH_RUNS or rec["card"] != card
             or any(launches[k] != BENCH_RUNS * n for k, n in per_run.items())):
         raise AssertionError(f"[9a] bench: {rec}")
@@ -1481,13 +1600,14 @@ def main() -> int:
     cv = phase_kernel_vs_plain(card)
     sw = phase_sweep_vs_plain(card)
     cons = phase_consistency_vs_plain(card)
-    _, cons_launches, pipe, rgb_dev, art = phase_slice(card)
+    sl = phase_slic_vs_plain(card)
+    _, cons_launches, slic_launches, pipe, rgb_dev, art = phase_slice(card)
     cons_launches += phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
     with tempfile.TemporaryDirectory() as root:
         lst = write_scene(root, _scene(FULL_H, FULL_W)[1])
-        cv_launches = phase_cli(card, art, root, lst)
+        cv_launches, slic_launches["slic_vote"] = phase_cli(card, art, root, lst)
         # the cost-volume launches of each main path: 5a's CLI and 6c's run
         # --sfm, and of phase 7's sharded paths
         cv_launches += phase_sfm(card, root, lst)
@@ -1495,27 +1615,41 @@ def main() -> int:
         stream_launches = phase_stream(card, root, lst)
     phase_gloo_two_ranks(card)
     del pipe, rgb_dev, art  # phase 9's tools each want the whole card
-    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons})
+    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl})
     phase_propagate_tools(card)
     # phase 8's graph replays and 9a's launch the cost volume and the
     # consistency kernel from the graph
     cv_launches += sharded["cost_volume"] + stream_launches["cost_volume"] + bench_launches["cost_volume"]
     cons_launches += stream_launches["consistency"] + bench_launches["consistency"]
     sw_launches += sharded["sweep"]
+    # SLIC: phase 3's runs, phase 8's replays and 9a's; the vote 5c's runs
+    for name in ("slic_assign", "slic_update"):
+        slic_launches[name] += stream_launches[name] + bench_launches[name]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
-    # library_ms: no single PyTorch call computes any of the three functions
+    # library_ms: no single PyTorch call computes the first three functions
+    # or SLIC's assignment and vote; index_add_ computes the update's sums.
+    # SLIC's kernels replace XLA functions of the JAX package, not Pallas
     rows = (
-        ("cost_volume", "cl_multiview_stereo_tpu/ops/cost_volume.py:46", cv_launches, cv),
-        ("sweep", "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", sw_launches, sw),
-        ("consistency", "cl_multiview_stereo_tpu/ops/pallas/consistency.py:95", cons_launches, cons),
+        ("cost_volume", "cost_volume", "cl_multiview_stereo_tpu/ops/cost_volume.py:46", cv_launches, cv),
+        ("sweep", "sweep", "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", sw_launches, sw),
+        ("consistency", "consistency", "cl_multiview_stereo_tpu/ops/pallas/consistency.py:95", cons_launches,
+         cons),
+        ("slic_assign", "slic", "cl_multiview_stereo_tpu/ops/slic.py:102", slic_launches["slic_assign"],
+         sl["slic_assign"]),
+        ("slic_update", "slic", "cl_multiview_stereo_tpu/ops/slic.py:178", slic_launches["slic_update"],
+         sl["slic_update"]),
+        ("slic_vote", "slic", "cl_multiview_stereo_tpu/ops/slic.py:340", slic_launches["slic_vote"],
+         sl["slic_vote"]),
     )
+    if [r[0] for r in rows] != list(KERNELS):
+        raise AssertionError("the kernels' record does not list every kernel")
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src(name), "replaces": replaces,
+        {"name": name, "route": "cuda", "source": src(source), "replaces": replaces,
          "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None}
-        for name, replaces, launches, r in rows
+         "library_ms": r.get("library_ms")}
+        for name, source, replaces, launches, r in rows
     ]}
     print(card)
     print(json.dumps(record))

@@ -61,6 +61,19 @@ def build(name: str) -> tuple[Path, str]:
     return out, proc.stderr
 
 
+def check_input(name: str, t, dtype, shape: tuple, device) -> None:
+    """Raises unless tensor ``t`` is what a kernel's C entry takes: on
+    ``device``, of ``dtype`` and ``shape``, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """Build if needed and load ``csrc/<name>.cu``'s library (once per process)."""

@@ -40,6 +40,11 @@ from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer, maybe_stage
 REPLAYED_LAUNCHES: dict[str, int] = {}
 
 
+def launch_counts() -> dict[str, int]:
+    """Each hand kernel of ``run``: its launches so far, by name."""
+    return {"cost_volume": cost_volume.LAUNCHES, "consistency": consistency.LAUNCHES, **slic.LAUNCHES}
+
+
 class PipelineArtifacts(NamedTuple):
     """Every stage output, as tensors on the pipeline's device."""
 
@@ -287,11 +292,10 @@ class _GraphedRun:
             self.pipe.run(self.static_in)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        kernels = {"cost_volume": cost_volume, "consistency": consistency}
-        before = {name: mod.LAUNCHES for name, mod in kernels.items()}
+        before = launch_counts()
         with torch.cuda.graph(graph):
             self.static_out = self.pipe.run(self.static_in)
-        self.captured_launches = {name: mod.LAUNCHES - before[name] for name, mod in kernels.items()}
+        self.captured_launches = {name: n - before[name] for name, n in launch_counts().items()}
         self.graph = graph
 
     def __call__(self, rgb: np.ndarray | torch.Tensor) -> PipelineArtifacts:

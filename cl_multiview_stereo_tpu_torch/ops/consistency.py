@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from cl_multiview_stereo_tpu_torch.device import device_table
+from cl_multiview_stereo_tpu_torch.kernels.build import check_input
 from cl_multiview_stereo_tpu_torch.ops.refine import (
     SCORE_CHUNK,
     IterCache,
@@ -104,17 +105,6 @@ def _check_rule(rule: str) -> None:
         raise ValueError(f"unknown rule {rule!r}; expected one of {RULES}")
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def pair_tables(pairs: tuple, n_views: int, table_views: int | None = None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(start (V+1,) int32, view (P,) int32, (dvx, dvy) (P, 2) float32).
     The pairs must be grouped by reference view in ascending order, as
@@ -151,16 +141,16 @@ def _launch(ctx, cache, d_c, n_c, *, gamma, alpha, fuse, bl_ratio, pairs, rule, 
     h, w = ctx.labels.shape[1:3] if img_hw is None else img_hw
     row_lo, rows = (0, h) if ras_rows is None else ras_rows
     f32 = torch.float32
-    _check("d_c", d_c, f32, (m, v, mh, mw), dev)
-    _check("n_c", n_c, f32, (m, v, mh, mw, 3), dev)
-    _check("ctx.center", ctx.center, f32, (v, mh, mw, 2), dev)
-    _check("ctx.color", ctx.color, f32, (v, mh, mw, 3), dev)
-    _check("ctx.samples", ctx.samples, torch.int32, (v, mh, 9, mw, 2), dev)
-    _check("ctx.fl", ctx.fl, f32, (v, mh, mw, 2), dev)
+    check_input("d_c", d_c, f32, (m, v, mh, mw), dev)
+    check_input("n_c", n_c, f32, (m, v, mh, mw, 3), dev)
+    check_input("ctx.center", ctx.center, f32, (v, mh, mw, 2), dev)
+    check_input("ctx.color", ctx.color, f32, (v, mh, mw, 3), dev)
+    check_input("ctx.samples", ctx.samples, torch.int32, (v, mh, 9, mw, 2), dev)
+    check_input("ctx.fl", ctx.fl, f32, (v, mh, mw, 2), dev)
     if rows < 1 or cache.ras.ndim != 2 or cache.ras.shape[0] % (rows * w):
         raise ValueError(f"cache.ras has shape {tuple(cache.ras.shape)}, not whole views of {rows} rows x {w}")
     table_views = cache.ras.shape[0] // (rows * w)
-    _check("cache.ras", cache.ras, f32, (table_views * rows * w, 4), dev)
+    check_input("cache.ras", cache.ras, f32, (table_views * rows * w, 4), dev)
     if cache.ras.data_ptr() % 16:
         raise ValueError("cache.ras must be 16-byte aligned (one float4 per pixel)")
     start, view, dv = device_pair_tables(pairs, v, dev, table_views)

@@ -213,18 +213,19 @@ def make_cell(name: str, s, h: int, w: int, dev: torch.device, root: str, overri
 def kernel_launches() -> dict[str, int]:
     """Each kernel's launches since :func:`reset_launches`, graph replays
     included."""
-    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import REPLAYED_LAUNCHES
-    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, sweep
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import REPLAYED_LAUNCHES, launch_counts
+    from cl_multiview_stereo_tpu_torch.ops import sweep
 
-    mods = {"cost_volume": cost_volume, "sweep": sweep, "consistency": consistency}
-    return {k: m.LAUNCHES + REPLAYED_LAUNCHES.get(k, 0) for k, m in mods.items()}
+    counts = {"sweep": sweep.LAUNCHES, **launch_counts()}
+    return {k: n + REPLAYED_LAUNCHES.get(k, 0) for k, n in counts.items()}
 
 
 def reset_launches() -> None:
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import REPLAYED_LAUNCHES
-    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, sweep
+    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, slic, sweep
 
     cost_volume.LAUNCHES = sweep.LAUNCHES = consistency.LAUNCHES = 0
+    slic.LAUNCHES.update(dict.fromkeys(slic.LAUNCHES, 0))
     REPLAYED_LAUNCHES.clear()
 
 

@@ -5,25 +5,28 @@ A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over the card's memory rate,
 and the f32 operations it does on these inputs over the card's f32 peak.
 Each kernel has one work function that counts (bytes, operations) from its
-real inputs: :func:`cost_volume_work`, :func:`sweep_work` and
-:func:`consistency_work`.  ``chip_smoke.py`` and this tool both use them,
-so a kernel's roofline share reads the same work whatever implements it.
+real inputs: :func:`cost_volume_work`, :func:`sweep_work`,
+:func:`consistency_work` and, for SLIC's three kernels, :func:`slic_work`.
+``chip_smoke.py`` and this tool both use them, so a kernel's roofline
+share reads the same work whatever implements it.
 :func:`gather_work` counts the row gathers of ``tools.profile_propagate``'s
 gather-rate ladder the same way.
 
 Usage:
 
   python -m cl_multiview_stereo_tpu_torch.tools.roofline \\
-      [--kernel all|cost_volume|sweep|consistency] [--shapes main|row] \\
+      [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote] \\
+      [--shapes main|row] \\
       [--views 2 --height 480 --width 640 --d 64] [--device cuda|cpu]
 
 ``--shapes main`` is the slice's scene: 9 views of 1080x1920 at
 ``SystemSettings()`` (31 hypotheses, 40 pairs; the consistency kernel on
-sweep 0's two calls of the gather engine, the main path's launches).
+sweep 0's two calls of the gather engine, the main path's launches; the
+SLIC kernels on the scene's converged labels and map).
 ``--shapes row`` is the JAX tool's case: ``--views`` views in one row,
 ``--height`` x ``--width``, the ladder 4 .. 3 + ``--d``; the sweep there
 reads random Lab with each view against its right and left neighbour.  Without ``--shapes`` the sweep takes
-``row`` (2x480x640, D = 64: BASELINE config 1) and the other two ``main``.
+``row`` (2x480x640, D = 64: BASELINE config 1) and the others ``main``.
 
 Each kernel and its plain twin run once, then their times are taken with
 CUDA events in turns (kernel, plain, kernel, plain).  Prints one JSON line
@@ -52,10 +55,18 @@ PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
 # sums, each exp counted as one) and its plane disparity per (move, cell,
 # sample) 8
 CV_OPS_VALID, SWEEP_OPS_SAD, CONS_OPS_TERM, CONS_OPS_DIP = 9, 8, 36, 8
+# SLIC: a candidate cluster inside the map costs 18 (the colour and space
+# distances, the weighted sum, the sqrt and the compare; about 72 a pixel);
+# a member pixel of the update 5 adds, each cluster 9 x 6 adds of the
+# partials and 5 divides; an interior pixel of the vote 25 compares and 25
+# adds, counted at the f32 rate
+SLIC_OPS_CAND, SLIC_OPS_MEMBER, SLIC_OPS_CLUSTER, SLIC_OPS_VOTE = 18, 5, 59, 50
 # the bytes of one device memory sector, the unit a gather reads rows in
 SECTOR = 32
 # CUDA-event iterations of (kernel, plain twin) in each of the two turns
-ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1)}
+ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1),
+         "slic_assign": (20, 2), "slic_update": (20, 1), "slic_vote": (20, 2)}
+SLIC_KERNELS = ("slic_assign", "slic_update", "slic_vote")
 KERNELS = tuple(ITERS)
 NOT_MEASURED = "not measured"
 
@@ -143,6 +154,49 @@ def consistency_work(ctx, cache, d_c, n_c, pairs) -> tuple[int, int]:
     return n_bytes + 4 * (v + 1 + 3 * len(pairs)), ops
 
 
+def slic_candidates(h: int, w: int, geom) -> int:
+    """The assignment's candidates inside the map, summed over one view's
+    pixels (each pixel has four, as ``find_center_association`` picks them)."""
+    s, mh, mw = geom.spixl_size, geom.map_h, geom.map_w
+    col, row = torch.arange(w)[None, :], torch.arange(h)[:, None]
+    dxp, dyp = (col % s + s // 2) // s, (row % s + s // 2) // s
+    total = 0
+    for i_off in (-1, 0):
+        for j_off in (-1, 0):
+            qy, qx = row // s + dxp + i_off, col // s + dyp + j_off
+            total += int(((qy >= 0) & (qy < mh) & (qx >= 0) & (qx < mw)).sum())
+    return total
+
+
+def slic_members(labels, geom) -> int:
+    """Pixels that the update adds to a cluster: a label in [0, Mh*Mw) at
+    most one cell from the pixel's home cell."""
+    s, mh, mw = geom.spixl_size, geom.map_h, geom.map_w
+    h, w = labels.shape[1:3]
+    lbl = labels.to(torch.int64)
+    home_y = torch.arange(h, device=lbl.device)[:, None] // s
+    home_x = torch.arange(w, device=lbl.device)[None, :] // s
+    near = ((lbl.div(mw, rounding_mode="floor") - home_y).abs() <= 1) & ((lbl % mw - home_x).abs() <= 1)
+    return int(((lbl >= 0) & (lbl < mh * mw) & near).sum())
+
+
+def slic_work(kernel: str, lab, labels, geom) -> tuple[int, int]:
+    """(bytes, operations) of one SLIC launch at ``labels``' shape: the
+    assignment reads lab and the (x, y, L, a, b) table and writes the
+    labels; the update reads lab and ``labels`` and writes the map's centre,
+    colour and count; the vote reads ``labels`` and writes as many."""
+    v, h, w = labels.shape
+    clusters = v * geom.map_h * geom.map_w
+    if kernel == "slic_assign":
+        return nbytes(lab, labels) + 4 * 5 * clusters, SLIC_OPS_CAND * v * slic_candidates(h, w, geom)
+    if kernel == "slic_update":
+        return (nbytes(lab, labels) + 4 * 6 * clusters,
+                SLIC_OPS_MEMBER * slic_members(labels, geom) + SLIC_OPS_CLUSTER * clusters)
+    if kernel == "slic_vote":
+        return 2 * nbytes(labels), SLIC_OPS_VOTE * v * max(h - 4, 0) * max(w - 4, 0)
+    raise ValueError(f"no SLIC kernel {kernel!r}; expected one of {SLIC_KERNELS}")
+
+
 def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, int]:
     """(bytes, operations) of a row gather ``out`` from a contiguous table
     of ``n_rows`` rows of ``row_bytes`` each (``tools.profile_propagate``'s
@@ -193,6 +247,33 @@ def depth_inputs(rgb, settings, device):
     extent = superpixel.superpixel_extent(labels, spmap.center, geom)
     step = superpixel.extent_step(extent).contiguous()
     return lab.contiguous(), spmap.center.contiguous(), step
+
+
+def slic_inputs(rgb, settings, device):
+    """SLIC on scene ``rgb`` as the slice runs it: (lab, geometry, params,
+    the converged labels, the map they were assigned from)."""
+    from cl_multiview_stereo_tpu_torch.config import DerivedGeometry, SlicParams
+    from cl_multiview_stereo_tpu_torch.ops import slic
+    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+
+    h, w = rgb.shape[1:3]
+    geom, p = DerivedGeometry.create(w, h, settings), SlicParams.create(settings)
+    lab = rgb_to_lab(torch.as_tensor(rgb, device=device)).contiguous()
+    labels, spmap = slic.segment(lab, geom, p)
+    return lab, geom, p, labels, spmap
+
+
+def slic_calls(kernel: str, lab, geom, p, labels, spmap) -> tuple:
+    """(kernel fn, plain fn) of one SLIC kernel on these inputs."""
+    from cl_multiview_stereo_tpu_torch.ops import slic
+
+    if kernel == "slic_assign":
+        return (lambda: slic.find_center_association(lab, spmap, geom, p),
+                lambda: slic.find_center_association_reference(lab, spmap, geom, p))
+    if kernel == "slic_update":
+        return (lambda: slic.update_cluster_centers(lab, labels, spmap, geom),
+                lambda: slic.update_cluster_centers_reference(lab, labels, spmap, geom))
+    return (lambda: slic.suppress_local_labels(labels), lambda: slic.suppress_local_labels_reference(labels))
 
 
 def sweep0_state(settings, rgb, device):
@@ -259,6 +340,11 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
     else:
         s = SystemSettings(array_width=args.views, array_height=1, min_disp=4, max_disp=3 + args.d, inc=1)
         h, w, disp = args.height, args.width, float(4 + args.d // 2)
+    if kernel in SLIC_KERNELS:
+        rgb, _ = fronto_parallel_scene(h, w, s.array_width, s.array_height, disp=disp, bl_ratio=s.bl_ratio)
+        lab, geom, p, labels, spmap = slic_inputs(rgb, s, device)
+        label = f"{lab.shape[0]}x{h}x{w} S{geom.spixl_size} -> {geom.map_h}x{geom.map_w} cells"
+        return label, [(*slic_calls(kernel, lab, geom, p, labels, spmap), slic_work(kernel, lab, labels, geom))]
     if kernel == "sweep" and shapes == "row":
         # the JAX tool's inputs: random Lab, each view against its neighbours
         v = args.views

@@ -47,7 +47,9 @@ def test_bench_record_on_the_cpu(cell, capsys):
         "stream_views_per_s": 3 * v / rec["median_s"],
     }[rec["metric"]]
     assert rec["value"] == want
-    assert rec["launches"] == {"cost_volume": 0, "sweep": 0, "consistency": 0}  # no kernel on the CPU
+    # no kernel on the CPU
+    assert rec["launches"] == {"cost_volume": 0, "sweep": 0, "consistency": 0, "slic_assign": 0, "slic_update": 0,
+                               "slic_vote": 0}
 
 
 def test_bench_slice_cell_equals_run(tmp_path):

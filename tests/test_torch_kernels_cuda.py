@@ -780,3 +780,191 @@ def test_run_scenes_bitwise_run_on_the_card(cuda, tmp_path):
     assert [i for i, _ in got] == [0, 1, 2, 3]
     for k, (_, disp) in enumerate(got):
         assert torch.equal(disp, pipe.run(arrays[k % 2]).disp_full), k
+
+
+# SLIC on csrc/slic.cu: chip_smoke.py's phase-2 shape (the slice's 9-view
+# 1080p scene), ragged cells at the map's edge, and 5-pixel cells
+SLIC_SHAPES = {
+    "full-9x1080x1920": (1080, 1920, 8),
+    "ragged-9x543x967": (543, 967, 8),
+    "S5-9x270x481": (270, 481, 5),
+}
+# the update kernel's colour against the plain form's (the centre and the
+# count add integers below 2**24, exact in any order)
+SLIC_COLOR_RTOL, SLIC_COLOR_ATOL = 1e-5, 1e-4
+
+
+@pytest.fixture(scope="module")
+def slic_scenes():
+    """Per SLIC_SHAPES entry: (lab, geom, params, converged labels and map
+    from the kernels' ``segment``), built on first use."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            h, w, spx = SLIC_SHAPES[name]
+            s = SystemSettings(spixl_size=spx)
+            rgb, _ = synthetic.fronto_parallel_scene(h, w, 3, 3, disp=40.0, bl_ratio=s.bl_ratio, seed=0)
+            lab = rgb_to_lab(torch.as_tensor(rgb, device="cuda")).contiguous()
+            geom, p = DerivedGeometry.create(w, h, s), SlicParams.create(s)
+            labels, spmap = slic.segment(lab, geom, p)
+            cache[name] = (lab, geom, p, labels, spmap)
+        return cache[name]
+
+    return get
+
+
+def _slic_update_close(got, want):
+    assert torch.equal(got.center, want.center), f"{int((got.center != want.center).sum())} centres differ"
+    assert torch.equal(got.count, want.count), f"{int((got.count != want.count).sum())} counts differ"
+    torch.testing.assert_close(got.color, want.color, rtol=SLIC_COLOR_RTOL, atol=SLIC_COLOR_ATOL)
+    assert got.disp is want.disp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SLIC_SHAPES))
+@pytest.mark.parametrize("start", ["seeds", "converged"])
+def test_slic_assign_bitwise(slic_scenes, shape, start):
+    lab, geom, p, _, spmap = slic_scenes(shape)
+    if start == "seeds":
+        spmap = slic.init_cluster_centers(lab, geom)
+    before = slic.LAUNCHES["slic_assign"]
+    got = slic.find_center_association(lab, spmap, geom, p)
+    torch.cuda.synchronize()
+    assert slic.LAUNCHES["slic_assign"] == before + 1
+    want = slic.find_center_association_reference(lab, spmap, geom, p)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want), f"{int((got != want).sum())} labels differ"
+
+
+def _stray(labels, geom, seed=3):
+    """Converged labels with -1, labels past Mh*Mw, labels two cells from
+    their pixel and one view's top-left 4x4 cells all relabelled 0 (which
+    empties clusters)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    flat = labels.clone().reshape(-1)
+    n_cells = geom.map_h * geom.map_w
+    pick = torch.randperm(flat.numel(), generator=gen)[:3000].to(labels.device)
+    flat[pick[:1000]] = -1
+    flat[pick[1000:2000]] = n_cells + 7
+    flat[pick[2000:]] = (flat[pick[2000:]] + 2) % n_cells
+    out = flat.reshape(labels.shape)
+    s = geom.spixl_size
+    out[2, :4 * s, :4 * s] = 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SLIC_SHAPES))
+@pytest.mark.parametrize("labels_kind", ["converged", "stray"])
+def test_slic_update_matches_reference(slic_scenes, shape, labels_kind):
+    lab, geom, _, labels, spmap = slic_scenes(shape)
+    if labels_kind == "stray":
+        labels = _stray(labels, geom)
+    before = slic.LAUNCHES["slic_update"]
+    got = slic.update_cluster_centers(lab, labels, spmap, geom)
+    torch.cuda.synchronize()
+    assert slic.LAUNCHES["slic_update"] == before + 1
+    want = slic.update_cluster_centers_reference(lab, labels, spmap, geom)
+    _slic_update_close(got, want)
+    if labels_kind == "stray":
+        assert bool((want.count == 0).any())  # empty clusters, zeroed alike
+        v, h, w = labels.shape
+        assert float(got.count.sum()) < v * h * w  # the strays were dropped
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SLIC_SHAPES))
+@pytest.mark.parametrize("labels_kind", ["converged", "noisy"])
+def test_slic_vote_bitwise(slic_scenes, shape, labels_kind):
+    _, geom, _, labels, _ = slic_scenes(shape)
+    if labels_kind == "noisy":  # flips enough neighbours to trigger the vote often
+        gen = torch.Generator(device="cpu").manual_seed(2)
+        flip = (torch.rand(labels.shape, generator=gen) < 0.4).to(labels.device)
+        other = torch.randint(0, geom.map_h * geom.map_w, labels.shape, generator=gen, dtype=torch.int32)
+        labels = torch.where(flip, other.to(labels.device), labels)
+    before = slic.LAUNCHES["slic_vote"]
+    got = slic.suppress_local_labels(labels)
+    torch.cuda.synchronize()
+    assert slic.LAUNCHES["slic_vote"] == before + 1
+    want = slic.suppress_local_labels_reference(labels)
+    assert torch.equal(got, want), f"{int((got != want).sum())} labels differ"
+    if labels_kind == "noisy":
+        assert bool((got != labels).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["default", "connectivity"])
+def test_slic_segment_agrees_with_reference(slic_scenes, flags):
+    lab, geom, p, labels, spmap = slic_scenes("full-9x1080x1920")
+    if flags == "connectivity":
+        p = SlicParams.create(SystemSettings(enforce_connectivity=True))
+        labels, spmap = slic.segment(lab, geom, p)
+    want_labels, want_map = slic.segment_reference(lab, geom, p)
+    agree = float((labels == want_labels).float().mean())
+    assert agree >= 0.9999, agree
+    assert torch.equal(spmap.count.sum(dim=(1, 2)), want_map.count.sum(dim=(1, 2)))
+
+
+@pytest.mark.cuda
+def test_slic_kernels_per_view_independent_of_the_batch(slic_scenes):
+    """Views 3..5 alone give the bits of their rows of the 9-view call."""
+    lab, geom, p, labels, spmap = slic_scenes("ragged-9x543x967")
+    v0, nv = 3, 3
+    part = slic.SuperpixelMap(*(x[v0:v0 + nv].contiguous() for x in spmap))
+    lab3, labels3 = lab[v0:v0 + nv].contiguous(), labels[v0:v0 + nv].contiguous()
+    assert torch.equal(slic.find_center_association(lab3, part, geom, p),
+                       slic.find_center_association(lab, spmap, geom, p)[v0:v0 + nv])
+    got = slic.update_cluster_centers(lab3, labels3, part, geom)
+    whole = slic.update_cluster_centers(lab, labels, spmap, geom)
+    for f in ("center", "color", "count"):
+        assert torch.equal(getattr(got, f), getattr(whole, f)[v0:v0 + nv]), f
+    assert torch.equal(slic.suppress_local_labels(labels3), slic.suppress_local_labels(labels)[v0:v0 + nv])
+
+
+@pytest.mark.cuda
+def test_slic_wrappers_reject_bad_input(slic_scenes):
+    lab, geom, p, labels, spmap = slic_scenes("S5-9x270x481")
+    with pytest.raises(TypeError):
+        slic.find_center_association(lab.double(), spmap, geom, p)
+    with pytest.raises(ValueError):
+        slic.find_center_association(lab.transpose(1, 2).contiguous().transpose(1, 2), spmap, geom, p)
+    with pytest.raises(ValueError):
+        slic.find_center_association(lab, spmap._replace(color=spmap.color.cpu()), geom, p)
+    with pytest.raises(TypeError):
+        slic.update_cluster_centers(lab, labels.long(), spmap, geom)
+    with pytest.raises(ValueError):
+        slic.update_cluster_centers(lab, labels.transpose(1, 2).contiguous().transpose(1, 2), spmap, geom)
+    with pytest.raises(ValueError, match="does not cover"):  # cells of a 135-row image
+        slic.update_cluster_centers(lab, labels, spmap, DerivedGeometry.create(481, 135, SystemSettings(spixl_size=5)))
+    with pytest.raises(TypeError):
+        slic.suppress_local_labels(labels.long())
+    with pytest.raises(ValueError):
+        slic.suppress_local_labels(labels[:, :, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("connectivity", [False, True])
+def test_slic_launches_of_one_run(cuda, connectivity):
+    """One ``run`` launches the assignment no_iter + 1 times, the update
+    no_iter times and the vote twice under enforce_connectivity; the graph
+    of ``jitted()`` counts the same launches at each replay."""
+    from cl_multiview_stereo_tpu_torch.models import mvs_pipeline
+
+    s = SystemSettings(**JIT_SETTINGS, enforce_connectivity=connectivity)
+    pipe = mvs_pipeline.MVSPipeline.create(96, 72, s, device=cuda)
+    want = {"slic_assign": s.no_iter + 1, "slic_update": s.no_iter, "slic_vote": 2 if connectivity else 0}
+    rgb = _jit_scene(7.0, 1)
+    before = dict(slic.LAUNCHES)
+    art = pipe.run(rgb)
+    torch.cuda.synchronize()
+    assert {k: slic.LAUNCHES[k] - before[k] for k in want} == want
+    fwd = pipe.jitted()
+    fwd(rgb)
+    replayed = dict(mvs_pipeline.REPLAYED_LAUNCHES)
+    got = fwd(rgb)
+    torch.cuda.synchronize()
+    assert {k: mvs_pipeline.REPLAYED_LAUNCHES.get(k, 0) - replayed.get(k, 0) for k in want} == want
+    assert torch.equal(got.labels, art.labels)

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from cl_multiview_stereo_tpu_torch.config import SystemSettings, build_disp_levels
+from cl_multiview_stereo_tpu_torch.config import DerivedGeometry, SystemSettings, build_disp_levels
 from cl_multiview_stereo_tpu_torch.tools import roofline
 from torch_parity import CPU  # noqa: F401  (two torch threads a worker)
 
@@ -100,6 +100,36 @@ def test_consistency_work_hand_count():
     assert n_bytes == 4 * (cells * (2 + 3 + 18 + 2) + v * h * w * 4 + m * cells * (1 + 3 + 1)) + 4 * (v + 1 + 9)
 
 
+def test_slic_work_counted_one_pixel_at_a_time():
+    """2 views of 20x28 in 8-pixel cells (3x4 cells, ragged at both
+    edges), labels drawn from -2 .. Mh*Mw + 1: the assignment's candidates
+    inside the map and the update's member pixels counted pixel by pixel."""
+    v, h, w, s = 2, 20, 28, 8
+    geom = DerivedGeometry.create(w, h, SystemSettings(spixl_size=s))
+    mh, mw = geom.map_h, geom.map_w
+    assert (mh, mw) == (3, 4)
+    labels = np.random.default_rng(6).integers(-2, mh * mw + 2, (v, h, w)).astype(np.int32)
+    cand = members = 0
+    for y in range(h):
+        for x in range(w):
+            dxp, dyp = (x % s + s // 2) // s, (y % s + s // 2) // s
+            cand += sum(0 <= y // s + dxp + i < mh and 0 <= x // s + dyp + j < mw
+                        for i in (-1, 0) for j in (-1, 0))
+            for z in range(v):
+                lbl = int(labels[z, y, x])
+                members += (0 <= lbl < mh * mw and abs(lbl // mw - y // s) <= 1
+                            and abs(lbl % mw - x // s) <= 1)
+    assert 0 < members < v * h * w and cand < 4 * h * w
+    lab, lab_t = torch.zeros((v, h, w, 3)), torch.from_numpy(labels)
+    pix, cells = v * h * w, v * mh * mw
+    assert roofline.slic_work("slic_assign", lab, lab_t, geom) == (4 * (3 * pix + pix + 5 * cells), 18 * v * cand)
+    assert roofline.slic_work("slic_update", lab, lab_t, geom) == (4 * (3 * pix + pix + 6 * cells),
+                                                                   5 * members + 59 * cells)
+    assert roofline.slic_work("slic_vote", lab, lab_t, geom) == (4 * 2 * pix, 50 * v * (h - 4) * (w - 4))
+    with pytest.raises(ValueError):
+        roofline.slic_work("slic", lab, lab_t, geom)
+
+
 @pytest.mark.parametrize("n_bytes, n_ops, want", [
     (3.35e9, 1.0, (1.0, "bytes")),
     (1.0, 67e9, (1.0, "operations")),
@@ -121,4 +151,4 @@ def test_roofline_counts_on_the_cpu(capsys):
     for r in recs:
         assert r["card"] == "cpu" and r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
         assert r["ms"] == r["plain_ms"] == r["share"] == "not measured"
-    assert len(capsys.readouterr().out.strip().splitlines()) == 3
+    assert len(capsys.readouterr().out.strip().splitlines()) == len(roofline.KERNELS)
