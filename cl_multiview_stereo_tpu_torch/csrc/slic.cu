@@ -10,27 +10,65 @@
 // forms are eager PyTorch with (V, H, W, 5) gathers and (6, V, H, W) stacks.
 // The reference ran them as OpenCL kernels after gSLICr (clcode.cl:447-773).
 //
-// slic_assign (clcode.cl:447-520), one thread per pixel: the four candidate
-// clusters of the plain form in its order and with its quirks (the column's
-// half-cell parity dxp moves the candidate row, the row's dyp the column;
-// i_off outer, j_off inner; a candidate outside the map never wins; a strict
-// < against a running best that starts at inf, so the first minimum wins;
-// -1 if none wins).  The distance in the plain form's rounding:
+// slic_assign and slic_update's first kernel share one layout: a block per
+// (run of cpb whole cells, cell row cy, view v), threads (min(S, 128), cpb);
+// thread (tx, j) owns pixel column tx of cell c0 + j (and tx + 128, ... when
+// S > 128) and walks the cell row's S rows.  Nothing is divided per pixel:
+// the column's half-cell parity dxp = (tx + S/2) / S is the compare
+// tx >= S - S/2, and a row's dyp the same compare of its row.  A column's
+// rows are read by batched register loads, every load of a batch issued
+// before the arithmetic that needs it, and a thread's first batch before
+// anything else it does.  Not a cp.async stage into shared memory: each
+// pixel is read once, by one thread, so a stage saves no byte and adds a
+// shared-memory round trip and a barrier (a staged update, with 16-byte
+// copies where the rows allow them, was slower in a trial build); a warp's
+// loads of a row cover one contiguous run of 32 x 12 bytes, which L1
+// merges, at any width and alignment (W * 12 bytes need not be a multiple
+// of 16).
+//
+// slic_assign (clcode.cl:447-520): the four candidate clusters of the plain
+// form in its order and with its quirks (the column's half-cell parity dxp
+// moves the candidate row, the row's dyp the column; i_off outer, j_off
+// inner; a candidate outside the map never wins; a strict < against a
+// running best that starts at inf, so the first minimum wins; -1 if none
+// wins).  The distance in the plain form's rounding:
 //   cd   = ((l-L)*(l-L) + (a-A)*(a-A)) + (b-B)*(b-B)
 //   sd   = (x-X)*(x-X) + (y-Y)*(y-Y)
 //   dist = sqrt(cd*mcd + (cw*sd)*mxy)
 // with the _rn intrinsics (the library is built with --fmad=false) and IEEE
-// sqrt, so the labels are bitwise the plain form's given the same map.
+// sqrt, never squared distances compared (the rounded sqrt ties values that
+// differ), so the labels are bitwise the plain form's given the same map.
+// The block stages its candidates once: cell rows cy-1..cy+1 by columns
+// c0-1..c0+cpb, x, y, L, a, b as structure of arrays in shared memory, an
+// off-map cell as NaN (its distance is NaN, which never passes the strict <,
+// as the plain form's inf never does).  A column's dxp picks two of the
+// three rows and dyp two of its three cells, so each thread copies its six
+// candidates into registers once, with the column's (x-X)*(x-X) already
+// squared.  The rows of each dyp are walked kHalf at a time, the two runs
+// side by side in straight-line code (the candidate set is a template
+// argument, not a branch a row), so 2 * kHalf pixels' four distances are in
+// flight together; the labels are written one coalesced row at a time.
 //
 // slic_update (clcode.cl:533-773), two launches, no atomics (float atomics
 // would make the colours, and so the next labels, vary from run to run):
-//   partial: a block per (view, cell row, run of cells), one thread per
-//     pixel column of its cells.  Each thread walks the S rows of its home
-//     cell and adds each pixel whose label is a cluster at most one cell
-//     away (class (dy, dx) = cluster cell - home cell) to that class's
-//     column sums in shared memory: L, a, b, y and the count (x is the
-//     column's own, x * count).  Then the block adds each (cell, class)'s
-//     columns in ascending order and writes (V, 9, 6, Mh*Mw) partials.
+//   partial: each thread keeps its column's 9 x 5 sums (L, a, b, y and the
+//     count of each class (dy, dx) = cluster cell - home cell) in
+//     registers.  A pixel's class is the one whose cluster id
+//     (cy+dy)*Mw + cx+dx equals its label; the add of the other eight is
+//     predicated off, which is the plain form's add of +0.0 (a sum that
+//     starts at +0.0 is never -0.0, and s + 0.0 == s).  Ids of clusters on
+//     the map are distinct; a class whose cluster lies off the map has an id
+//     that a label may match, but the finalize never reads that class of
+//     that home cell, so a label outside [0, Mh*Mw) or more than one cell
+//     away adds to nothing that is read.  Each thread then writes its
+//     column sums to shared memory once, each cell's S columns in a row of
+//     P = S or S + 1 (odd) floats, and the block adds each (cell, class,
+//     sum)'s S columns in ascending order (x as the column's x times its
+//     count, exact), a warp's lanes on neighbouring cells and each thread
+//     on kInterleave such sums side by side: the odd stride puts a warp's
+//     reads on distinct banks but where two (class, sum) rows meet, at most
+//     2-way, and the writes are at most 2-way too.  It writes
+//     (V, 9, 6, Mh*Mw) partials.
 //   finalize: one thread per cluster adds the nine classes' partials of
 //     its home cells (dy outer, dx inner, each home = cluster - (dy, dx)) and
 //     divides; a cluster with no member is zeroed.
@@ -38,21 +76,37 @@
 // class a column's rows first, then the columns), and a label outside
 // [0, Mh*Mw) or more than one cell from its pixel's home cell belongs to no
 // cluster, as there.  Centre and count add integers below 2**24, so they are
-// exact in any order and bitwise the plain form's; the Lab sums round in
-// this order.
+// exact in any order; the Lab sums round in this order, bitwise the plain
+// form's.  The partials (216 bytes a cell, 63 MB at 9 x 1080p, written once
+// and read once: 0.038 ms at the byte rate) are the price of that order
+// without atomics.  A cluster's sums need its home cells one row above and
+// below, which other blocks hold: thread-block clusters could pass them
+// through distributed shared memory only inside a cluster of cell rows, so
+// its first and last rows would still go through memory or read their
+// neighbours' pixels again, and the finalize stays a launch of its own.
+// Writing only the partials of classes with members, and reading them
+// only there, was slower in a trial build.
 //
 // slic_vote (clcode.cl:676-711), one thread per pixel: the labels of the
 // 5x5 neighbourhood that differ from the pixel's own, rows j outer and
 // columns i inner; at least 16 of them and the pixel takes the last; the
 // 2-pixel border passes through.
 //
-// What bounds them on the card: bytes.  Each reads the image's labels and
-// (assign, update) its Lab once, about 72 f32 operations a pixel at most, far
-// below the f32 peak's share of those bytes.  The assignment's four
-// candidates of neighbouring pixels are the same few clusters, served by
-// L1; the update's partials (216 bytes a cell, written once and read once:
-// about 40 % more than the image's 300 MB at 9 x 1080p) are its price for
-// a fixed order without atomics.  Every output depends only on its own
+// What bounds them on an NVIDIA H100 80GB HBM3 at 700 W (tools/sass.py for
+// the code, tools/roofline.py and chip_smoke.py for the times, at 9 x 1080p
+// with S = 8).  The first forms of the assignment and the update (one
+// thread a pixel; column sums read back at a stride of S floats) took
+// 0.29 and 0.31 ms against byte bounds of 0.091 ms: the assignment issued a
+// 64-bit division, five 32-bit ones and 20 bounds-tested table loads a
+// pixel (539 static SASS instructions, 32 registers), the update's column
+// sums 8-way bank conflicts (942 instructions).  These forms (1601 and
+// 1144 instructions, 80 registers each, six blocks an SM) take about 0.13
+// and 0.18 ms.  The assignment reads its bytes near the memory rate; what
+// is left is the four exact distances a pixel, about 100 instructions with
+// the IEEE sqrt, not all hidden under the loads.  The update moves its
+// pixels' bytes, the partials' 63 MB out and back and the finalize's own
+// launch: its bound counts only the first.  The vote (0.144 ms against
+// 0.045) keeps its first form.  Every output depends only on its own
 // view's inputs, in an order fixed by the shapes, so a block of views gives
 // the bits of the same views in a larger launch.
 
@@ -61,110 +115,270 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // assign and vote: one pixel a thread
-constexpr int kClasses = 9;     // (dy, dx) in {-1, 0, 1}^2, dy outer
-constexpr int kSums = 6;        // L, a, b, x, y, count
-constexpr int kStaged = 5;      // a column's sums in shared memory: L, a, b, y, count
-constexpr int kUpdateWidth = 128;  // pixel columns of an update block (whole cells)
-constexpr int kMaxS = 256;      // the largest cell of the update (its shared memory)
+constexpr int kThreads = 256;    // finalize and vote: one item a thread
+constexpr int kClasses = 9;      // (dy, dx) in {-1, 0, 1}^2, dy outer
+constexpr int kSums = 6;         // L, a, b, x, y, count
+constexpr int kStaged = 5;       // a column's sums: L, a, b, y, count
+constexpr int kRunWidth = 128;   // pixel columns of an assign or update block (whole cells)
+constexpr int kMaxS = 256;       // the largest cell of the update (its shared memory)
+constexpr int kHalf = 4;         // assign: rows of each half-cell parity loaded together
+constexpr int kUpdateBatch = 4;  // update: rows of a column loaded together
+constexpr int kInterleave = 4;   // update: (cell, class, sum) sums a thread adds side by side
+constexpr int kMinBlocks = 6;    // assign and update blocks an SM holds: at most 80 registers a thread
+constexpr int kMaxGrid = 65535;  // gridDim.y and gridDim.z
 
 __device__ __forceinline__ float sq(float x) { return __fmul_rn(x, x); }
 
-__global__ void __launch_bounds__(kThreads) assign_kernel(
+// One candidate cluster of a pixel column: its colour, its y, the column's
+// (x - X)^2 and its id.
+struct Candidate {
+  float L, A, B, Y, dx2;
+  int id;
+};
+
+// The plain form's distance to ``c`` and its strict < against the best.
+__device__ __forceinline__ void consider(const Candidate& c, float l, float a, float b, float yf, float mcd,
+                                         float mxy, float cw, float& best, int& best_id) {
+  const float cd = __fadd_rn(__fadd_rn(sq(__fsub_rn(l, c.L)), sq(__fsub_rn(a, c.A))), sq(__fsub_rn(b, c.B)));
+  const float sd = __fadd_rn(c.dx2, sq(__fsub_rn(yf, c.Y)));
+  const float dist = __fsqrt_rn(__fadd_rn(__fmul_rn(cd, mcd), __fmul_rn(__fmul_rn(cw, sd), mxy)));
+  if (dist < best) {  // NaN (a cell off the map) never passes
+    best = dist;
+    best_id = c.id;
+  }
+}
+
+// The nearest of a pixel's four candidates, in the plain form's order: the
+// candidate rows' two cells at columns cx - 1 + kDyp and cx + kDyp.
+template <int kDyp>
+__device__ __forceinline__ int nearest(const Candidate (&c)[6], const float (&px)[3], float yf, float mcd,
+                                       float mxy, float cw) {
+  float best = CUDART_INF_F;
+  int best_id = -1;
+  consider(c[kDyp], px[0], px[1], px[2], yf, mcd, mxy, cw, best, best_id);
+  consider(c[kDyp + 1], px[0], px[1], px[2], yf, mcd, mxy, cw, best, best_id);
+  consider(c[kDyp + 3], px[0], px[1], px[2], yf, mcd, mxy, cw, best, best_id);
+  consider(c[kDyp + 4], px[0], px[1], px[2], yf, mcd, mxy, cw, best, best_id);
+  return best_id;
+}
+
+// Lab of rows r0 .. r0 + kHalf - 1 of the column at pix0 (a row past the
+// cell's last is read as its last, and its label never stored).
+__device__ __forceinline__ void load_rows(const float* __restrict__ lab, long long pix0, int W, int r0, int rows,
+                                          float (&px)[kHalf][3]) {
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float* q = lab + 3 * (pix0 + (long long)min(r0 + i, rows - 1) * W);
+    px[i][0] = __ldg(q);
+    px[i][1] = __ldg(q + 1);
+    px[i][2] = __ldg(q + 2);
+  }
+}
+
+// Grid (runs of cpb cells, <= Mh, <= V) striding over cell rows and views;
+// threads (min(S, kRunWidth), cpb).  A column's rows r < split (dyp = 0)
+// and r >= split (dyp = 1) go in pairs of batches, each batch straight-line
+// code over its kHalf rows: the first pair's loads are issued before the
+// block stages its candidates.
+__global__ void __launch_bounds__(kRunWidth, kMinBlocks) assign_kernel(
     const float* __restrict__ lab,     // (V, H, W, 3)
     const float* __restrict__ center,  // (V, Mh * Mw, 2) x, y
     const float* __restrict__ color,   // (V, Mh * Mw, 3) L, a, b
     int* __restrict__ labels,          // (V, H, W)
-    int V, int H, int W, int S, int Mh, int Mw, float mcd, float mxy, float cw) {
-  const long long hw = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= V * hw) return;
-  const int v = (int)(idx / hw);
-  const int p = (int)(idx - v * hw);
-  const int row = p / W, col = p - row * W;
-  const int cx = col / S, cy = row / S;
-  const int dxp = (col % S + S / 2) / S;  // half-cell parity from the column
-  const int dyp = (row % S + S / 2) / S;  // ... and from the row
-  const float l = lab[3 * idx], a = lab[3 * idx + 1], b = lab[3 * idx + 2];
-  const float xf = (float)col, yf = (float)row;
-  const float* cen = center + 2LL * v * Mh * Mw;
-  const float* col3 = color + 3LL * v * Mh * Mw;
-  float best = CUDART_INF_F;
-  int best_id = -1;
-#pragma unroll
-  for (int i_off = -1; i_off <= 0; ++i_off) {
-#pragma unroll
-    for (int j_off = -1; j_off <= 0; ++j_off) {
-      const int qy = cy + dxp + i_off;  // the parity swap
-      const int qx = cx + dyp + j_off;
-      if (qy < 0 || qy >= Mh || qx < 0 || qx >= Mw) continue;  // inf never beats best
-      const int cid = qy * Mw + qx;
-      const float cd = __fadd_rn(__fadd_rn(sq(__fsub_rn(l, col3[3 * cid])), sq(__fsub_rn(a, col3[3 * cid + 1]))),
-                                 sq(__fsub_rn(b, col3[3 * cid + 2])));
-      const float sd = __fadd_rn(sq(__fsub_rn(xf, cen[2 * cid])), sq(__fsub_rn(yf, cen[2 * cid + 1])));
-      const float dist = __fsqrt_rn(__fadd_rn(__fmul_rn(cd, mcd), __fmul_rn(__fmul_rn(cw, sd), mxy)));
-      if (dist < best) {
-        best = dist;
-        best_id = cid;
+    int V, int H, int W, int S, int Mh, int Mw, int cpb, float mcd, float mxy, float cw) {
+  // x, y, L, a, b of cell rows cy-1..cy+1, cell columns c0-1..c0+cpb
+  __shared__ float s_cand[kStaged][3][kRunWidth + 2];
+  const int bx = blockDim.x, j = threadIdx.y;
+  const int tid = j * bx + threadIdx.x, nthreads = bx * blockDim.y;
+  const int c0 = blockIdx.x * cpb, cx = c0 + j;
+  const int tw = cpb + 2, N = Mh * Mw;
+  const int split = S - S / 2;  // rows r >= split have dyp = 1
+  for (int v = blockIdx.z; v < V; v += gridDim.z) {
+    for (int cy = blockIdx.y; cy < Mh; cy += gridDim.y) {
+      const int rows = min(S, H - cy * S);
+      const int n0 = min(split, rows), n1 = rows - split;  // rows of each parity
+      int tx = threadIdx.x, col = cx * S + tx;
+      bool active = cx < Mw && col < W && rows > 0;
+      long long pix0 = ((long long)v * H + (long long)cy * S) * W + col;
+      float p0[kHalf][3], p1[kHalf][3];
+      if (active) {
+        load_rows(lab, pix0, W, 0, rows, p0);
+        load_rows(lab, pix0, W, split, rows, p1);
       }
+      for (int i = tid; i < 3 * tw; i += nthreads) {
+        const int ry = i / tw, rx = i - ry * tw;
+        const int qy = cy - 1 + ry, qx = c0 - 1 + rx;
+        float f[kStaged] = {CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F};
+        if (qy >= 0 && qy < Mh && qx >= 0 && qx < Mw) {
+          const long long q = (long long)v * N + qy * Mw + qx;
+          f[0] = center[2 * q];
+          f[1] = center[2 * q + 1];
+          f[2] = color[3 * q];
+          f[3] = color[3 * q + 1];
+          f[4] = color[3 * q + 2];
+        }
+#pragma unroll
+        for (int k = 0; k < kStaged; ++k) s_cand[k][ry][rx] = f[k];
+      }
+      __syncthreads();
+      bool loaded = true;
+      while (active) {
+        const int dxp = tx >= split ? 1 : 0;  // the column's half-cell parity: the candidate row
+        const float xf = (float)col;
+        // c[rr * 3 + cc]: cell row cy - 1 + dxp + rr, cell column cx - 1 + cc
+        Candidate c[6];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int cc = 0; cc < 3; ++cc) {
+            Candidate& d = c[rr * 3 + cc];
+            const int ry = dxp + rr, rx = j + cc;
+            d.dx2 = sq(__fsub_rn(xf, s_cand[0][ry][rx]));
+            d.Y = s_cand[1][ry][rx];
+            d.L = s_cand[2][ry][rx];
+            d.A = s_cand[3][ry][rx];
+            d.B = s_cand[4][ry][rx];
+            d.id = (cy - 1 + ry) * Mw + (cx - 1 + cc);
+          }
+        }
+        for (int b = 0; b < n0; b += kHalf) {
+          if (!loaded) {
+            load_rows(lab, pix0, W, b, rows, p0);
+            load_rows(lab, pix0, W, split + b, rows, p1);
+          }
+          loaded = false;
+          const float y0 = (float)(cy * S + b), y1 = (float)(cy * S + split + b);
+#pragma unroll
+          for (int i = 0; i < kHalf; ++i) {
+            const int id = nearest<0>(c, p0[i], __fadd_rn(y0, (float)i), mcd, mxy, cw);
+            if (b + i < n0) labels[pix0 + (long long)(b + i) * W] = id;
+          }
+#pragma unroll
+          for (int i = 0; i < kHalf; ++i) {
+            const int id = nearest<1>(c, p1[i], __fadd_rn(y1, (float)i), mcd, mxy, cw);
+            if (b + i < n1) labels[pix0 + (long long)(split + b + i) * W] = id;
+          }
+        }
+        tx += bx;  // the next column of the cell when S > kRunWidth
+        col += bx;
+        pix0 += bx;
+        active = tx < S && col < W;
+        loaded = false;
+      }
+      __syncthreads();  // before the next cell row restages
     }
   }
-  labels[idx] = best_id;
 }
 
-// Grid (runs of cpb cells, Mh, V); cpb * S <= kMaxS threads, thread t on
-// pixel column run * cpb * S + t.  Shared memory: kClasses * kStaged rows
-// of blockDim.x column sums, the thread fastest.
-__global__ void __launch_bounds__(kMaxS) update_partial_kernel(
+// Labels and Lab of rows r0 .. r0 + kUpdateBatch - 1 of the column at pix0
+// (a row past the cell's last is read as its last, and never added).
+__device__ __forceinline__ void load_members(const int* __restrict__ labels, const float* __restrict__ lab,
+                                             long long pix0, int W, int r0, int rows, int (&lbl)[kUpdateBatch],
+                                             float (&px)[kUpdateBatch][3]) {
+#pragma unroll
+  for (int i = 0; i < kUpdateBatch; ++i) {
+    const long long pix = pix0 + (long long)min(r0 + i, rows - 1) * W;
+    lbl[i] = __ldg(labels + pix);
+    px[i][0] = __ldg(lab + 3 * pix);
+    px[i][1] = __ldg(lab + 3 * pix + 1);
+    px[i][2] = __ldg(lab + 3 * pix + 2);
+  }
+}
+
+// Grid (runs of cpb cells, Mh, V); threads (min(S, kRunWidth), cpb).
+// Shared memory: kClasses * kStaged planes of cpb rows of P floats (P odd),
+// column tx of cell j at j * P + tx.  The first batch of a thread's rows is
+// loaded before anything else.
+__global__ void __launch_bounds__(kRunWidth, kMinBlocks) update_partial_kernel(
     const float* __restrict__ lab,     // (V, H, W, 3)
     const int* __restrict__ labels,    // (V, H, W)
     float* __restrict__ partial,       // (V, kClasses, kSums, Mh * Mw)
-    int H, int W, int S, int Mh, int Mw, int cpb) {
+    int H, int W, int S, int Mh, int Mw, int cpb, int P) {
   extern __shared__ float s_col[];
-  const int T = blockDim.x, t = threadIdx.x;
+  const int bx = blockDim.x, j = threadIdx.y;
+  const int tid = j * bx + threadIdx.x, nthreads = bx * blockDim.y;
   const int cy = blockIdx.y, v = blockIdx.z;
-  const int cell0 = blockIdx.x * cpb;
-  const int cx = cell0 + t / S;
-  const int col = cell0 * S + t;
-  const int N = Mh * Mw;
-  for (int k = 0; k < kClasses * kStaged; ++k) s_col[k * T + t] = 0.0f;
-  if (cx < Mw && col < W) {
-    for (int r = 0; r < S; ++r) {
-      const int row = cy * S + r;
-      if (row >= H) break;
-      const long long pix = ((long long)v * H + row) * W + col;
-      const int lbl = labels[pix];
-      if (lbl < 0 || lbl >= N) continue;  // no cluster's: never divide a negative label
-      const int gy = lbl / Mw;
-      const int dy = gy - cy, dx = lbl - gy * Mw - cx;
-      if (dy < -1 || dy > 1 || dx < -1 || dx > 1) continue;  // outside the cluster's window
-      float* acc = s_col + ((dy + 1) * 3 + (dx + 1)) * kStaged * T + t;
-      acc[0] = __fadd_rn(acc[0], lab[3 * pix]);
-      acc[T] = __fadd_rn(acc[T], lab[3 * pix + 1]);
-      acc[2 * T] = __fadd_rn(acc[2 * T], lab[3 * pix + 2]);
-      acc[3 * T] = __fadd_rn(acc[3 * T], (float)row);
-      acc[4 * T] = __fadd_rn(acc[4 * T], 1.0f);
+  const int c0 = blockIdx.x * cpb, cx = c0 + j;
+  const int N = Mh * Mw, plane = cpb * P;
+  const int rows = min(S, H - cy * S);
+  const long long row0 = ((long long)v * H + (long long)cy * S) * W;  // pixel (cy * S, 0)
+  int lbl[kUpdateBatch];
+  float px[kUpdateBatch][3];
+  bool loaded = cx < Mw && cx * S + (int)threadIdx.x < W && rows > 0;
+  if (loaded) load_members(labels, lab, row0 + cx * S + threadIdx.x, W, 0, rows, lbl, px);
+  // the cluster id of each class (dy, dx), dy outer
+  int ids[kClasses];
+#pragma unroll
+  for (int k = 0; k < kClasses; ++k) ids[k] = (cy + k / 3 - 1) * Mw + cx + k % 3 - 1;
+  for (int tx = threadIdx.x; tx < S; tx += bx) {
+    const int col = cx * S + tx;
+    float acc[kClasses][kStaged];
+#pragma unroll
+    for (int k = 0; k < kClasses; ++k) {
+#pragma unroll
+      for (int q = 0; q < kStaged; ++q) acc[k][q] = 0.0f;
+    }
+    if (cx < Mw && col < W && rows > 0) {
+      for (int r0 = 0; r0 < rows; r0 += kUpdateBatch) {
+        if (!loaded) load_members(labels, lab, row0 + col, W, r0, rows, lbl, px);
+        loaded = false;
+#pragma unroll
+        for (int i = 0; i < kUpdateBatch; ++i) {
+          const int r = r0 + i;
+          if (r >= rows) break;
+          const float yf = (float)(cy * S + r);
+#pragma unroll
+          for (int k = 0; k < kClasses; ++k) {
+            if (lbl[i] == ids[k]) {
+              acc[k][0] = __fadd_rn(acc[k][0], px[i][0]);
+              acc[k][1] = __fadd_rn(acc[k][1], px[i][1]);
+              acc[k][2] = __fadd_rn(acc[k][2], px[i][2]);
+              acc[k][3] = __fadd_rn(acc[k][3], yf);
+              acc[k][4] = __fadd_rn(acc[k][4], 1.0f);
+            }
+          }
+        }
+      }
+    }
+    float* dst = s_col + j * P + tx;
+#pragma unroll
+    for (int k = 0; k < kClasses; ++k) {
+#pragma unroll
+      for (int q = 0; q < kStaged; ++q) dst[(k * kStaged + q) * plane] = acc[k][q];
     }
   }
   __syncthreads();
-  // each (cell, class, sum): its S columns in ascending order, cell fastest
-  // so that the stores of a warp fall on neighbouring cells
-  for (int i = t; i < cpb * kClasses * kSums; i += T) {
-    const int j = i % cpb, kq = i / cpb;
-    const int q = kq % kSums, k = kq / kSums;
-    const int hx = cell0 + j;
-    if (hx >= Mw) continue;
-    const float* rows_of = s_col + k * kStaged * T + j * S;
-    float acc = 0.0f;
-    for (int c = 0; c < S; ++c) {
-      float val;
-      if (q == 3)  // x: the column's x times its count, exact
-        val = __fmul_rn((float)(hx * S + c), rows_of[4 * T + c]);
-      else
-        val = rows_of[(q < 3 ? q : q - 1) * T + c];
-      acc = __fadd_rn(acc, val);
+  // each (cell, class, sum): its S columns in ascending order.  Item
+  // i = (k * kSums + q) * cpb + jj, cell fastest, so that a warp's 32 lanes
+  // read 32 neighbouring items; a thread adds kInterleave items side by side.
+  const int items = kClasses * kSums * cpb;
+  const long long out0 = (long long)v * kClasses * kSums * N + (long long)cy * Mw + c0;
+  for (int i0 = tid; i0 < items; i0 += kInterleave * nthreads) {
+    int off[kInterleave], kq[kInterleave], jj[kInterleave];
+    float xs[kInterleave], sum[kInterleave];
+#pragma unroll
+    for (int g = 0; g < kInterleave; ++g) {
+      const int i = min(i0 + g * nthreads, items - 1);
+      kq[g] = i / cpb;
+      jj[g] = i - kq[g] * cpb;
+      const int k = kq[g] / kSums, q = kq[g] - k * kSums;
+      // x (q = 3) and the count (q = 5) read the staged count, y (q = 4) the staged y
+      off[g] = (k * kStaged + (q < 3 ? q : (q == 4 ? 3 : 4))) * plane + jj[g] * P;
+      xs[g] = q == 3 ? (float)((c0 + jj[g]) * S) : -1.0f;  // x: the column's x times its count, exact
+      sum[g] = 0.0f;
+      if (i0 + g * nthreads >= items || c0 + jj[g] >= Mw) kq[g] = -1;
     }
-    partial[(((long long)v * kClasses + k) * kSums + q) * N + cy * Mw + hx] = acc;
+#pragma unroll 4
+    for (int c = 0; c < S; ++c) {
+#pragma unroll
+      for (int g = 0; g < kInterleave; ++g) {
+        const float s = s_col[off[g] + c];
+        sum[g] = __fadd_rn(sum[g], xs[g] >= 0.0f ? __fmul_rn(__fadd_rn(xs[g], (float)c), s) : s);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kInterleave; ++g)
+      if (kq[g] >= 0) partial[out0 + (long long)kq[g] * N + jj[g]] = sum[g];
   }
 }
 
@@ -231,6 +445,12 @@ unsigned int blocks_of(long long n, int threads) { return (unsigned int)((n + th
 
 bool too_many_blocks(long long n, int threads) { return (n + threads - 1) / threads > 0x7fffffffLL; }
 
+// The assign and update blocks: cells a block (cpb) and threads a cell
+// (min(S, kRunWidth)).
+int cells_per_block(int S) { return S >= kRunWidth ? 1 : kRunWidth / S; }
+
+dim3 run_threads(int S) { return dim3((unsigned int)(S < kRunWidth ? S : kRunWidth), (unsigned int)cells_per_block(S)); }
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on ``stream``,
@@ -239,15 +459,19 @@ bool too_many_blocks(long long n, int threads) { return (n + threads - 1) / thre
 
 // labels (V, H, W) int32 from lab (V, H, W, 3) and the map's center
 // (V, Mh*Mw, 2) and color (V, Mh*Mw, 3); S the cell size; mcd, mxy the
-// squared normalisers and cw the spatial weight (SlicParams).
+// squared normalisers and cw the spatial weight (SlicParams).  The cells
+// must cover the image (Mh * S >= H, Mw * S >= W).
 extern "C" int slic_assign_launch(const float* lab, const float* center, const float* color, int* labels,
                                   int V, int H, int W, int S, int Mh, int Mw, float mcd, float mxy,
                                   float cw, void* stream) {
   const long long n = (long long)V * H * W;
   if (n == 0) return 0;
-  if (S < 1 || too_many_blocks(n, kThreads)) return (int)cudaErrorInvalidValue;
-  assign_kernel<<<blocks_of(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lab, center, color, labels, V, H, W, S, Mh, Mw, mcd, mxy, cw);
+  if (S < 1 || (long long)Mh * S < H || (long long)Mw * S < W) return (int)cudaErrorInvalidValue;
+  const int cpb = cells_per_block(S);
+  const dim3 grid((unsigned int)((Mw + cpb - 1) / cpb), (unsigned int)min(Mh, kMaxGrid),
+                  (unsigned int)min(V, kMaxGrid));
+  assign_kernel<<<grid, run_threads(S), 0, static_cast<cudaStream_t>(stream)>>>(
+      lab, center, color, labels, V, H, W, S, Mh, Mw, cpb, mcd, mxy, cw);
   return (int)cudaGetLastError();
 }
 
@@ -260,15 +484,15 @@ extern "C" int slic_update_launch(const float* lab, const int* labels, float* pa
                                   void* stream) {
   const long long cells = (long long)V * Mh * Mw;
   if (cells == 0) return 0;
-  if (S < 1 || S > kMaxS || (long long)Mh * S < H || (long long)Mw * S < W || Mh > 65535 || V > 65535 ||
+  if (S < 1 || S > kMaxS || (long long)Mh * S < H || (long long)Mw * S < W || Mh > kMaxGrid || V > kMaxGrid ||
       too_many_blocks(cells, kThreads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cpb = S >= kUpdateWidth ? 1 : kUpdateWidth / S;
-  const int threads = cpb * S;
-  const size_t smem = sizeof(float) * kClasses * kStaged * threads;
+  const int cpb = cells_per_block(S);
+  const int P = S | 1;  // a cell's columns at an odd stride: S, or S + 1 when S is even
+  const size_t smem = sizeof(float) * kClasses * kStaged * cpb * P;  // below 48 KB for every S <= kMaxS
   const dim3 grid((unsigned int)((Mw + cpb - 1) / cpb), (unsigned int)Mh, (unsigned int)V);
-  update_partial_kernel<<<grid, threads, smem, s>>>(lab, labels, partial, H, W, S, Mh, Mw, cpb);
+  update_partial_kernel<<<grid, run_threads(S), smem, s>>>(lab, labels, partial, H, W, S, Mh, Mw, cpb, P);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   update_finalize_kernel<<<blocks_of(cells, kThreads), kThreads, 0, s>>>(partial, center, color, count, V, Mh,

@@ -4,6 +4,9 @@ and a torch emulation of the update kernel's order of sums against JAX's
 update, labels that belong to no cluster included.  The kernels against
 these plain forms are in test_torch_kernels_cuda.py (``-k slic``)."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -238,3 +241,63 @@ def test_vote_bitwise_jax(scene, source):
     np.testing.assert_array_equal(got, np.asarray(jslic.suppress_local_labels(labels)))
     if source == "noisy":
         assert (got != labels).any()
+
+
+def _c_entries() -> dict[str, list[str]]:
+    """Each ``extern "C"`` ``slic_*_launch`` of ``csrc/slic.cu``: its
+    parameters' kinds in order, "ptr", "int", "float" or "stream" (the
+    trailing ``void* stream``)."""
+    src = (Path(slic.__file__).parent.parent / "csrc" / "slic.cu").read_text()
+    out = {}
+    for name, params in re.findall(r'extern "C" int (slic_\w+)_launch\(([^)]*)\)', src):
+        kinds = []
+        for param in " ".join(params.split()).split(","):
+            param = param.strip()
+            if param == "void* stream":
+                kinds.append("stream")
+            elif "*" in param:
+                kinds.append("ptr")
+            elif param.startswith("int "):
+                kinds.append("int")
+            elif param.startswith("float "):
+                kinds.append("float")
+            else:
+                raise AssertionError(f"{name}: parameter {param!r} of no known kind")
+        out[name] = kinds
+    return out
+
+
+def test_c_entries_are_the_bound_ones():
+    assert set(_c_entries()) == set(slic._ENTRIES)
+
+
+@pytest.mark.parametrize("name", list(slic._ENTRIES))
+def test_ctypes_signature_matches_the_c_entry(name):
+    """``ops/slic._ENTRIES`` gives ctypes each entry's pointers, ints and
+    floats, then the stream: the C signature in ``csrc/slic.cu`` must read
+    the same, in the same order."""
+    ptrs, ints, floats = slic._ENTRIES[name]
+    assert _c_entries()[name] == ["ptr"] * ptrs + ["int"] * ints + ["float"] * floats + ["stream"]
+
+
+@pytest.mark.parametrize("mh, mw", [(1, 1), (1, 2), (2, 2), (3, 1), (3, 2), (4, 5)])
+def test_update_class_by_cluster_id_is_the_plain_forms_class(mh, mw):
+    """``slic_update`` finds a pixel's class by comparing its label with the
+    nine cluster ids ``(cy+dy)*Mw + cx+dx`` of its home cell's window, and the
+    finalize reads a class only where its cluster lies on the map.  For every
+    home cell of small maps (where the window wraps a row: Mw <= 2) and every
+    label from well below 0 to well past Mh*Mw, the classes so matched and
+    read are the plain form's: the one of a label on the map within one cell,
+    none for any other (-1, past the map, one past a row's last cell)."""
+    n_cells = mh * mw
+    for cy in range(mh):
+        for cx in range(mw):
+            for lbl in range(-3 * mw - 3, n_cells + 3 * mw + 3):
+                read = {(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                        if lbl == (cy + dy) * mw + cx + dx and 0 <= cy + dy < mh and 0 <= cx + dx < mw}
+                plain = set()
+                if 0 <= lbl < n_cells:
+                    dy, dx = lbl // mw - cy, lbl % mw - cx
+                    if abs(dy) <= 1 and abs(dx) <= 1:
+                        plain = {(dy, dx)}
+                assert read == plain, (cy, cx, lbl)
