@@ -6,11 +6,11 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 0. device: a CUDA device is visible; print its name and power limit;
-1. build: compile ``csrc/{cost_volume,sweep,consistency,slic}.cu`` with
-   nvcc from this checkout, one nvcc each, all started together; print what
-   ptxas reports, check that two cost-volume blocks and two sweep blocks
-   fit on an SM and that the sweep, consistency and SLIC kernels do not
-   spill;
+1. build: compile ``csrc/{cost_volume,sweep,consistency,slic,smoothness}.cu``
+   with nvcc from this checkout, one nvcc each, all started together; print
+   what ptxas reports, check that two cost-volume blocks and two sweep
+   blocks fit on an SM and that the sweep, consistency, SLIC and
+   smoothness kernels do not spill;
 2. kernels against their plain twins, on the same device tensors, with
    both times from CUDA events, in turns, beside each kernel's bound (the
    larger of its bytes over the card's memory rate and its f32 operations
@@ -28,13 +28,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    whole launch's rows); SLIC's three kernels on the 9-view 1080p scene's
    converged labels and map: the assignment, the vote and the update
    (centre, count and colour) bitwise, with ``index_add_``'s time beside
-   the update's;
+   the update's; the smoothness kernels, bitwise (NaN at the same places),
+   on the main path's calls at 9x135x240 cells: ``smooth_cache`` at the
+   init's and sweep 0's reach (T = 60) and sweep 4's (T = 16),
+   ``smooth_moves`` on the init state (M = 1), sweep 0's update and refit
+   phases (M = 8) and sweep 4's (M = 16, 8);
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
    per-stage device times, MP/s and peak memory; each run must launch the
    consistency kernel 1 + 2 x 5 = 11 times (the gather engine on the card),
-   the SLIC assignment 5 + 1 = 6 times and the update 5 times;
+   the SLIC assignment 5 + 1 = 6 times and the update 5 times,
+   ``smooth_cache`` 1 + 5 = 6 and ``smooth_moves`` 1 + 2 x 5 = 11 times;
 3b. the same stages with the strips consistency engine
    (``refine.refine(cons_engine="strips")``): timed the same way, and its
    refined disparity held against phase 3's gather engine;
@@ -109,7 +114,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    2048x2048, 256 hypotheses, the view pair layout), which exits 0 when it
    fits and 3 when the allocator refuses a request; 9a's replays must
    launch the cost volume once, the consistency kernel 11 times, the SLIC
-   assignment 6 and the update 5 times each;
+   assignment 6 and the update 5 times, ``smooth_cache`` 6 and
+   ``smooth_moves`` 11 times each;
 10. the tools ported last, each in its own process: 10a
    ``tools.profile_propagate --engine both`` at 9x1080x1920 (each
    component of sweep 0 under both engines with its ms, launches and share
@@ -170,8 +176,9 @@ SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
 # run --sfm: share of interior pixels within 1 of the scene's disparity
 SFM_RUN_NEAR = 0.90
 # the kernels' sources (csrc/<name>.cu), and the kernels of the JSON record
-SOURCES = ("cost_volume", "sweep", "consistency", "slic")
-KERNELS = ("cost_volume", "sweep", "consistency", "slic_assign", "slic_update", "slic_vote")
+SOURCES = ("cost_volume", "sweep", "consistency", "slic", "smoothness")
+KERNELS = ("cost_volume", "sweep", "consistency", "slic_assign", "slic_update", "slic_vote", "smooth_cache",
+           "smooth_moves")
 # phase 8's scene B: the scene generator at another disparity and seed
 STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
 # phase 8's stream tool, seconds it may take
@@ -212,8 +219,8 @@ def phase_build() -> None:
         for line in logs[name].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
-    # the sweep, consistency and SLIC kernels build without spills
-    for name in ("sweep", "consistency", "slic"):
+    # the sweep, consistency, SLIC and smoothness kernels build without spills
+    for name in ("sweep", "consistency", "slic", "smoothness"):
         spills = [ln.strip() for ln in logs[name].splitlines()
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
@@ -482,12 +489,61 @@ def phase_slic_vs_plain(card: str) -> dict:
     return recs
 
 
+def _reset_smoothness() -> None:
+    from cl_multiview_stereo_tpu_torch.ops import smoothness
+
+    smoothness.LAUNCHES.update(dict.fromkeys(smoothness.LAUNCHES, 0))
+
+
+def phase_smoothness_vs_plain(card: str) -> dict:
+    """The smoothness kernels against their plain forms on the main path's
+    calls at the slice's size (``tools.roofline.smooth_calls``): the init's
+    cache and state (M = 1), sweep 0's cache and its update and refit
+    phases, and sweep 4's (the shortest reach, T = 16, and the most update
+    moves, M = 16), each run from the initial state.  Returns each kernel's
+    record: sweep 0's cache, and sweep 0's two ``smooth_moves`` launches
+    summed, as ``tools.roofline`` counts them."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.ops.smoothness import _CACHE_FIELDS
+    from cl_multiview_stereo_tpu_torch.tools.roofline import ITERS, bound, in_turns, smooth_calls, smooth_case
+
+    s, rgb = _scene(FULL_H, FULL_W)
+    recs = {}
+    for tag, (kernel, a, k) in smooth_calls(s, rgb, "cuda", sweeps=(0, 4)).items():
+        kern, plain, work = smooth_case(kernel, a, k)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if kernel == "smooth_cache":
+            for f in _CACHE_FIELDS:
+                _require_equal(f"[2] smooth_cache {tag} {f}", getattr(got, f), getattr(want, f), equal_nan=True)
+            shape = f"{tuple(got.tap_ax.shape)} T {got.tap_ax.shape[-1]}"
+            nan = int(torch.isnan(got.tap_sim).sum())
+        else:
+            _require_equal(f"[2] smooth_moves {tag}", got, want, equal_nan=True)
+            shape = f"{tuple(got.shape)} M {got.shape[0]} T {a[0].tap_ax.shape[-1]}"
+            nan = int(torch.isnan(got).sum())
+        k_ms, p_ms = in_turns(kern, plain, *ITERS[kernel])
+        b_ms, by = bound(*work)
+        print(f"[2] {kernel} {tag} {shape}: bitwise (NaN {nan}); kernel {k_ms:.3f} ms, bound {b_ms:.4g} ms "
+              f"({by}), plain {p_ms:.3f} ms ({card})")
+        recs[tag] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        del got, want
+    moves = [recs["sweep 0 update"], recs["sweep 0 refit"]]
+    per = {f: sum(r[f] for r in moves) for f in ("ms", "plain_ms", "bound_ms")}
+    print(f"[2] smoothness per sweep 0 (one cache, two move launches): kernels "
+          f"{recs['sweep 0 cache']['ms'] + per['ms']:.3f} ms, plain forms "
+          f"{recs['sweep 0 cache']['plain_ms'] + per['plain_ms']:.3f} ms ({card})")
+    return {"smooth_cache": recs["sweep 0 cache"],
+            "smooth_moves": dict(per, max_abs_err=0.0, bound_by=moves[0]["bound_by"])}
+
+
 def phase_slice(card: str):
     import numpy as np
     import torch
 
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, slic
+    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, slic, smoothness
     from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer
 
     s, rgb = _scene(FULL_H, FULL_W)
@@ -506,17 +562,21 @@ def phase_slice(card: str):
     cons_per_run = 1 + 2 * s.no_prop
     # SLIC: an assignment, then no_iter x (update, assignment); no vote
     slic_per_run = {"slic_assign": s.no_iter + 1, "slic_update": s.no_iter, "slic_vote": 0}
-    slic_runs = []
+    # smoothness: the init's cache and state, and a cache and two phases a sweep
+    smooth_per_run = {"smooth_cache": 1 + s.no_prop, "smooth_moves": 1 + 2 * s.no_prop}
+    slic_runs, smooth_runs = [], []
     for _ in range(2):
         timer = StageTimer()
         consistency.LAUNCHES = 0
         _reset_slic()
+        _reset_smoothness()
         t0 = time.perf_counter()
         art = pipe.run(rgb_dev, timer=timer)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         cons.append(consistency.LAUNCHES)
         slic_runs.append(dict(slic.LAUNCHES))
+        smooth_runs.append(dict(smoothness.LAUNCHES))
     launches = cost_volume.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
@@ -526,6 +586,9 @@ def phase_slice(card: str):
                              f"expected {cons_per_run}")
     if slic_runs != [slic_per_run] * 2:
         raise AssertionError(f"the main path launched the SLIC kernels {slic_runs} a run, expected {slic_per_run}")
+    if smooth_runs != [smooth_per_run] * 2:
+        raise AssertionError(f"the main path launched the smoothness kernels {smooth_runs} a run, "
+                             f"expected {smooth_per_run}")
 
     d = art.disp_full
     if not bool(torch.isfinite(d).all()):
@@ -539,12 +602,14 @@ def phase_slice(card: str):
     mp_s = 9 * FULL_H * FULL_W / t / 1e6
     print(f"[3] runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
           f"peak {peak / 2**30:.3f} GiB; disp_init near GT {near:.4f}; launches: cost_volume {launches}, "
-          f"consistency {cons} (gather engine), slic {slic_runs[0]} a run ({card})")
+          f"consistency {cons} (gather engine), slic {slic_runs[0]} a run, smoothness {smooth_runs[0]} a run "
+          f"({card})")
     stage_ms = timer.ms()
     print("[3] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}))
     print(f"[3] eager slic stage {stage_ms['slic']:.3f} ms of {sum(stage_ms.values()):.3f} ms of stages ({card})")
     slic_launches = {k: sum(r[k] for r in slic_runs) for k in slic_per_run}
-    return launches, sum(cons), slic_launches, pipe, rgb_dev, art
+    smooth_launches = {k: sum(r[k] for r in smooth_runs) for k in smooth_per_run}
+    return launches, sum(cons), slic_launches, smooth_launches, pipe, rgb_dev, art
 
 
 def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
@@ -1000,10 +1065,13 @@ def _times_line(tag: str, sharded, unsharded, card: str) -> None:
           f"{min(ts) / min(tu):.4f} ({card})")
 
 
-def _require_equal(tag: str, got, want) -> None:
+def _require_equal(tag: str, got, want, equal_nan: bool = False) -> None:
+    """Bitwise equal (with ``equal_nan``, NaN at the same places counts as equal)."""
     import torch
 
-    if not torch.equal(got, want):
+    if equal_nan:
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{tag}: {m}")
+    elif not torch.equal(got, want):
         raise AssertionError(f"{tag}: differs at {int((got != want).sum())} of {want.numel()} entries")
 
 
@@ -1406,7 +1474,7 @@ def phase_stream(card: str, root: str, lst: str) -> dict:
           f"{[round(x, 4) for x in serial]} s per scene = {9 * len(serial) / sum(serial):.4f} views/s "
           f"({card})")
     launches = dict(mvs_pipeline.REPLAYED_LAUNCHES)
-    for name in ("cost_volume", "consistency", "slic_assign", "slic_update"):
+    for name in ("cost_volume", "consistency", "slic_assign", "slic_update", "smooth_cache", "smooth_moves"):
         if launches.get(name, 0) < 1:
             raise AssertionError(f"[8b-8d] no graph replay launched the {name} kernel")
 
@@ -1458,7 +1526,8 @@ def phase_tools(card: str, phase2: dict) -> dict:
     # the init state and twice a sweep, and SLIC's assignment and update
     d = SystemSettings()
     per_run = {"cost_volume": 1, "consistency": 1 + 2 * d.no_prop, "slic_assign": d.no_iter + 1,
-               "slic_update": d.no_iter, "slic_vote": 0}
+               "slic_update": d.no_iter, "slic_vote": 0, "smooth_cache": 1 + d.no_prop,
+               "smooth_moves": 1 + 2 * d.no_prop}
     if (rec["metric"] != "depth_mp_per_s" or len(rec["runs_s"]) != BENCH_RUNS or rec["card"] != card
             or any(launches[k] != BENCH_RUNS * n for k, n in per_run.items())):
         raise AssertionError(f"[9a] bench: {rec}")
@@ -1522,7 +1591,7 @@ def phase_propagate_tools(card: str) -> None:
             raise AssertionError(f"[10a] profile_propagate: {rec}")
         for engine, named in comps.items():
             for name, c in named.items():
-                if not (c["ms"] > 0 and c["launches"] > 0):
+                if not (c["ms"] > 0 and c["device_ms"] > 0 and c["launches"] > 0):
                     raise AssertionError(f"[10a] {engine} {name}: {c}")
         for name, e in rec["ladder"].items():
             if not (e["ms"] > 0 and e["bound_ms"] > 0):
@@ -1593,7 +1662,8 @@ def main() -> int:
     sw = phase_sweep_vs_plain(card)
     cons = phase_consistency_vs_plain(card)
     sl = phase_slic_vs_plain(card)
-    _, cons_launches, slic_launches, pipe, rgb_dev, art = phase_slice(card)
+    sm = phase_smoothness_vs_plain(card)
+    _, cons_launches, slic_launches, smooth_launches, pipe, rgb_dev, art = phase_slice(card)
     cons_launches += phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
@@ -1607,7 +1677,7 @@ def main() -> int:
         stream_launches = phase_stream(card, root, lst)
     phase_gloo_two_ranks(card)
     del pipe, rgb_dev, art  # phase 9's tools each want the whole card
-    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl})
+    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl, **sm})
     phase_propagate_tools(card)
     # phase 8's graph replays and 9a's launch the cost volume and the
     # consistency kernel from the graph
@@ -1617,11 +1687,15 @@ def main() -> int:
     # SLIC: phase 3's runs, phase 8's replays and 9a's; the vote 5c's runs
     for name in ("slic_assign", "slic_update"):
         slic_launches[name] += stream_launches[name] + bench_launches[name]
+    # smoothness: phase 3's runs, phase 8's replays and 9a's
+    for name in smooth_launches:
+        smooth_launches[name] += stream_launches[name] + bench_launches[name]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
-    # library_ms: no single PyTorch call computes the first three functions
-    # or SLIC's assignment and vote; index_add_ computes the update's sums.
-    # SLIC's kernels replace XLA functions of the JAX package, not Pallas
+    # library_ms: no single PyTorch call computes the first three functions,
+    # SLIC's assignment and vote or the smoothness cache and scores;
+    # index_add_ computes the update's sums.  SLIC's and smoothness's
+    # kernels replace XLA functions of the JAX package, not Pallas
     rows = (
         ("cost_volume", "cost_volume", "cl_multiview_stereo_tpu/ops/cost_volume.py:46", cv_launches, cv),
         ("sweep", "sweep", "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", sw_launches, sw),
@@ -1633,6 +1707,10 @@ def main() -> int:
          sl["slic_update"]),
         ("slic_vote", "slic", "cl_multiview_stereo_tpu/ops/slic.py:340", slic_launches["slic_vote"],
          sl["slic_vote"]),
+        ("smooth_cache", "smoothness", "cl_multiview_stereo_tpu/ops/refine.py:221", smooth_launches["smooth_cache"],
+         sm["smooth_cache"]),
+        ("smooth_moves", "smoothness", "cl_multiview_stereo_tpu/ops/refine.py:359", smooth_launches["smooth_moves"],
+         sm["smooth_moves"]),
     )
     if [r[0] for r in rows] != list(KERNELS):
         raise AssertionError("the kernels' record does not list every kernel")

@@ -24,7 +24,13 @@ disparity is not finite; ``"strips_xla"`` names the same function as
 ``"strips"``, since its lane resolve differs from Pallas only on a TPU.
 Both go through ``ops/consistency.consistency_moves``: on the CPU its plain
 twin (per ``score_chunk`` batch of moves), on a card one launch of the CUDA
-kernel for all moves of a phase, under the engine's rule.
+kernel for all moves of a phase, under the engine's rule.  Smoothness goes
+the same way through ``ops/smoothness``: the sweep's tap cache
+(:func:`build_cell_cache` on the CPU) and the scores of all moves of a phase
+(:func:`smoothness_from_cache` per ``score_chunk`` batch on the CPU), each
+one launch of ``csrc/smoothness.cu`` on a card.  Both plain forms add their
+taps one at a time in tap order (:func:`_sum_taps`), the order the kernels
+keep.
 """
 
 from __future__ import annotations
@@ -164,10 +170,27 @@ def rasterize_table(labels, center, ras_color, state_d, state_n, row0: int = 0) 
     return torch.cat([disp.reshape(-1, 1), ras_color], dim=-1)
 
 
+def tap_gammas(gamma: float, steps: int) -> list[float]:
+    """The similarity weight of each of the ``8 + 4 * steps`` taps, as
+    Python floats: ``gamma`` for the immediate taps, ``gamma * (1 + i)`` for
+    reach step ``i``.  A device table rounds each once to float32."""
+    return [gamma] * len(_IMM) + [gamma * (1 + i) for i in range(1, steps + 1) for _ in range(4)]
+
+
+def _sum_taps(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the trailing tap axis, one tap at a time in tap order (the
+    order ``csrc/smoothness.cu`` keeps; ``torch.sum`` leaves it open)."""
+    acc = a[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k]
+    return acc
+
+
 def build_cell_cache(
     ctx: RefineContext, tgt_d: torch.Tensor, *, gamma: float, steps: int, step_size: float
 ) -> IterCache:
-    """Smoothness taps and ring data of one sweep; ``ras`` is left empty."""
+    """Smoothness taps and ring data of one sweep; ``ras`` is left empty.
+    The plain form of ``ops/smoothness.cell_cache``."""
     v, mh, mw = tgt_d.shape
     dev = tgt_d.device
     center, color = ctx.center, ctx.color
@@ -175,11 +198,10 @@ def build_cell_cache(
     packed = torch.cat([center, color, tgt_d[..., None]], dim=-1)  # (V, Mh, Mw, 6)
 
     # 8 immediate taps at static cell offsets
-    tap_parts, g_list, ok_list = [], [], []
+    tap_parts, ok_list = [], []
     for dx, dy in _IMM:
         tap_parts.append(_roll_cells(packed, dx, dy))
         ok = (col + dx >= 0) & (row + dy >= 0) & (col + dx < mw) & (row + dy < mh)
-        g_list.append(gamma)
         ok_list.append(ok.expand(v, mh, mw))
     tap = torch.stack(tap_parts, dim=-2)
 
@@ -201,7 +223,6 @@ def build_cell_cache(
                     ok = (rowb > step) if sign < 0 else (rowb < mh - step - 1)
                 tx_list.append(tx)
                 ty_list.append(ty)
-                g_list.append(gamma * (1 + i))
                 ok_list.append(ok)
         tx = torch.stack(tx_list, dim=-1)
         ty = torch.stack(ty_list, dim=-1)
@@ -211,7 +232,7 @@ def build_cell_cache(
         tap = torch.cat([tap, lr], dim=-2)
 
     ok = torch.stack(ok_list, dim=-1)
-    gammas = device_table(g_list, torch.float32, dev)
+    gammas = device_table(tap_gammas(gamma, steps), torch.float32, dev)
     cdiff = _sqdist3(color[..., None, :], tap[..., 2:5])
     tap_sim = torch.where(ok, _ftz(torch.exp(-cdiff * gammas)), 0.0)
 
@@ -224,7 +245,7 @@ def build_cell_cache(
         tap_ay=center[..., 1:2] - tap[..., 1],
         tap_d=tap[..., 5],
         tap_sim=tap_sim,
-        wn=tap_sim.sum(dim=-1),
+        wn=_sum_taps(tap_sim),
         ras=torch.zeros((1, 4), dtype=torch.float32, device=dev),
         ring_dcx=rpack[..., 0] - center[..., 0:1],
         ring_dcy=rpack[..., 1] - center[..., 1:2],
@@ -244,7 +265,9 @@ def build_cache(
 ) -> IterCache:
     """Every move-independent quantity of one sweep.  ``state_n=None``
     means fronto-parallel normals (the init forms)."""
-    cache = build_cell_cache(ctx, tgt_d, gamma=gamma, steps=steps, step_size=step_size)
+    from cl_multiview_stereo_tpu_torch.ops import smoothness
+
+    cache = smoothness.cell_cache(ctx, tgt_d, gamma=gamma, steps=steps, step_size=step_size)
     if state_n is None:
         state_n = _fronto_normals(tgt_d)
     return cache._replace(ras=rasterize_table(ctx.labels, ctx.center, ctx.ras_color, tgt_d, state_n))
@@ -257,11 +280,12 @@ def build_cache(
 
 def smoothness_from_cache(cache: IterCache, d0, n0, *, alpha: float) -> torch.Tensor:
     """cl:1136-1254 / cl:1407-1525: ``d_intrp = (n.(c - c_tap) + nz*d0)/nz``
-    per tap, weighted by the move-independent similarities."""
+    per tap, weighted by the move-independent similarities, summed in tap
+    order.  The plain form of ``ops/smoothness.smoothness_moves``."""
     nx, ny, nz = n0[..., 0:1], n0[..., 1:2], n0[..., 2:3]
     d_intrp = (nx * cache.tap_ax + ny * cache.tap_ay + nz * d0[..., None]) / nz
     diff = d_intrp - cache.tap_d
-    sm = torch.sum(_ftz(cache.tap_sim * _ftz(torch.exp(-diff * diff * alpha))), dim=-1)
+    sm = _sum_taps(_ftz(cache.tap_sim * _ftz(torch.exp(-diff * diff * alpha))))
     return torch.where(cache.wn > 0, _ftz(sm / cache.wn), _EPS_SM)
 
 
@@ -443,13 +467,13 @@ def init_scores(
     of ``ctx``: a whole map, a band of rows or a block of views), by the
     gather form: :func:`consistency_from_cache` on the CPU, one launch of
     the consistency kernel under its gather rule on a card."""
-    from cl_multiview_stereo_tpu_torch.ops import consistency
+    from cl_multiview_stereo_tpu_torch.ops import consistency, smoothness
 
-    sm = smoothness_from_cache(cache, d0, n0, alpha=alpha)
     cs = consistency.consistency_moves(
         ctx, cache, d0[None].contiguous(), n0[None].contiguous(), gamma=gamma, alpha=alpha,
         fuse=fuse, bl_ratio=bl_ratio, pairs=pairs, rule="gather", img_hw=img_hw, ras_rows=ras_rows,
     )[0]
+    sm = smoothness.smoothness_moves(cache, d0[None], n0[None], alpha=alpha)[0]
     return RefineState(d=d0, sm=sm, cs=cs, n=n0)
 
 
@@ -531,23 +555,23 @@ def score_moves(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(M, V, Mh, Mw), (M, V, Mh, Mw, 3) candidates -> (sm1, cs1), each
     (M, V, Mh, Mw), scored against the frozen input state in ``cache``.
-    Smoothness is scored in ``score_chunk`` batches.  Consistency goes to
-    ``ops/consistency.consistency_moves`` under the engine's rule: on the
-    CPU its plain twin (under the gather engine :func:`consistency_from_cache`
-    per ``score_chunk`` batch), on a card one kernel launch for all moves.
+    Smoothness goes to ``ops/smoothness.smoothness_moves`` and consistency
+    to ``ops/consistency.consistency_moves`` under the engine's rule: on the
+    CPU their plain forms (:func:`smoothness_from_cache` and, under the
+    gather engine, :func:`consistency_from_cache`, per ``score_chunk``
+    batch), on a card one kernel launch each for all moves.
     ``img_hw``/``ras_rows``: see :func:`consistency_from_cache` (gather
     engine only)."""
-    from cl_multiview_stereo_tpu_torch.ops import consistency
+    from cl_multiview_stereo_tpu_torch.ops import consistency, smoothness
 
     if cons_engine != "gather" and (img_hw is not None or ras_rows is not None):
         raise ValueError("the strips engines score a whole map against the whole table")
-    sm = torch.cat([smoothness_from_cache(cache, d_c[k:k + score_chunk], n_c[k:k + score_chunk], alpha=alpha)
-                    for k in range(0, d_c.shape[0], score_chunk)])
     cs = consistency.consistency_moves(
         ctx, cache, d_c.contiguous(), n_c.contiguous(), gamma=gamma, alpha=alpha, fuse=fuse,
         bl_ratio=bl_ratio, pairs=pairs, score_chunk=score_chunk,
         rule="gather" if cons_engine == "gather" else "strips", img_hw=img_hw, ras_rows=ras_rows,
     )
+    sm = smoothness.smoothness_moves(cache, d_c, n_c, alpha=alpha, score_chunk=score_chunk)
     return sm, cs
 
 
@@ -620,7 +644,7 @@ def propagate_iteration(
     """One Jacobi sweep: every superpixel walks the move chain, scoring
     candidate planes against the frozen input state
     (depth_refinement.cpp:744-753).  ``cons_engine``: see the module
-    docstring; smoothness is scored in ``score_chunk`` batches either way."""
+    docstring; on the CPU both scores run in ``score_chunk`` batches."""
     check_options(cons_engine)
     mh, mw = state_in.d.shape[1:]
     cache = build_cache(

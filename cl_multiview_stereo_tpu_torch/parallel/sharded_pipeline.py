@@ -40,7 +40,7 @@ from cl_multiview_stereo_tpu_torch.config import (
     build_view_subsets,
 )
 from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
-from cl_multiview_stereo_tpu_torch.ops import cost_volume, fusion, refine, slic, superpixel
+from cl_multiview_stereo_tpu_torch.ops import cost_volume, fusion, refine, slic, smoothness, superpixel
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 from cl_multiview_stereo_tpu_torch.ops.fusion import gather_cells
 from cl_multiview_stereo_tpu_torch.parallel.mesh import axis_of
@@ -90,7 +90,7 @@ def run_views(pipe: MVSPipeline, rgb, t: int, n: int, gather) -> torch.Tensor:
     ras_color = gather_cells(labels, color).reshape(-1, 3)
 
     def cache_for(state_d, d_all, n_all, steps, step_size):
-        cache = refine.build_cell_cache(ctx, state_d, gamma=kw["gamma"], steps=steps, step_size=step_size)
+        cache = smoothness.cell_cache(ctx, state_d, gamma=kw["gamma"], steps=steps, step_size=step_size)
         return cache._replace(ras=refine.rasterize_table(labels, centers, ras_color, d_all, n_all))
 
     disp0 = gather(disp0_own)

@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 from cl_multiview_stereo_tpu_torch.models import plane_sweep
-from cl_multiview_stereo_tpu_torch.ops import cost_volume, refine, sweep
+from cl_multiview_stereo_tpu_torch.ops import cost_volume, refine, smoothness, sweep
 from cl_multiview_stereo_tpu_torch.ops.fusion import gather_cells
 from cl_multiview_stereo_tpu_torch.parallel.mesh import axis_of
 
@@ -296,11 +296,12 @@ def block_table(ctx: refine.RefineContext, blk: refine.RefineContext, t: int, d_
 
 
 def _block_cache(ctx, d_full, gamma: float, steps: int, step_size: float, t: int, n: int, ras):
-    """The whole map's cell cache for input disparities ``d_full``, cut to
-    block ``t``'s cell rows, with ``ras`` as its table."""
+    """The cell cache of block ``t``'s cell rows for the whole map's input
+    disparities ``d_full`` (its taps read the whole map), with ``ras`` as
+    its table."""
     bh = d_full.shape[1] // n
-    cache = refine.build_cell_cache(ctx, d_full, gamma=gamma, steps=steps, step_size=step_size)
-    return cache._replace(ras=ras, **{f: _rows(getattr(cache, f), t, bh) for f in cache._fields if f != "ras"})
+    cache = smoothness.cell_cache(ctx, d_full, gamma=gamma, steps=steps, step_size=step_size, rows=(t * bh, bh))
+    return cache._replace(ras=ras)
 
 
 def _kw(schedule, pairs) -> dict:

@@ -14,17 +14,23 @@ component then runs at sweep 0's ``steps``/``step_size`` on that state:
 
 - ``propagate_iteration[0]``: the whole sweep (``refine.propagate_iteration``);
 - under the gather engine ``propagate_iteration[0], plain form``: the same
-  sweep scored by the gather engine's plain form, ``consistency_from_cache``
-  per ``score_chunk`` batch, as the card ran it before the engine went to
-  the kernel (on the CPU the two are one function);
-- ``rasterize_table`` and ``build_cell_cache``: the sweep's cache;
+  sweep on the plain forms, ``build_cell_cache``, ``smoothness_from_cache``
+  and ``consistency_from_cache`` per ``score_chunk`` batch, as the card ran
+  it before the scoring went to the kernels (on the CPU the two are one
+  function);
+- ``rasterize_table`` and ``build_cell_cache``: the sweep's cache, the
+  latter ``smoothness.cell_cache`` (on a card one launch of
+  ``smooth_cache``); ``build_cell_cache, plain form`` beside it;
 - ``consistency_moves (update)``: the consistency of all update moves as
   the sweep scores them, ``consistency.consistency_moves`` under the
   engine's rule (on a card one launch of the CUDA kernel);
 - under the gather engine ``consistency_from_cache x1``: the plain form on
   one ``score_chunk`` batch of the update moves (its ``cache.ras[flat]``
   gather), beside the sweep;
-- ``smoothness_from_cache`` on one batch;
+- ``smoothness_moves (update)``: the smoothness of all update moves,
+  ``smoothness.smoothness_moves`` (on a card one launch of
+  ``smooth_moves``), and ``smoothness_from_cache x1``, the plain form on
+  one batch, beside the sweep;
 - ``update_candidates``: the update moves' candidate planes;
 - ``accept_chain``: ``refine.move_chain`` scored by a function that returns
   the real scorer's outputs, recorded beforehand, so only the accept work
@@ -35,11 +41,13 @@ A component beside the sweep has ``per_iteration`` 0 and no share.
 
 Each is timed with CUDA events on the current stream after one warm-up:
 the median of ``--runs`` runs, each started on an idle device (a
-synchronize before its start event) and with no host read inside.  Beside
-its ms each prints its kernel launches (one more run under
-``torch.profiler``, copies and fills not counted), how often one sweep runs
-it and its share of the sweep; one line then sets the sum of the parts
-against the total.
+synchronize before its start event) and with no host read inside.  These
+ms hold the host's launch gaps, and an eager component of hundreds of
+launches varies by up to twofold between calls.  Beside them each prints
+its device ms and kernel launches (one more run under ``torch.profiler``:
+the device ops' own time summed, copies and fills not counted as
+launches), how often one sweep runs it and its share of the sweep; one
+line then sets the sum of the parts against the total, in both ms.
 
 The gather-rate ladder reads a table of ``V*H*W`` rows (one per pixel, as
 ``cache.ras``) with as many indices as one ``score_chunk`` batch of
@@ -53,7 +61,7 @@ prints its M rows/s and GB/s against its byte bound
 read, the indices and the output, over 3.35 TB/s).
 
 The last line is one JSON object: ``engine``, ``components`` (engine ->
-name -> ms, launches, per_iteration, share), ``parts_vs_total``,
+name -> ms, device_ms, launches, per_iteration, share), ``parts_vs_total``,
 ``ladder`` (entry -> rows, ms, m_rows_per_s, gb_per_s, bytes, bound_ms),
 ``scene``, ``card``, ``settings``, ``hw``.  ``--save`` writes each engine's
 ``propagate_iteration[0]`` state as an npz (``<engine>_<field>``).  With
@@ -75,9 +83,9 @@ ENGINES = ("gather", "strips")
 LADDER_WIDTHS = (1, 4, 8)
 # row-coherent indices: rows in bands of this many (profile_gathers.py)
 COHERENT_ROWS = 8
-# refit moves per sweep: one per pair of ring neighbours
-REFITS = 8
 TOTAL = "propagate_iteration[0]"
+# traces of one component taken before device_work gives up on a whole one
+PROFILE_TRIES = 3
 
 
 class Sweep0(NamedTuple):
@@ -137,20 +145,14 @@ def setup(settings, h: int, w: int, device) -> Sweep0:
     return Sweep0(ctx, state, kw, sched, cache, moves, refine.SCORE_CHUNK)
 
 
-def _batches(n: int, chunk: int) -> int:
-    return -(-n // chunk)
-
-
 def components(sw: Sweep0, engine: str) -> dict[str, Component]:
     """The sweep's components under ``engine``, in the sweep's order, and
     ``init_state``."""
-    from cl_multiview_stereo_tpu_torch.ops import consistency, refine
+    from cl_multiview_stereo_tpu_torch.ops import consistency, refine, smoothness
 
     ctx, state, kw, sched, cache, moves, chunk = sw
     steps, step_size = sched.steps_per_iter[0], sched.step_size_per_iter[0]
     d_upd, n_upd = moves[0], moves[1]
-    m = d_upd.shape[0]
-    batches = _batches(m, chunk) + _batches(REFITS, chunk)  # score_moves' batches
     d_b, n_b = d_upd[:chunk], n_upd[:chunk]
 
     def score(d_c, n_c):
@@ -181,16 +183,19 @@ def components(sw: Sweep0, engine: str) -> dict[str, Component]:
         plain = [(f"{TOTAL}, plain form", Component(lambda: plain_sweep(sw), 0))]
         cons.append(("consistency_from_cache x1", Component(
             lambda: refine.consistency_from_cache(ctx, cache, d_b, n_b, **kw), 0)))
+    reach = dict(gamma=kw["gamma"], steps=steps, step_size=step_size)
     return dict([
         (TOTAL, Component(total, 1)),
         *plain,
         ("rasterize_table", Component(
             lambda: refine.rasterize_table(ctx.labels, ctx.center, ctx.ras_color, state.d, state.n), 1)),
-        ("build_cell_cache", Component(
-            lambda: refine.build_cell_cache(ctx, state.d, gamma=kw["gamma"], steps=steps, step_size=step_size), 1)),
+        ("build_cell_cache", Component(lambda: smoothness.cell_cache(ctx, state.d, **reach), 1)),
+        ("build_cell_cache, plain form", Component(lambda: refine.build_cell_cache(ctx, state.d, **reach), 0)),
         *cons,
+        ("smoothness_moves (update)", Component(
+            lambda: smoothness.smoothness_moves(cache, d_c, n_c, alpha=kw["alpha"], score_chunk=chunk), 2)),
         ("smoothness_from_cache x1", Component(
-            lambda: refine.smoothness_from_cache(cache, d_b, n_b, alpha=kw["alpha"]), batches)),
+            lambda: refine.smoothness_from_cache(cache, d_b, n_b, alpha=kw["alpha"]), 0)),
         ("update_candidates", Component(
             lambda: refine.update_candidates(ctx, state, refine._update_move_offsets(
                 steps, step_size, state.d.shape[2], state.d.shape[1]), kw["gamma"]), 1)),
@@ -201,14 +206,16 @@ def components(sw: Sweep0, engine: str) -> dict[str, Component]:
 
 
 def plain_sweep(sw: Sweep0):
-    """Sweep 0 scored by the gather engine's plain form on any device:
-    ``refine.propagate_iteration`` with ``consistency_from_cache`` per
-    ``score_chunk`` batch in place of the routed scorer."""
+    """Sweep 0 on the plain forms on any device: ``refine.propagate_iteration``
+    with ``build_cell_cache``, and ``smoothness_from_cache`` and
+    ``consistency_from_cache`` per ``score_chunk`` batch, in place of the
+    routed cache and scorers."""
     from cl_multiview_stereo_tpu_torch.ops import consistency, refine
 
     ctx, state, kw, sched, chunk = sw.ctx, sw.state, sw.kw, sw.sched, sw.score_chunk
     steps, step_size = sched.steps_per_iter[0], sched.step_size_per_iter[0]
-    cache = refine.build_cache(ctx, state.d, state.n, gamma=kw["gamma"], steps=steps, step_size=step_size)
+    cache = refine.build_cell_cache(ctx, state.d, gamma=kw["gamma"], steps=steps, step_size=step_size)._replace(
+        ras=refine.rasterize_table(ctx.labels, ctx.center, ctx.ras_color, state.d, state.n))
     mh, mw = state.d.shape[1:]
     moves = refine.update_candidates(ctx, state, refine._update_move_offsets(steps, step_size, mw, mh), kw["gamma"])
 
@@ -281,12 +288,23 @@ def median_ms(fn: Callable, runs: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in marks)
 
 
-def kernel_launches(fn: Callable) -> int:
-    """Device kernels of one ``fn()`` under torch.profiler (copies and fills
-    not counted)."""
+def device_work(fn: Callable) -> tuple[float, int]:
+    """(device ms, kernel launches) of one ``fn()`` under torch.profiler:
+    every device op's own time, and its kernels (copies and fills not
+    counted).  A trace is whole when it holds a kernel for each of its
+    runtime launch calls; torch.profiler now and then drops a session's
+    device events, so a trace that is not whole is taken again, up to
+    PROFILE_TRIES times, and then raises."""
     from cl_multiview_stereo_tpu_torch.tools.profile_stages import profiled
 
-    return sum(n for name, (_, n) in profiled(fn).device_ops.items() if not name.startswith(("Memcpy", "Memset")))
+    for _ in range(PROFILE_TRIES):
+        p = profiled(fn)
+        kernels = sum(n for name, (_, n) in p.device_ops.items() if not name.startswith(("Memcpy", "Memset")))
+        calls = sum(n for name, n in p.host_calls.items() if "LaunchKernel" in name)
+        if kernels == calls:
+            return p.device_ms, kernels
+        print(f"[profile] {calls} launch calls but {kernels} kernels in the trace: taken again", flush=True)
+    raise RuntimeError(f"no whole trace in {PROFILE_TRIES} tries")
 
 
 def profile_engine(sw: Sweep0, engine: str, runs: int, on_card: bool) -> tuple[dict, dict, object]:
@@ -295,28 +313,31 @@ def profile_engine(sw: Sweep0, engine: str, runs: int, on_card: bool) -> tuple[d
     recs, state = {}, comps[TOTAL].fn()
     for name, c in comps.items():
         if on_card:
-            recs[name] = {"ms": median_ms(c.fn, runs), "launches": kernel_launches(c.fn),
-                          "per_iteration": c.per_iteration}
+            ms = median_ms(c.fn, runs)
+            device_ms, launches = device_work(c.fn)
+            recs[name] = {"ms": ms, "device_ms": device_ms, "launches": launches, "per_iteration": c.per_iteration}
         else:
             c.fn()
-            recs[name] = {"ms": None, "launches": None, "per_iteration": c.per_iteration}
+            recs[name] = {"ms": None, "device_ms": None, "launches": None, "per_iteration": c.per_iteration}
     total = recs[TOTAL]
-    parts = {"parts_ms": None, "total_ms": total["ms"], "parts_launches": None, "total_launches": total["launches"]}
+    parts = {"parts_ms": None, "total_ms": total["ms"], "parts_device_ms": None, "total_device_ms": total["device_ms"],
+             "parts_launches": None, "total_launches": total["launches"]}
     for name, r in recs.items():
         r["share"] = None if not on_card or r["per_iteration"] == 0 else r["ms"] * r["per_iteration"] / total["ms"]
     if on_card:
         inner = [r for name, r in recs.items() if name != TOTAL]
-        parts.update(parts_ms=sum(r["ms"] * r["per_iteration"] for r in inner),
-                     parts_launches=sum(r["launches"] * r["per_iteration"] for r in inner))
+        parts.update({f"parts_{k}": sum(r[k] * r["per_iteration"] for r in inner)
+                      for k in ("ms", "device_ms", "launches")})
     for name, r in recs.items():
-        ms = "not measured" if r["ms"] is None else f"{r['ms']:10.3f} ms"
+        ms = "not measured" if r["ms"] is None else f"{r['ms']:10.3f} ms {r['device_ms']:8.3f} device ms"
         launches = "" if r["launches"] is None else f"{r['launches']:6d} launches"
         share = "" if r["share"] is None else f"{r['share']:7.1%} of the sweep"
         how = "beside" if r["per_iteration"] == 0 else f"x{r['per_iteration']}"
         print(f"[{engine}] {name:28s} {how:9s} {ms} {launches} {share}", flush=True)
     if on_card:
-        print(f"[{engine}] sum of the parts {parts['parts_ms']:.3f} ms ({parts['parts_launches']} launches) "
-              f"against the total {parts['total_ms']:.3f} ms ({parts['total_launches']} launches)", flush=True)
+        print(f"[{engine}] sum of the parts {parts['parts_ms']:.3f} ms, {parts['parts_device_ms']:.3f} device ms "
+              f"({parts['parts_launches']} launches) against the total {parts['total_ms']:.3f} ms, "
+              f"{parts['total_device_ms']:.3f} device ms ({parts['total_launches']} launches)", flush=True)
     return recs, parts, state
 
 

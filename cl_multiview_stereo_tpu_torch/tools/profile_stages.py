@@ -18,8 +18,13 @@ run:
    CUDA time over wall), the 10 device ops with the most self time with
    their launch counts, and the 5 longest idle gaps on the device, each
    named by the innermost ``StageTimer`` range and the innermost host op
-   open when it began (gaps within the traced call and its synchronize).  A trace with no device events gives
-   ``"not measured: ..."``, never zeros.
+   open when it began (gaps within the traced call and its synchronize),
+   and each stage's device ms (``stage_device_ms``): every device op's time
+   added to the innermost ``StageTimer`` range open when the host made the
+   CUDA runtime call that launched it (the call and the op share their
+   correlation id in the trace), not when the device ran it, so a stage's
+   queued work counts as the stage's.  A trace with no device
+   events gives ``"not measured: ..."``, never zeros.
 
 ``--cell slice`` is ``MVSPipeline.run`` at its defaults; ``--cell strips``
 is :func:`strips_scene`, the same stages with the strips consistency
@@ -131,6 +136,14 @@ class Profile(NamedTuple):
     ranges: list  # (name, start, end) of each record_function range
     ops: list  # (name, start, end) of each other host op
     window: tuple  # (start, end) of the traced call and its synchronize
+    # (device ms, start of the runtime call that launched it, None if the
+    # trace holds no such call) of each device op
+    launched: tuple = ()
+
+
+# stage_device_ms's names for device time outside every range, and for an
+# op whose launching host event the trace does not hold
+OUTSIDE, UNLINKED = "outside stages", "unlinked"
 
 
 def profiled(fn: Callable) -> Profile:
@@ -150,13 +163,17 @@ def profiled(fn: Callable) -> Profile:
     device_ops = {e.key: (e.self_device_time_total / 1e3, e.count) for e in averages
                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
     host_calls = {e.key: e.count for e in averages if e.device_type == DeviceType.CPU}
-    busy, ranges, ops, window = [], [], [], None
+    busy, ranges, ops, window, device, runtime = [], [], [], None, [], {}
     for e in prof.events():
         span = (e.time_range.start, e.time_range.end)
         if e.device_type == DeviceType.CUDA:
             if not e.is_user_annotation:
                 busy.append(span)
-        elif e.is_user_annotation:
+                device.append(((span[1] - span[0]) / 1e3, e.id))
+            continue
+        if e.name.startswith("cuda"):  # a runtime call: its id is its device op's
+            runtime[e.id] = span[0]
+        if e.is_user_annotation:
             if e.name == CALL:
                 window = span
             else:
@@ -164,7 +181,8 @@ def profiled(fn: Callable) -> Profile:
         else:
             ops.append((e.name, *span))
     device_ms = sum(ms for ms, _ in device_ops.values())
-    return Profile(wall, device_ms, device_ops, host_calls, busy, ranges, ops, window)
+    launched = tuple((ms, runtime.get(i)) for ms, i in device)
+    return Profile(wall, device_ms, device_ops, host_calls, busy, ranges, ops, window, launched)
 
 
 def innermost(ranges, t: float) -> str | None:
@@ -189,6 +207,17 @@ def idle_gaps(busy, ranges, window: tuple[float, float], n: int = TOP_GAPS) -> l
     return [(a, b, innermost(ranges, a)) for a, b in gaps[:n]]
 
 
+def stage_device_ms(p: Profile) -> dict[str, float]:
+    """Device ms of each range by which the host launched the work: each
+    op of ``p.launched`` added to the innermost of ``p.ranges`` open at its
+    launch (OUTSIDE if none is, UNLINKED if its launch is unknown)."""
+    out: dict[str, float] = {}
+    for ms, t in p.launched:
+        name = UNLINKED if t is None else (innermost(p.ranges, t) or OUTSIDE)
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
 def breakdown(p: Profile) -> dict | str:
     """The busy share, top device ops and longest idle gaps of a trace."""
     if not p.busy:
@@ -203,6 +232,7 @@ def breakdown(p: Profile) -> dict | str:
                     for name, (ms, count) in top],
         "idle_gaps": [{"ms": (b - a) / 1e3, "at_ms": (a - p.window[0]) / 1e3, "range": name,
                        "op": innermost(p.ops, a)} for a, b, name in gaps],
+        "stage_device_ms": stage_device_ms(p),
     }
 
 
@@ -244,6 +274,9 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"{'TOTAL':24s} {total:9.1f} ms -> {mp_s:.2f} MP/s")
         rec.update(stage_ms=ms, total_ms=total, mp_per_s=mp_s, card=card_name(),
                    breakdown=breakdown(profiled(lambda: fn(StageTimer()))))
+        if isinstance(rec["breakdown"], dict):
+            for name, t in rec["breakdown"]["stage_device_ms"].items():
+                print(f"{name:24s} {t:9.1f} ms of device ops launched")
     print(json.dumps(rec), flush=True)
     return rec
 

@@ -6,7 +6,8 @@ input read once, each output written once) over the card's memory rate,
 and the f32 operations it does on these inputs over the card's f32 peak.
 Each kernel has one work function that counts (bytes, operations) from its
 real inputs: :func:`cost_volume_work`, :func:`sweep_work`,
-:func:`consistency_work` and, for SLIC's three kernels, :func:`slic_work`.
+:func:`consistency_work`, for SLIC's three kernels :func:`slic_work`, and
+for smoothness's two :func:`smooth_cache_work` and :func:`smooth_moves_work`.
 ``chip_smoke.py`` and this tool both use them, so a kernel's roofline
 share reads the same work whatever implements it.
 :func:`gather_work` counts the row gathers of ``tools.profile_propagate``'s
@@ -15,14 +16,15 @@ gather-rate ladder the same way.
 Usage:
 
   python -m cl_multiview_stereo_tpu_torch.tools.roofline \\
-      [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote] \\
+      [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote|smooth_cache|smooth_moves] \\
       [--shapes main|row] \\
       [--views 2 --height 480 --width 640 --d 64] [--device cuda|cpu]
 
 ``--shapes main`` is the slice's scene: 9 views of 1080x1920 at
 ``SystemSettings()`` (31 hypotheses, 40 pairs; the consistency kernel on
 sweep 0's two calls of the gather engine, the main path's launches; the
-SLIC kernels on the scene's converged labels and map).
+SLIC kernels on the scene's converged labels and map; the smoothness kernels
+on sweep 0's cache and its two calls, the main path's launches).
 ``--shapes row`` is the JAX tool's case: ``--views`` views in one row,
 ``--height`` x ``--width``, the ladder 4 .. 3 + ``--d``; the sweep there
 reads random Lab with each view against its right and left neighbour.  Without ``--shapes`` the sweep takes
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import numpy as np
 import torch
@@ -61,12 +64,20 @@ CV_OPS_VALID, SWEEP_OPS_SAD, CONS_OPS_TERM, CONS_OPS_DIP = 9, 8, 36, 8
 # partials and 5 divides; an interior pixel of the vote 25 compares and 25
 # adds, counted at the f32 rate
 SLIC_OPS_CAND, SLIC_OPS_MEMBER, SLIC_OPS_CLUSTER, SLIC_OPS_VOTE = 18, 5, 59, 50
+# smoothness: a cache (cell, tap) costs 14 (the colour distance's 8, the
+# weight's product and exp, the two centre differences, the add into wn), a
+# ring entry 2; a move's (cell, tap) term 12 (the plane's 3 products, 2 adds
+# and divide, the difference, the weight's 2 products and exp, the product
+# and the add), each exp counted as one
+SMOOTH_OPS_TAP, SMOOTH_OPS_RING, SMOOTH_OPS_TERM = 14, 2, 12
 # the bytes of one device memory sector, the unit a gather reads rows in
 SECTOR = 32
 # CUDA-event iterations of (kernel, plain twin) in each of the two turns
 ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1),
-         "slic_assign": (20, 2), "slic_update": (20, 1), "slic_vote": (20, 2)}
+         "slic_assign": (20, 2), "slic_update": (20, 1), "slic_vote": (20, 2),
+         "smooth_cache": (10, 1), "smooth_moves": (10, 1)}
 SLIC_KERNELS = ("slic_assign", "slic_update", "slic_vote")
+SMOOTH_KERNELS = ("smooth_cache", "smooth_moves")
 KERNELS = tuple(ITERS)
 NOT_MEASURED = "not measured"
 
@@ -80,6 +91,12 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def distinct_bytes(t) -> int:
+    """The bytes of ``t``'s distinct elements: a broadcast (stride-0) axis
+    counts once, as a kernel that takes its stride reads it."""
+    return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0) * t.element_size()
 
 
 def cost_volume_terms(centers, step, levels, h: int, w: int, settings) -> tuple[int, int]:
@@ -195,6 +212,29 @@ def slic_work(kernel: str, lab, labels, geom) -> tuple[int, int]:
     if kernel == "slic_vote":
         return 2 * nbytes(labels), SLIC_OPS_VOTE * v * max(h - 4, 0) * max(w - 4, 0)
     raise ValueError(f"no SLIC kernel {kernel!r}; expected one of {SLIC_KERNELS}")
+
+
+def smooth_cache_work(ctx, tgt_d, cache) -> tuple[int, int]:
+    """(bytes, operations) of one ``smooth_cache`` launch that wrote
+    ``cache``: the map's centre, colour, disparity, flatness's first channel
+    (the one the kernel reads) and the tap weights read once, every field
+    but ``ras`` written once; per written (cell, tap) SMOOTH_OPS_TAP, per
+    (cell, ring neighbour) SMOOTH_OPS_RING."""
+    from cl_multiview_stereo_tpu_torch.ops.smoothness import _CACHE_FIELDS
+
+    taps = cache.tap_ax.numel()
+    n_bytes = nbytes(ctx.center, ctx.color, tgt_d, ctx.fl[..., 0], *(getattr(cache, f) for f in _CACHE_FIELDS))
+    return n_bytes + 4 * cache.tap_ax.shape[-1], SMOOTH_OPS_TAP * taps + SMOOTH_OPS_RING * cache.ring_d.numel()
+
+
+def smooth_moves_work(cache, d_c, n_c) -> tuple[int, int]:
+    """(bytes, operations) of one ``smooth_moves`` launch: the four tap
+    fields, ``wn`` and the (M, ...) moves read once (a broadcast ``d_c``,
+    the refit's one d row, once), the (M, V, Mh, Mw) scores written once;
+    SMOOTH_OPS_TERM per (move, cell, tap)."""
+    taps = [getattr(cache, f) for f in ("tap_ax", "tap_ay", "tap_d", "tap_sim")]
+    n_bytes = nbytes(*taps, cache.wn, n_c) + distinct_bytes(d_c) + 4 * d_c.numel()
+    return n_bytes, SMOOTH_OPS_TERM * d_c.shape[0] * taps[0].numel()
 
 
 def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, int]:
@@ -325,6 +365,50 @@ def refine_calls(settings, rgb, device, engine: str = "gather") -> dict:
     return dict(zip(("init", "update", "refit"), calls))
 
 
+def smooth_calls(settings, rgb, device, sweeps=(0,)) -> dict:
+    """The smoothness calls of the refinement on scene ``rgb``, as (kernel,
+    args, keywords): ``init cache`` and ``init`` (one move), then for each
+    sweep ``it`` of ``sweeps``, run from the initial state at that sweep's
+    reach, ``sweep it cache``, ``sweep it update`` and ``sweep it refit``."""
+    from cl_multiview_stereo_tpu_torch.ops import refine, smoothness
+
+    ctx, state0, kw, sched = sweep0_state(settings, rgb, device)
+    calls, real = [], (smoothness.cell_cache, smoothness.smoothness_moves)
+
+    def recorder(kernel, fn):
+        def record(*a, **k):
+            calls.append((kernel, a, k))
+            return fn(*a, **k)
+        return record
+
+    smoothness.cell_cache = recorder("smooth_cache", real[0])
+    smoothness.smoothness_moves = recorder("smooth_moves", real[1])
+    try:
+        refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
+        for it in sweeps:
+            refine.propagate_iteration(ctx, state0, it, **kw, steps=sched.steps_per_iter[it],
+                                       step_size=sched.step_size_per_iter[it])
+    finally:
+        smoothness.cell_cache, smoothness.smoothness_moves = real
+    names = ["init cache", "init"] + [f"sweep {it} {p}" for it in sweeps for p in ("cache", "update", "refit")]
+    if len(calls) != len(names):
+        raise AssertionError(f"the init and sweeps {sweeps} made {len(calls)} smoothness calls, expected {len(names)}")
+    return dict(zip(names, calls))
+
+
+def smooth_case(kernel: str, a, k) -> tuple:
+    """(kernel fn, plain fn, (bytes, operations)) of one recorded smoothness
+    call (:func:`smooth_calls`)."""
+    from cl_multiview_stereo_tpu_torch.ops import smoothness
+
+    if kernel == "smooth_cache":
+        out = smoothness.cell_cache(*a, **k)
+        return (lambda: smoothness.cell_cache(*a, **k), lambda: smoothness.cell_cache_reference(*a, **k),
+                smooth_cache_work(a[0], a[1], out))
+    return (lambda: smoothness.smoothness_moves(*a, **k), lambda: smoothness.smoothness_moves_reference(*a, **k),
+            smooth_moves_work(*a))
+
+
 def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
     """(shape label, [(kernel fn, plain fn, (bytes, ops))]) of one kernel;
     a kernel of several launches (consistency: sweep 0's two) lists each."""
@@ -372,6 +456,13 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
         sw = (lab, ladder, pairs, bl, 2)
         label = f"{lab.shape[0]}x{h}x{w} D{len(ladder)} P{len(pairs)}"
         return label, [(lambda: sweep.plane_sweep(*sw), lambda: plane_sweep_reference(*sw), sweep_work(*sw))]
+    if kernel in SMOOTH_KERNELS:
+        calls = [c for name, c in smooth_calls(s, rgb, device).items() if name.startswith("sweep") and c[0] == kernel]
+        # the cache's (V, Mh, Mw) and tap count, or each call's (M, V, Mh, Mw)
+        label = "sweep 0's launches " + ", ".join(
+            f"{tuple(a[1].shape)}" + (f" T {8 + 4 * k['steps']}" if kernel == "smooth_cache" else "")
+            for _, a, k in calls)
+        return label, [smooth_case(*c) for c in calls]
     calls = [c for name, c in refine_calls(s, rgb, device).items() if name != "init"]
     label = "sweep 0's launches " + ", ".join(str(tuple(a[2].shape)) for a, _ in calls)
     return label, [(lambda a=a, k=k: consistency.consistency_moves(*a, **k),

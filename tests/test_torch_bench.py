@@ -49,7 +49,7 @@ def test_bench_record_on_the_cpu(cell, capsys):
     assert rec["value"] == want
     # no kernel on the CPU
     assert rec["launches"] == {"cost_volume": 0, "sweep": 0, "consistency": 0, "slic_assign": 0, "slic_update": 0,
-                               "slic_vote": 0}
+                               "slic_vote": 0, "smooth_cache": 0, "smooth_moves": 0}
 
 
 def test_bench_slice_cell_equals_run(tmp_path):
@@ -111,6 +111,17 @@ def test_breakdown_of_a_trace():
     assert b["busy_share"] == 0.5
     assert [(o["name"], o["launches"]) for o in b["top_ops"]] == [("index_kernel", 3), ("add_kernel", 2)]
     assert b["idle_gaps"][0] == {"ms": 0.03, "at_ms": 0.03, "range": "propagate", "op": "aten::item"}
+
+
+def test_stage_device_ms_by_launching_range():
+    """Each device op's time goes to the innermost range open when the host
+    launched it, however late the device ran it."""
+    ranges = [("slic", 0.0, 40.0), ("propagate", 40.0, 100.0), ("accept", 60.0, 70.0)]
+    launched = ((0.5, 10.0), (0.25, 39.0), (2.0, 45.0), (1.0, 65.0), (0.125, 120.0), (4.0, None))
+    p = profile_stages.Profile(1.0, 7.875, {}, {}, [(0.0, 1.0)], ranges, [], (0.0, 130.0), launched)
+    assert profile_stages.stage_device_ms(p) == {"slic": 0.75, "propagate": 2.0, "accept": 1.0,
+                                                 profile_stages.OUTSIDE: 0.125, profile_stages.UNLINKED: 4.0}
+    assert profile_stages.breakdown(p)["stage_device_ms"] == profile_stages.stage_device_ms(p)
 
 
 @pytest.mark.parametrize("argv", [

@@ -22,7 +22,16 @@ from cl_multiview_stereo_tpu_torch.config import (
     build_view_subsets,
 )
 from cl_multiview_stereo_tpu_torch.models import plane_sweep
-from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, fusion, refine, slic, superpixel, sweep
+from cl_multiview_stereo_tpu_torch.ops import (
+    consistency,
+    cost_volume,
+    fusion,
+    refine,
+    slic,
+    smoothness,
+    superpixel,
+    sweep,
+)
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 from cl_multiview_stereo_tpu_torch.testing import synthetic
 
@@ -971,3 +980,181 @@ def test_slic_launches_of_one_run(cuda, connectivity):
     torch.cuda.synchronize()
     assert {k: mvs_pipeline.REPLAYED_LAUNCHES.get(k, 0) - replayed.get(k, 0) for k in want} == want
     assert torch.equal(got.labels, art.labels)
+
+
+# Smoothness on csrc/smoothness.cu: the sweep's tap cache (smooth_cache)
+# and the moves' scores (smooth_moves), each bitwise its plain form
+# (ops/refine's build_cell_cache and smoothness_from_cache, taps summed in
+# tap order) on seeded cell maps: the main path's tap counts T = 8 (steps
+# 0) and 60 (steps 13), the main path's move counts, a ragged map (61x45
+# pixels at S = 8: 8x6 cells) and a band of cell rows.
+SMOOTH_MAPS = {"3x12x16": (3, 12, 16), "ragged-9x8x6": (9, 8, 6)}
+SMOOTH_REACH = {"T8": (0, 328.0), "T60": (13, 1.5)}
+SMOOTH_GAMMA, SMOOTH_ALPHA = 0.125, 0.013888888888888888
+
+
+def _smooth_inputs(shape, device, seed=11):
+    """(context, input disparities) of a seeded cell map: centres near each
+    cell's middle, colours near one grey, one far colour (every weight of
+    that cell flushes to 0)."""
+    v, mh, mw = shape
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(mh), np.arange(mw), indexing="ij")
+    center = np.stack([xx * 8 + 3.5, yy * 8 + 3.5], -1)[None] + rng.uniform(-2, 2, (v, mh, mw, 2))
+    color = np.array([50.0, 0.0, 0.0]) + rng.normal(0, [3.0, 1.5, 1.5], (v, mh, mw, 3))
+    color[:, mh // 2, mw // 2] = (400.0, 90.0, -90.0)
+    tgt_d = rng.uniform(5.0, 9.0, (v, mh, mw))
+    fl = np.stack([rng.uniform(0.05, 1.0, (v, mh, mw)), rng.uniform(0.0, 1.0, (v, mh, mw))], -1)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    ctx = refine.RefineContext(center=f(center), color=f(color), disp0=None, labels=None, samples=None,
+                               fl=f(fl), ras_color=None)
+    return ctx, f(tgt_d)
+
+
+def _smooth_moves_in(tgt_d, m, seed=3):
+    """m candidate planes near ``tgt_d``; the first move's cells hold nz = 0,
+    zero and NaN normals."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(tgt_d.shape)
+    d_c = tgt_d[None] + torch.as_tensor(rng.normal(0, 0.5, (m,) + shape), dtype=torch.float32, device=tgt_d.device)
+    n_c = rng.normal(0, 0.2, (m,) + shape + (3,))
+    n_c[..., 2] += 1.0
+    n_c /= np.linalg.norm(n_c, axis=-1, keepdims=True)
+    flat = n_c[0].reshape(-1, 3)
+    flat[0::5] = (1.0, 0.0, 0.0)
+    flat[1::5] = 0.0
+    flat[2::5] = np.nan
+    return d_c.contiguous(), torch.as_tensor(n_c, dtype=torch.float32, device=tgt_d.device)
+
+
+def _caches_equal(got, want):
+    for f in smoothness._CACHE_FIELDS:
+        torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"{f}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reach", list(SMOOTH_REACH))
+@pytest.mark.parametrize("shape", list(SMOOTH_MAPS))
+def test_smooth_cache_bitwise(cuda, shape, reach):
+    ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS[shape], cuda)
+    steps, step_size = SMOOTH_REACH[reach]
+    kw = dict(gamma=SMOOTH_GAMMA, steps=steps, step_size=step_size)
+    before = smoothness.LAUNCHES["smooth_cache"]
+    got = smoothness.cell_cache(ctx, tgt_d, **kw)
+    torch.cuda.synchronize()
+    assert smoothness.LAUNCHES["smooth_cache"] == before + 1
+    assert got.tap_ax.shape[-1] == 8 + 4 * steps
+    _caches_equal(got, smoothness.cell_cache_reference(ctx, tgt_d, **kw))
+    assert bool((got.wn == 0).any()) and bool((got.wn > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(0, 3), (4, 5), (9, 3)], ids=str)
+def test_smooth_cache_row_band_bitwise(cuda, rows):
+    """A band of cell rows (the row-sharded refinement's block): the kernel
+    writes those rows only, its taps read from the whole map; equal to the
+    whole map's cache cut to them, and to the plain band."""
+    ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS["3x12x16"], cuda)
+    kw = dict(gamma=SMOOTH_GAMMA, steps=13, step_size=1.5)
+    band = smoothness.cell_cache(ctx, tgt_d, **kw, rows=rows)
+    assert band.tap_ax.is_contiguous() and band.tap_ax.shape[1] == rows[1]
+    _caches_equal(band, smoothness.cell_cache_reference(ctx, tgt_d, **kw, rows=rows))
+    whole = smoothness.cell_cache(ctx, tgt_d, **kw)
+    _caches_equal(band, whole._replace(**{f: getattr(whole, f)[:, rows[0]:rows[0] + rows[1]]
+                                          for f in smoothness._CACHE_FIELDS}))
+    d_c, n_c = _smooth_moves_in(tgt_d[:, rows[0]:rows[0] + rows[1]].contiguous(), 8)
+    torch.testing.assert_close(smoothness.smoothness_moves(band, d_c, n_c, alpha=SMOOTH_ALPHA),
+                               smoothness.smoothness_moves_reference(band, d_c, n_c, alpha=SMOOTH_ALPHA),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 13, 16])
+@pytest.mark.parametrize("reach", list(SMOOTH_REACH))
+@pytest.mark.parametrize("shape", list(SMOOTH_MAPS))
+def test_smooth_moves_bitwise(cuda, shape, reach, m):
+    """M = 1 (the init: 8 lanes a cell, 7 idle), 8 (the refits), 13 (16
+    lanes, 3 idle) and 16 (sweep 4's updates), NaN normals in the first
+    move."""
+    ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS[shape], cuda)
+    steps, step_size = SMOOTH_REACH[reach]
+    cache = smoothness.cell_cache(ctx, tgt_d, gamma=SMOOTH_GAMMA, steps=steps, step_size=step_size)
+    d_c, n_c = _smooth_moves_in(tgt_d, m)
+    before = smoothness.LAUNCHES["smooth_moves"]
+    got = smoothness.smoothness_moves(cache, d_c, n_c, alpha=SMOOTH_ALPHA)
+    torch.cuda.synchronize()
+    assert smoothness.LAUNCHES["smooth_moves"] == before + 1
+    torch.testing.assert_close(got, smoothness.smoothness_moves_reference(cache, d_c, n_c, alpha=SMOOTH_ALPHA),
+                               rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isnan(got[0]).any()) and bool((got == np.float32(1e-6)).any())
+    # the refit phase's stride-0 input state, read in place (move stride 0)
+    d0 = tgt_d[None].expand(m, *tgt_d.shape)
+    torch.testing.assert_close(smoothness.smoothness_moves(cache, d0, n_c, alpha=SMOOTH_ALPHA),
+                               smoothness.smoothness_moves_reference(cache, d0, n_c, alpha=SMOOTH_ALPHA),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_smooth_moves_beyond_one_round(cuda):
+    """M = 40: each of a cell's 16 lanes scores up to three moves, bitwise
+    the plain form and each move's row of a call with that move alone."""
+    ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS["ragged-9x8x6"], cuda)
+    cache = smoothness.cell_cache(ctx, tgt_d, gamma=SMOOTH_GAMMA, steps=2, step_size=1.5)
+    d_c, n_c = _smooth_moves_in(tgt_d, 40)
+    got = smoothness.smoothness_moves(cache, d_c, n_c, alpha=SMOOTH_ALPHA)
+    torch.testing.assert_close(got, smoothness.smoothness_moves_reference(cache, d_c, n_c, alpha=SMOOTH_ALPHA),
+                               rtol=0, atol=0, equal_nan=True)
+    for k in (0, 17, 39):
+        torch.testing.assert_close(smoothness.smoothness_moves(cache, d_c[k:k + 1], n_c[k:k + 1],
+                                                               alpha=SMOOTH_ALPHA)[0],
+                                   got[k], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_smoothness_on_the_card_launches_the_kernels(strips_scene, monkeypatch):
+    """``refine.refine`` on the card: ``smooth_cache`` once a sweep and at
+    the init, ``smooth_moves`` at the init and twice a sweep, the plain
+    forms never called; its state equals the run with the plain forms."""
+    sc = strips_scene
+    sched, pairs = sc["sched"], sc["kw"]["pairs"]
+    real_cache, real_moves = smoothness.cell_cache, smoothness.smoothness_moves
+    monkeypatch.setattr(smoothness, "cell_cache", smoothness.cell_cache_reference)
+    monkeypatch.setattr(smoothness, "smoothness_moves", smoothness.smoothness_moves_reference)
+    want = refine.refine(sc["ctx"], sched, pairs=pairs)
+    monkeypatch.setattr(smoothness, "cell_cache", real_cache)
+    monkeypatch.setattr(smoothness, "smoothness_moves", real_moves)
+
+    def plain(*a, **k):
+        raise AssertionError("the card called a plain smoothness form")
+
+    monkeypatch.setattr(smoothness, "build_cell_cache", plain)
+    monkeypatch.setattr(smoothness, "smoothness_from_cache", plain)
+    before = dict(smoothness.LAUNCHES)
+    got = refine.refine(sc["ctx"], sched, pairs=pairs)
+    torch.cuda.synchronize()
+    assert {k: smoothness.LAUNCHES[k] - before[k] for k in before} == {
+        "smooth_cache": 1 + sched.no_prop, "smooth_moves": 1 + 2 * sched.no_prop}
+    for f in refine.RefineState._fields:
+        torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"{f}: {m}")
+
+
+@pytest.mark.cuda
+def test_smoothness_wrappers_reject_bad_input(cuda):
+    ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS["3x12x16"], cuda)
+    kw = dict(gamma=SMOOTH_GAMMA, steps=2, step_size=1.5)
+    with pytest.raises(TypeError):
+        smoothness.cell_cache(ctx, tgt_d.double(), **kw)
+    with pytest.raises(ValueError):
+        smoothness.cell_cache(ctx._replace(fl=ctx.fl.cpu()), tgt_d, **kw)
+    with pytest.raises(ValueError):
+        smoothness.cell_cache(ctx, tgt_d, **kw, rows=(10, 4))
+    cache = smoothness.cell_cache(ctx, tgt_d, **kw)
+    d_c, n_c = _smooth_moves_in(tgt_d, 4)
+    with pytest.raises(TypeError):
+        smoothness.smoothness_moves(cache, d_c.double(), n_c, alpha=SMOOTH_ALPHA)
+    with pytest.raises(ValueError):
+        smoothness.smoothness_moves(cache, d_c[:, :, :-1], n_c, alpha=SMOOTH_ALPHA)
+    with pytest.raises(ValueError):
+        smoothness.smoothness_moves(cache._replace(wn=cache.wn.cpu()), d_c, n_c, alpha=SMOOTH_ALPHA)

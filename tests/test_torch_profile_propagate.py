@@ -25,10 +25,12 @@ H, W = 48, 64
 S = SystemSettings(array_width=2, array_height=2, min_disp=4, max_disp=11)
 COMPONENTS = {
     "gather": ["propagate_iteration[0]", "propagate_iteration[0], plain form", "rasterize_table", "build_cell_cache",
-               "consistency_moves (update)", "consistency_from_cache x1", "smoothness_from_cache x1",
+               "build_cell_cache, plain form", "consistency_moves (update)", "consistency_from_cache x1",
+               "smoothness_moves (update)", "smoothness_from_cache x1", "update_candidates", "accept_chain",
+               "init_state"],
+    "strips": ["propagate_iteration[0]", "rasterize_table", "build_cell_cache", "build_cell_cache, plain form",
+               "consistency_moves (update)", "smoothness_moves (update)", "smoothness_from_cache x1",
                "update_candidates", "accept_chain", "init_state"],
-    "strips": ["propagate_iteration[0]", "rasterize_table", "build_cell_cache", "consistency_moves (update)",
-               "smoothness_from_cache x1", "update_candidates", "accept_chain", "init_state"],
 }
 LADDER = ["(N,1) random int64", "(N,1) sorted int64", "(N,1) coherent int64", "(N,1) real int64",
           "(N,4) random int64", "(N,4) sorted int64", "(N,4) coherent int64", "(N,4) real int64",
@@ -53,11 +55,17 @@ def test_cpu_record_lists_every_component_and_entry(record, capsys):
         comps = record["components"][engine]
         assert list(comps) == names
         for name, c in comps.items():
-            assert c["ms"] is None and c["launches"] is None and c["share"] is None, (engine, name)
-        # 8 update moves and 8 refits in batches of 4
-        assert comps["smoothness_from_cache x1"]["per_iteration"] == 4
+            assert c["ms"] is None and c["device_ms"] is None and c["launches"] is None and c["share"] is None, (
+                engine, name)
+        # the routed cache and smoothness make the sweep's calls (one cache,
+        # the update and refit phases); their plain forms are measured beside
+        assert comps["build_cell_cache"]["per_iteration"] == 1
+        assert comps["smoothness_moves (update)"]["per_iteration"] == 2
+        assert comps["build_cell_cache, plain form"]["per_iteration"] == 0
+        assert comps["smoothness_from_cache x1"]["per_iteration"] == 0
         assert comps["init_state"]["per_iteration"] == 0
-        assert record["parts_vs_total"][engine] == {"parts_ms": None, "total_ms": None, "parts_launches": None,
+        assert record["parts_vs_total"][engine] == {"parts_ms": None, "total_ms": None, "parts_device_ms": None,
+                                                    "total_device_ms": None, "parts_launches": None,
                                                     "total_launches": None}
     # the routed scorer makes the sweep's consistency calls; the plain form
     # is measured beside the sweep
@@ -104,12 +112,17 @@ def test_total_is_propagate_iteration(sw, engine):
 
 
 def test_plain_sweep_is_the_gather_sweep_on_the_cpu(sw):
-    """On the CPU the gather engine's routed scorer is its plain form, so
-    the plain-form sweep gives the routed sweep's bits."""
-    want = pp.components(sw, "gather")[pp.TOTAL].fn()
-    got = pp.components(sw, "gather")["propagate_iteration[0], plain form"].fn()
+    """On the CPU the routed cache and scorers are their plain forms, so
+    the plain-form sweep gives the routed sweep's bits, and so do the
+    cache's two components."""
+    comps = pp.components(sw, "gather")
+    want = comps[pp.TOTAL].fn()
+    got = comps["propagate_iteration[0], plain form"].fn()
     for f in refine.RefineState._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+    routed, plain = comps["build_cell_cache"].fn(), comps["build_cell_cache, plain form"].fn()
+    for f in refine.IterCache._fields:
+        assert torch.equal(getattr(routed, f), getattr(plain, f)), f
 
 
 @pytest.mark.parametrize("engine", pp.ENGINES)
@@ -177,3 +190,28 @@ def test_save_writes_each_engines_total_state(tmp_path, capsys):
     with np.load(path) as z:
         assert sorted(z.files) == sorted(f"strips_{f}" for f in refine.RefineState._fields)
         assert z["strips_d"].shape == (4, 6, 8) and z["strips_n"].shape == (4, 6, 8, 3)
+
+
+@pytest.mark.parametrize("kernels", [[3, 7], [0, 0, 7], [6, 6, 6]], ids=["second", "third", "never"])
+def test_device_work_takes_a_trace_again_until_whole(monkeypatch, kernels):
+    """A trace with fewer kernels than launch calls (torch.profiler's lost
+    device events) is taken again; a whole one gives its device ms and
+    kernels; none whole in PROFILE_TRIES raises."""
+    from cl_multiview_stereo_tpu_torch.tools import profile_stages
+
+    traces = iter(kernels)
+
+    def fake(fn):
+        fn()
+        k = next(traces)
+        return profile_stages.Profile(0.0, 0.5 * k, {"kern": (0.5 * k, k), "Memset (Device)": (0.1, 2)},
+                                      {"cudaLaunchKernel": 7, "cudaMemsetAsync": 2}, [], [], [], None)
+
+    monkeypatch.setattr(profile_stages, "profiled", fake)
+    runs = []
+    if kernels[-1] != 7:
+        with pytest.raises(RuntimeError, match="no whole trace"):
+            pp.device_work(lambda: runs.append(1))
+    else:
+        assert pp.device_work(lambda: runs.append(1)) == (3.5, 7)
+    assert len(runs) == len(kernels) == min(len(kernels), pp.PROFILE_TRIES)

@@ -100,6 +100,34 @@ def test_consistency_work_hand_count():
     assert n_bytes == 4 * (cells * (2 + 3 + 18 + 2) + v * h * w * 4 + m * cells * (1 + 3 + 1)) + 4 * (v + 1 + 9)
 
 
+def test_smooth_work_hand_count():
+    """V = 2 views of 3x4 cells, a band of 2 rows cached with T = 16 taps,
+    then M = 5 moves scored against it, dense and with one d row broadcast
+    over the moves (the refit phase's)."""
+    from cl_multiview_stereo_tpu_torch.ops import refine, smoothness
+
+    v, mh, mw, rows, t, m = 2, 3, 4, 2, 16, 5
+    ctx = refine.RefineContext(center=torch.zeros((v, mh, mw, 2)), color=torch.zeros((v, mh, mw, 3)),
+                               disp0=None, labels=None, samples=None, fl=torch.ones((v, mh, mw, 2)),
+                               ras_color=None)
+    tgt_d = torch.zeros((v, mh, mw))
+    cache = smoothness.cell_cache(ctx, tgt_d, gamma=0.1, steps=(t - 8) // 4, step_size=1.0, rows=(1, rows))
+    band = v * rows * mw
+    n_bytes, ops = roofline.smooth_cache_work(ctx, tgt_d, cache)
+    # inputs: centre, colour, disparity, flatness's first channel of the
+    # whole map, the T weights; outputs: 4 tap fields, wn, 3 float ring
+    # fields, the ring's bools
+    assert n_bytes == 4 * v * mh * mw * (2 + 3 + 1 + 1) + 4 * t + 4 * band * (4 * t + 1 + 3 * 8) + band * 8
+    assert ops == 14 * band * t + 2 * band * 8
+    d_c, n_c = torch.zeros((m, v, rows, mw)), torch.zeros((m, v, rows, mw, 3))
+    n_bytes, ops = roofline.smooth_moves_work(cache, d_c, n_c)
+    assert n_bytes == 4 * band * (4 * t + 1) + 4 * m * band * (1 + 3 + 1)
+    assert ops == 12 * m * band * t
+    d0 = torch.zeros((v, rows, mw))
+    assert roofline.smooth_moves_work(cache, d0[None].expand(m, v, rows, mw), n_c) == (
+        4 * band * (4 * t + 1) + 4 * band + 4 * m * band * (3 + 1), ops)
+
+
 def test_slic_work_counted_one_pixel_at_a_time():
     """2 views of 20x28 in 8-pixel cells (3x4 cells, ragged at both
     edges), labels drawn from -2 .. Mh*Mw + 1: the assignment's candidates
