@@ -29,10 +29,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    converged labels and map: the assignment, the vote and the update
    (centre, count and colour) bitwise, with ``index_add_``'s time beside
    the update's; the smoothness kernels, bitwise (NaN at the same places),
-   on the main path's calls at 9x135x240 cells: ``smooth_cache`` at the
-   init's and sweep 0's reach (T = 60) and sweep 4's (T = 16),
-   ``smooth_moves`` on the init state (M = 1), sweep 0's update and refit
-   phases (M = 8) and sweep 4's (M = 16, 8);
+   on the main path's calls at 9x135x240 cells: ``smooth_cache``'s cell
+   table and ring at the init's and sweep 0's reach (T = 60) and sweep 4's
+   (T = 16), with no T-wide field allocated, and ``smooth_moves`` on the
+   init state (M = 1), sweep 0's update and refit phases (M = 8) and sweep
+   4's (M = 16, 8), each against the plain scorer on the plain cache;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
@@ -500,9 +501,12 @@ def phase_smoothness_vs_plain(card: str) -> dict:
     calls at the slice's size (``tools.roofline.smooth_calls``): the init's
     cache and state (M = 1), sweep 0's cache and its update and refit
     phases, and sweep 4's (the shortest reach, T = 16, and the most update
-    moves, M = 16), each run from the initial state.  Returns each kernel's
-    record: sweep 0's cache, and sweep 0's two ``smooth_moves`` launches
-    summed, as ``tools.roofline`` counts them."""
+    moves, M = 16), each run from the initial state: the routed cache's
+    table and ring bitwise the plain cache's, nothing T-wide allocated, and
+    each routed call's scores bitwise the plain scorer's on the plain cache.
+    Returns
+    each kernel's record: sweep 0's cache, and sweep 0's two
+    ``smooth_moves`` launches summed, as ``tools.roofline`` counts them."""
     import torch
 
     from cl_multiview_stereo_tpu_torch.ops.smoothness import _CACHE_FIELDS
@@ -510,18 +514,21 @@ def phase_smoothness_vs_plain(card: str) -> dict:
 
     s, rgb = _scene(FULL_H, FULL_W)
     recs = {}
-    for tag, (kernel, a, k) in smooth_calls(s, rgb, "cuda", sweeps=(0, 4)).items():
-        kern, plain, work = smooth_case(kernel, a, k)
+    for tag, (kernel, a, k, plain_a) in smooth_calls(s, rgb, "cuda", sweeps=(0, 4)).items():
+        kern, plain, work = smooth_case(kernel, a, k, plain_a)
         got, want = kern(), plain()
         torch.cuda.synchronize()
         if kernel == "smooth_cache":
-            for f in _CACHE_FIELDS:
+            for f in (*_CACHE_FIELDS, "gammas"):
                 _require_equal(f"[2] smooth_cache {tag} {f}", getattr(got, f), getattr(want, f), equal_nan=True)
-            shape = f"{tuple(got.tap_ax.shape)} T {got.tap_ax.shape[-1]}"
-            nan = int(torch.isnan(got.tap_sim).sum())
+            wide = [f for f in ("tap_ax", "tap_ay", "tap_d", "tap_sim", "wn") if getattr(got, f) is not None]
+            if wide or got.row0 != want.row0:
+                raise AssertionError(f"[2] smooth_cache {tag}: T-wide fields {wide}, row0 {got.row0}")
+            shape = f"table {tuple(got.cell_table.shape)} T {got.gammas.numel()}, nothing T-wide"
+            nan = int(torch.isnan(got.cell_table).sum())
         else:
             _require_equal(f"[2] smooth_moves {tag}", got, want, equal_nan=True)
-            shape = f"{tuple(got.shape)} M {got.shape[0]} T {a[0].tap_ax.shape[-1]}"
+            shape = f"{tuple(got.shape)} M {got.shape[0]} T {a[0].gammas.numel()}"
             nan = int(torch.isnan(got).sum())
         k_ms, p_ms = in_turns(kern, plain, *ITERS[kernel])
         b_ms, by = bound(*work)
@@ -532,7 +539,8 @@ def phase_smoothness_vs_plain(card: str) -> dict:
     moves = [recs["sweep 0 update"], recs["sweep 0 refit"]]
     per = {f: sum(r[f] for r in moves) for f in ("ms", "plain_ms", "bound_ms")}
     print(f"[2] smoothness per sweep 0 (one cache, two move launches): kernels "
-          f"{recs['sweep 0 cache']['ms'] + per['ms']:.3f} ms, plain forms "
+          f"{recs['sweep 0 cache']['ms'] + per['ms']:.3f} ms, bound "
+          f"{recs['sweep 0 cache']['bound_ms'] + per['bound_ms']:.4g} ms, plain forms "
           f"{recs['sweep 0 cache']['plain_ms'] + per['plain_ms']:.3f} ms ({card})")
     return {"smooth_cache": recs["sweep 0 cache"],
             "smooth_moves": dict(per, max_abs_err=0.0, bound_by=moves[0]["bound_by"])}

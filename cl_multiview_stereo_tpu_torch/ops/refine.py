@@ -25,12 +25,14 @@ disparity is not finite; ``"strips_xla"`` names the same function as
 Both go through ``ops/consistency.consistency_moves``: on the CPU its plain
 twin (per ``score_chunk`` batch of moves), on a card one launch of the CUDA
 kernel for all moves of a phase, under the engine's rule.  Smoothness goes
-the same way through ``ops/smoothness``: the sweep's tap cache
-(:func:`build_cell_cache` on the CPU) and the scores of all moves of a phase
-(:func:`smoothness_from_cache` per ``score_chunk`` batch on the CPU), each
-one launch of ``csrc/smoothness.cu`` on a card.  Both plain forms add their
-taps one at a time in tap order (:func:`_sum_taps`), the order the kernels
-keep.
+the same way through ``ops/smoothness``: the sweep's cache
+(:func:`build_cell_cache` on the CPU, its T-wide tap fields and a 32-byte
+row a cell of the whole map, ``cell_table``) and the scores of all moves of
+a phase (:func:`smoothness_from_cache` per ``score_chunk`` batch on the
+CPU), each one launch of ``csrc/smoothness.cu`` on a card, whose cache is
+the table alone and whose scorer derives each tap from it.  Both plain
+forms add their taps one at a time in tap order (:func:`_sum_taps`), the
+order the kernels keep.
 """
 
 from __future__ import annotations
@@ -136,18 +138,27 @@ def compute_flatness(color: torch.Tensor, gamma: float) -> torch.Tensor:
 
 
 class IterCache(NamedTuple):
-    """Move-independent data for one Jacobi sweep (input state frozen)."""
+    """Move-independent data for one Jacobi sweep (input state frozen), for
+    the cells of rows ``row0`` .. of the map (every row, or a band).  The
+    plain form (:func:`build_cell_cache`) fills every field; the card's
+    cache (``ops/smoothness``) leaves the T-wide tap fields and ``wn``
+    None, since its moves kernel scores each tap from ``cell_table``."""
 
-    tap_ax: torch.Tensor  # (V, Mh, Mw, T) cx - tap_cx
-    tap_ay: torch.Tensor  # (V, Mh, Mw, T) cy - tap_cy
-    tap_d: torch.Tensor  # (V, Mh, Mw, T) input-state disparity at the tap
-    tap_sim: torch.Tensor  # (V, Mh, Mw, T) similarity weight (0 if invalid)
-    wn: torch.Tensor  # (V, Mh, Mw) weight normalizer
+    tap_ax: torch.Tensor | None  # (V, rows, Mw, T) cx - tap_cx
+    tap_ay: torch.Tensor | None  # (V, rows, Mw, T) cy - tap_cy
+    tap_d: torch.Tensor | None  # (V, rows, Mw, T) input-state disparity at the tap
+    tap_sim: torch.Tensor | None  # (V, rows, Mw, T) similarity weight (0 if invalid)
+    wn: torch.Tensor | None  # (V, rows, Mw) weight normalizer
     ras: torch.Tensor  # (V*H*W, 4) [state disparity, Lab colour] per pixel
-    ring_dcx: torch.Tensor  # (V, Mh, Mw, 8) ring-neighbour cx - cx
-    ring_dcy: torch.Tensor  # (V, Mh, Mw, 8)
-    ring_d: torch.Tensor  # (V, Mh, Mw, 8) input-state d at the ring neighbour
-    ring_ok: torch.Tensor  # (V, Mh, Mw, 8) bool
+    ring_dcx: torch.Tensor  # (V, rows, Mw, 8) ring-neighbour cx - cx
+    ring_dcy: torch.Tensor  # (V, rows, Mw, 8)
+    ring_d: torch.Tensor  # (V, rows, Mw, 8) input-state d at the ring neighbour
+    ring_ok: torch.Tensor  # (V, rows, Mw, 8) bool
+    # (V, Mh, Mw, 8) of the whole map, 32 bytes a cell: [cx, cy, L, a, b,
+    # input-state d, step_sz (float32 of the long taps' integer pitch), 0]
+    cell_table: torch.Tensor
+    gammas: torch.Tensor  # (T,) float32 similarity weight of each tap (tap_gammas)
+    row0: int  # the map row of the cells' first row
 
 
 # Ring neighbour order of the refinement stage (cl:1865-1873), (dx, dy).
@@ -186,6 +197,56 @@ def _sum_taps(a: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def tap_step(fl: torch.Tensor, step_size: float) -> torch.Tensor:
+    """The long-range taps' pitch of each cell, int64 (cl:1169 / cl:1437:
+    ``step_sz = max(1, (int)(fl.x*kss + 0.5))``) from the flatness ``fl``
+    (V, Mh, Mw, 2)."""
+    return torch.clamp((fl[..., 0] * step_size + 0.5).to(torch.int64), min=1)
+
+
+def _imm_ok(v: int, mh: int, mw: int, device) -> torch.Tensor:
+    """(V, Mh, Mw, 8) bool: each immediate tap on the map, in tap order."""
+    col, row = _grid(mh, mw, device)
+    ok = [(col + dx >= 0) & (row + dy >= 0) & (col + dx < mw) & (row + dy < mh) for dx, dy in _IMM]
+    return torch.stack(ok, dim=-1).expand(v, mh, mw, len(_IMM))
+
+
+def _long_taps(step_sz: torch.Tensor, steps: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(tx, ty, ok) of the ``4 * steps`` long-range taps of each cell, each
+    (V, Mh, Mw, 4 * steps): the unclamped position at ``i * step_sz + 1``
+    cells in the order L, R, U, D for reach step ``i``, and whether it lies
+    on the map."""
+    v, mh, mw = step_sz.shape
+    if steps == 0:
+        empty = torch.zeros((v, mh, mw, 0), dtype=torch.int64, device=step_sz.device)
+        return empty, empty, empty.bool()
+    col, row = _grid(mh, mw, step_sz.device)
+    colb, rowb = col.expand(v, mh, mw), row.expand(v, mh, mw)
+    tx_list, ty_list, ok_list = [], [], []
+    for i in range(1, steps + 1):
+        step = i * step_sz
+        off = step + 1
+        for axis, sign in ((0, -1), (0, 1), (1, -1), (1, 1)):  # L R U D
+            if axis == 0:
+                tx, ty = colb + sign * off, rowb
+                ok = (colb > step) if sign < 0 else (colb < mw - step - 1)
+            else:
+                tx, ty = colb, rowb + sign * off
+                ok = (rowb > step) if sign < 0 else (rowb < mh - step - 1)
+            tx_list.append(tx)
+            ty_list.append(ty)
+            ok_list.append(ok)
+    return torch.stack(tx_list, dim=-1), torch.stack(ty_list, dim=-1), torch.stack(ok_list, dim=-1)
+
+
+def tap_on_map(step_sz: torch.Tensor, steps: int) -> torch.Tensor:
+    """(V, Mh, Mw, 8 + 4 * steps) bool: each tap of each cell on the map, in
+    tap order: the plain form's ``ok``, which zeroes an off-map tap's
+    similarity.  ``step_sz`` from :func:`tap_step`."""
+    v, mh, mw = step_sz.shape
+    return torch.cat([_imm_ok(v, mh, mw, step_sz.device), _long_taps(step_sz, steps)[2]], dim=-1)
+
+
 def build_cell_cache(
     ctx: RefineContext, tgt_d: torch.Tensor, *, gamma: float, steps: int, step_size: float
 ) -> IterCache:
@@ -196,42 +257,21 @@ def build_cell_cache(
     center, color = ctx.center, ctx.color
     col, row = _grid(mh, mw, dev)
     packed = torch.cat([center, color, tgt_d[..., None]], dim=-1)  # (V, Mh, Mw, 6)
+    step_sz = tap_step(ctx.fl, step_size)
 
     # 8 immediate taps at static cell offsets
-    tap_parts, ok_list = [], []
-    for dx, dy in _IMM:
-        tap_parts.append(_roll_cells(packed, dx, dy))
-        ok = (col + dx >= 0) & (row + dy >= 0) & (col + dx < mw) & (row + dy < mh)
-        ok_list.append(ok.expand(v, mh, mw))
-    tap = torch.stack(tap_parts, dim=-2)
+    tap = torch.stack([_roll_cells(packed, dx, dy) for dx, dy in _IMM], dim=-2)
 
-    # 4 * steps long-range taps at flatness-scaled pitch
-    # (cl:1169 / cl:1437: step_sz = max(1, (int)(fl.x*kss + 0.5)))
+    # 4 * steps long-range taps at flatness-scaled pitch, read at the
+    # position clamped to the map
+    tx, ty, long_ok = _long_taps(step_sz, steps)
     if steps > 0:
-        step_sz = torch.clamp((ctx.fl[..., 0] * step_size + 0.5).to(torch.int64), min=1)
-        colb, rowb = col.expand(v, mh, mw), row.expand(v, mh, mw)
-        tx_list, ty_list = [], []
-        for i in range(1, steps + 1):
-            step = i * step_sz
-            off = step + 1
-            for axis, sign in ((0, -1), (0, 1), (1, -1), (1, 1)):  # L R U D
-                if axis == 0:
-                    tx, ty = colb + sign * off, rowb
-                    ok = (colb > step) if sign < 0 else (colb < mw - step - 1)
-                else:
-                    tx, ty = colb, rowb + sign * off
-                    ok = (rowb > step) if sign < 0 else (rowb < mh - step - 1)
-                tx_list.append(tx)
-                ty_list.append(ty)
-                ok_list.append(ok)
-        tx = torch.stack(tx_list, dim=-1)
-        ty = torch.stack(ty_list, dim=-1)
         vid = torch.arange(v, device=dev)[:, None, None, None]
         flat = vid * (mh * mw) + ty.clamp(0, mh - 1) * mw + tx.clamp(0, mw - 1)
         lr = packed.reshape(-1, 6)[flat]  # (V, Mh, Mw, 4*steps, 6)
         tap = torch.cat([tap, lr], dim=-2)
 
-    ok = torch.stack(ok_list, dim=-1)
+    ok = torch.cat([_imm_ok(v, mh, mw, dev), long_ok], dim=-1)
     gammas = device_table(tap_gammas(gamma, steps), torch.float32, dev)
     cdiff = _sqdist3(color[..., None, :], tap[..., 2:5])
     tap_sim = torch.where(ok, _ftz(torch.exp(-cdiff * gammas)), 0.0)
@@ -251,6 +291,10 @@ def build_cell_cache(
         ring_dcy=rpack[..., 1] - center[..., 1:2],
         ring_d=rpack[..., 5],
         ring_ok=rok.expand(v, mh, mw, 8),
+        cell_table=torch.cat([packed, step_sz[..., None].to(torch.float32), torch.zeros_like(tgt_d)[..., None]],
+                             dim=-1),
+        gammas=gammas,
+        row0=0,
     )
 
 

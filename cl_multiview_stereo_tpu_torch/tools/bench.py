@@ -250,7 +250,7 @@ def main(argv: list[str] | None = None) -> dict:
     from cl_multiview_stereo_tpu_torch.cli import _parse_overrides, resolve_device
     from cl_multiview_stereo_tpu_torch.config import SystemSettings
     from cl_multiview_stereo_tpu_torch.device import card_name
-    from cl_multiview_stereo_tpu_torch.tools.profile_stages import breakdown, parse_hw, profiled
+    from cl_multiview_stereo_tpu_torch.tools.profile_stages import breakdown, parse_hw, whole_profile
 
     dev = resolve_device(args.device)
     overrides = _parse_overrides(args.set)
@@ -280,7 +280,7 @@ def main(argv: list[str] | None = None) -> dict:
         if cuda and args.stages:
             rec["stage_ms"] = cell.stages()
         if cuda and args.profile:
-            rec["breakdown"] = breakdown(profiled(cell.trace))
+            rec["breakdown"] = breakdown(whole_profile(cell.trace))
     print(json.dumps(rec), flush=True)
     return rec
 

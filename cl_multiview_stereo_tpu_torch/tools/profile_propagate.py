@@ -79,13 +79,14 @@ from typing import Callable, Iterator, NamedTuple
 import numpy as np
 import torch
 
+from cl_multiview_stereo_tpu_torch.tools import profile_stages
+from cl_multiview_stereo_tpu_torch.tools.profile_stages import PROFILE_TRIES  # noqa: F401  (the tries, here too)
+
 ENGINES = ("gather", "strips")
 LADDER_WIDTHS = (1, 4, 8)
 # row-coherent indices: rows in bands of this many (profile_gathers.py)
 COHERENT_ROWS = 8
 TOTAL = "propagate_iteration[0]"
-# traces of one component taken before device_work gives up on a whole one
-PROFILE_TRIES = 3
 
 
 class Sweep0(NamedTuple):
@@ -184,6 +185,9 @@ def components(sw: Sweep0, engine: str) -> dict[str, Component]:
         cons.append(("consistency_from_cache x1", Component(
             lambda: refine.consistency_from_cache(ctx, cache, d_b, n_b, **kw), 0)))
     reach = dict(gamma=kw["gamma"], steps=steps, step_size=step_size)
+    # the plain scorer reads the plain cache's tap fields, which the card's
+    # cache does not hold
+    plain_cache = refine.build_cell_cache(ctx, state.d, **reach)
     return dict([
         (TOTAL, Component(total, 1)),
         *plain,
@@ -195,7 +199,7 @@ def components(sw: Sweep0, engine: str) -> dict[str, Component]:
         ("smoothness_moves (update)", Component(
             lambda: smoothness.smoothness_moves(cache, d_c, n_c, alpha=kw["alpha"], score_chunk=chunk), 2)),
         ("smoothness_from_cache x1", Component(
-            lambda: refine.smoothness_from_cache(cache, d_b, n_b, alpha=kw["alpha"]), 0)),
+            lambda: refine.smoothness_from_cache(plain_cache, d_b, n_b, alpha=kw["alpha"]), 0)),
         ("update_candidates", Component(
             lambda: refine.update_candidates(ctx, state, refine._update_move_offsets(
                 steps, step_size, state.d.shape[2], state.d.shape[1]), kw["gamma"]), 1)),
@@ -291,20 +295,9 @@ def median_ms(fn: Callable, runs: int) -> float:
 def device_work(fn: Callable) -> tuple[float, int]:
     """(device ms, kernel launches) of one ``fn()`` under torch.profiler:
     every device op's own time, and its kernels (copies and fills not
-    counted).  A trace is whole when it holds a kernel for each of its
-    runtime launch calls; torch.profiler now and then drops a session's
-    device events, so a trace that is not whole is taken again, up to
-    PROFILE_TRIES times, and then raises."""
-    from cl_multiview_stereo_tpu_torch.tools.profile_stages import profiled
-
-    for _ in range(PROFILE_TRIES):
-        p = profiled(fn)
-        kernels = sum(n for name, (_, n) in p.device_ops.items() if not name.startswith(("Memcpy", "Memset")))
-        calls = sum(n for name, n in p.host_calls.items() if "LaunchKernel" in name)
-        if kernels == calls:
-            return p.device_ms, kernels
-        print(f"[profile] {calls} launch calls but {kernels} kernels in the trace: taken again", flush=True)
-    raise RuntimeError(f"no whole trace in {PROFILE_TRIES} tries")
+    counted), from a whole trace (``profile_stages.whole_profile``)."""
+    p = profile_stages.whole_profile(fn)
+    return p.device_ms, profile_stages.trace_launches(p)[0]
 
 
 def profile_engine(sw: Sweep0, engine: str, runs: int, on_card: bool) -> tuple[dict, dict, object]:

@@ -23,7 +23,10 @@ run:
    added to the innermost ``StageTimer`` range open when the host made the
    CUDA runtime call that launched it (the call and the op share their
    correlation id in the trace), not when the device ran it, so a stage's
-   queued work counts as the stage's.  A trace with no device
+   queued work counts as the stage's.  The trace is taken again while its
+   kernels fall short of its launch calls (:func:`whole_profile`: the
+   profiler now and then drops device events), and the tool raises after
+   PROFILE_TRIES such traces.  A trace with no device
    events gives ``"not measured: ..."``, never zeros.
 
 ``--cell slice`` is ``MVSPipeline.run`` at its defaults; ``--cell strips``
@@ -46,6 +49,8 @@ import torch
 CELLS = ("slice", "strips")
 SCENE_DISP = 40.0  # bench.py's scene
 TOP_OPS, TOP_GAPS = 10, 5
+# traces of one call taken before whole_profile gives up on a whole one
+PROFILE_TRIES = 3
 CALL = "profile_stages.profiled"  # the host range around the traced call
 NAME_CHARS = 120  # device op names are cut to this length in the records
 
@@ -185,6 +190,28 @@ def profiled(fn: Callable) -> Profile:
     return Profile(wall, device_ms, device_ops, host_calls, busy, ranges, ops, window, launched)
 
 
+def trace_launches(p: Profile) -> tuple[int, int]:
+    """(kernels, runtime launch calls) of a trace: its device ops but
+    copies and fills, and its host calls that launch a kernel."""
+    kernels = sum(n for name, (_, n) in p.device_ops.items() if not name.startswith(("Memcpy", "Memset")))
+    calls = sum(n for name, n in p.host_calls.items() if "LaunchKernel" in name)
+    return kernels, calls
+
+
+def whole_profile(fn: Callable) -> Profile:
+    """:func:`profiled` of ``fn()``, from a whole trace: torch.profiler now
+    and then drops a session's device events, so a trace whose kernels fall
+    short of its launch calls is taken again, up to PROFILE_TRIES times,
+    and then this raises."""
+    for _ in range(PROFILE_TRIES):
+        p = profiled(fn)
+        kernels, calls = trace_launches(p)
+        if kernels >= calls:
+            return p
+        print(f"[profile] {calls} launch calls but {kernels} kernels in the trace: taken again", flush=True)
+    raise RuntimeError(f"no whole trace in {PROFILE_TRIES} tries")
+
+
 def innermost(ranges, t: float) -> str | None:
     """The name of the innermost of ``ranges`` ((name, start, end)) open at
     ``t``: the latest to start, the shortest of those; None if none is."""
@@ -273,7 +300,7 @@ def main(argv: list[str] | None = None) -> dict:
         mp_s = s.view_num * h * w / total / 1e3
         print(f"{'TOTAL':24s} {total:9.1f} ms -> {mp_s:.2f} MP/s")
         rec.update(stage_ms=ms, total_ms=total, mp_per_s=mp_s, card=card_name(),
-                   breakdown=breakdown(profiled(lambda: fn(StageTimer()))))
+                   breakdown=breakdown(whole_profile(lambda: fn(StageTimer()))))
         if isinstance(rec["breakdown"], dict):
             for name, t in rec["breakdown"]["stage_device_ms"].items():
                 print(f"{name:24s} {t:9.1f} ms of device ops launched")

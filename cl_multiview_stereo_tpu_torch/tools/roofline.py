@@ -64,11 +64,11 @@ CV_OPS_VALID, SWEEP_OPS_SAD, CONS_OPS_TERM, CONS_OPS_DIP = 9, 8, 36, 8
 # partials and 5 divides; an interior pixel of the vote 25 compares and 25
 # adds, counted at the f32 rate
 SLIC_OPS_CAND, SLIC_OPS_MEMBER, SLIC_OPS_CLUSTER, SLIC_OPS_VOTE = 18, 5, 59, 50
-# smoothness: a cache (cell, tap) costs 14 (the colour distance's 8, the
-# weight's product and exp, the two centre differences, the add into wn), a
-# ring entry 2; a move's (cell, tap) term 12 (the plane's 3 products, 2 adds
-# and divide, the difference, the weight's 2 products and exp, the product
-# and the add), each exp counted as one
+# smoothness: a (cell, tap) similarity costs 14 (the colour distance's 8,
+# the weight's product and exp, the two centre differences, the add into
+# wn), a ring entry 2; a move's (cell, tap) term 12 (the plane's 3
+# products, 2 adds and divide, the difference, the weight's 2 products and
+# exp, the product and the add), each exp counted as one
 SMOOTH_OPS_TAP, SMOOTH_OPS_RING, SMOOTH_OPS_TERM = 14, 2, 12
 # the bytes of one device memory sector, the unit a gather reads rows in
 SECTOR = 32
@@ -80,6 +80,9 @@ SLIC_KERNELS = ("slic_assign", "slic_update", "slic_vote")
 SMOOTH_KERNELS = ("smooth_cache", "smooth_moves")
 KERNELS = tuple(ITERS)
 NOT_MEASURED = "not measured"
+# device clock cycles cuda_ms spins before its window: about 5 ms, longer
+# than the host takes to queue a window of the kernels' calls
+QUEUE_CYCLES = 10_000_000
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -214,27 +217,35 @@ def slic_work(kernel: str, lab, labels, geom) -> tuple[int, int]:
     raise ValueError(f"no SLIC kernel {kernel!r}; expected one of {SLIC_KERNELS}")
 
 
+def _cell_input_bytes(v: int, mh: int, mw: int) -> int:
+    """The smoothness inputs of a map of cells, each read once: centre (2),
+    colour (3), disparity (1) and flatness's first channel (1), float32."""
+    return 4 * 7 * v * mh * mw
+
+
 def smooth_cache_work(ctx, tgt_d, cache) -> tuple[int, int]:
     """(bytes, operations) of one ``smooth_cache`` launch that wrote
-    ``cache``: the map's centre, colour, disparity, flatness's first channel
-    (the one the kernel reads) and the tap weights read once, every field
-    but ``ras`` written once; per written (cell, tap) SMOOTH_OPS_TAP, per
-    (cell, ring neighbour) SMOOTH_OPS_RING."""
-    from cl_multiview_stereo_tpu_torch.ops.smoothness import _CACHE_FIELDS
-
-    taps = cache.tap_ax.numel()
-    n_bytes = nbytes(ctx.center, ctx.color, tgt_d, ctx.fl[..., 0], *(getattr(cache, f) for f in _CACHE_FIELDS))
-    return n_bytes + 4 * cache.tap_ax.shape[-1], SMOOTH_OPS_TAP * taps + SMOOTH_OPS_RING * cache.ring_d.numel()
+    ``cache``, counted as any implementation must do the work: the map's
+    cell inputs read once, the ring fields of the cells scored (what the
+    move chain reads) written once, SMOOTH_OPS_RING per (cell, ring
+    neighbour).  The taps' similarities are the moves' work
+    (:func:`smooth_moves_work`), whatever an implementation stores."""
+    v, mh, mw = tgt_d.shape
+    ring = (cache.ring_dcx, cache.ring_dcy, cache.ring_d, cache.ring_ok)
+    return _cell_input_bytes(v, mh, mw) + nbytes(*ring), SMOOTH_OPS_RING * cache.ring_d.numel()
 
 
 def smooth_moves_work(cache, d_c, n_c) -> tuple[int, int]:
-    """(bytes, operations) of one ``smooth_moves`` launch: the four tap
-    fields, ``wn`` and the (M, ...) moves read once (a broadcast ``d_c``,
-    the refit's one d row, once), the (M, V, Mh, Mw) scores written once;
-    SMOOTH_OPS_TERM per (move, cell, tap)."""
-    taps = [getattr(cache, f) for f in ("tap_ax", "tap_ay", "tap_d", "tap_sim")]
-    n_bytes = nbytes(*taps, cache.wn, n_c) + distinct_bytes(d_c) + 4 * d_c.numel()
-    return n_bytes, SMOOTH_OPS_TERM * d_c.shape[0] * taps[0].numel()
+    """(bytes, operations) of one ``smooth_moves`` launch, counted as any
+    implementation must do the work: the map's cell inputs read once, the
+    (M, ...) moves read once (a broadcast ``d_c``, the refit's one d row,
+    once), the (M, V, rows, Mw) scores written once; SMOOTH_OPS_TERM per
+    (move, cell, tap) and SMOOTH_OPS_TAP per (cell, tap), T from the tap
+    weights ``cache.gammas``."""
+    v, mh, mw = cache.cell_table.shape[:3]
+    cells, t, m = d_c[0].numel(), cache.gammas.numel(), d_c.shape[0]
+    n_bytes = _cell_input_bytes(v, mh, mw) + nbytes(n_c) + distinct_bytes(d_c) + 4 * d_c.numel()
+    return n_bytes, SMOOTH_OPS_TERM * m * cells * t + SMOOTH_OPS_TAP * cells * t
 
 
 def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, int]:
@@ -253,9 +264,13 @@ def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, 
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls."""
+    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back calls.
+    The device first spins for QUEUE_CYCLES while the host queues the calls,
+    so a kernel shorter than its wrapper's host time (the smoothness cache,
+    20 us) is timed on the device, not at the host's pace."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -367,22 +382,31 @@ def refine_calls(settings, rgb, device, engine: str = "gather") -> dict:
 
 def smooth_calls(settings, rgb, device, sweeps=(0,)) -> dict:
     """The smoothness calls of the refinement on scene ``rgb``, as (kernel,
-    args, keywords): ``init cache`` and ``init`` (one move), then for each
-    sweep ``it`` of ``sweeps``, run from the initial state at that sweep's
-    reach, ``sweep it cache``, ``sweep it update`` and ``sweep it refit``."""
+    args, keywords, plain args): ``init cache`` and ``init`` (one move),
+    then for each sweep ``it`` of ``sweeps``, run from the initial state at
+    that sweep's reach, ``sweep it cache``, ``sweep it update`` and ``sweep
+    it refit``.  A cache call's plain args are its args; a moves call's
+    swap the routed cache for the plain form's (``cell_cache_reference`` of
+    the cache call before it), whose tap fields the plain scorer reads."""
     from cl_multiview_stereo_tpu_torch.ops import refine, smoothness
 
     ctx, state0, kw, sched = sweep0_state(settings, rgb, device)
     calls, real = [], (smoothness.cell_cache, smoothness.smoothness_moves)
+    plain = {}
 
-    def recorder(kernel, fn):
-        def record(*a, **k):
-            calls.append((kernel, a, k))
-            return fn(*a, **k)
-        return record
+    def record_cache(*a, **k):
+        plain.clear()
+        calls.append(("smooth_cache", a, k, a))
+        return real[0](*a, **k)
 
-    smoothness.cell_cache = recorder("smooth_cache", real[0])
-    smoothness.smoothness_moves = recorder("smooth_moves", real[1])
+    def record_moves(*a, **k):
+        if not plain:
+            _, ca, ck, _ = next(c for c in reversed(calls) if c[0] == "smooth_cache")
+            plain["cache"] = smoothness.cell_cache_reference(*ca, **ck)
+        calls.append(("smooth_moves", a, k, (plain["cache"], *a[1:])))
+        return real[1](*a, **k)
+
+    smoothness.cell_cache, smoothness.smoothness_moves = record_cache, record_moves
     try:
         refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
         for it in sweeps:
@@ -396,17 +420,17 @@ def smooth_calls(settings, rgb, device, sweeps=(0,)) -> dict:
     return dict(zip(names, calls))
 
 
-def smooth_case(kernel: str, a, k) -> tuple:
+def smooth_case(kernel: str, a, k, plain_a) -> tuple:
     """(kernel fn, plain fn, (bytes, operations)) of one recorded smoothness
     call (:func:`smooth_calls`)."""
     from cl_multiview_stereo_tpu_torch.ops import smoothness
 
     if kernel == "smooth_cache":
         out = smoothness.cell_cache(*a, **k)
-        return (lambda: smoothness.cell_cache(*a, **k), lambda: smoothness.cell_cache_reference(*a, **k),
+        return (lambda: smoothness.cell_cache(*a, **k), lambda: smoothness.cell_cache_reference(*plain_a, **k),
                 smooth_cache_work(a[0], a[1], out))
-    return (lambda: smoothness.smoothness_moves(*a, **k), lambda: smoothness.smoothness_moves_reference(*a, **k),
-            smooth_moves_work(*a))
+    return (lambda: smoothness.smoothness_moves(*a, **k),
+            lambda: smoothness.smoothness_moves_reference(*plain_a, **k), smooth_moves_work(*a))
 
 
 def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
@@ -461,7 +485,7 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
         # the cache's (V, Mh, Mw) and tap count, or each call's (M, V, Mh, Mw)
         label = "sweep 0's launches " + ", ".join(
             f"{tuple(a[1].shape)}" + (f" T {8 + 4 * k['steps']}" if kernel == "smooth_cache" else "")
-            for _, a, k in calls)
+            for _, a, k, _ in calls)
         return label, [smooth_case(*c) for c in calls]
     calls = [c for name, c in refine_calls(s, rgb, device).items() if name != "init"]
     label = "sweep 0's launches " + ", ".join(str(tuple(a[2].shape)) for a, _ in calls)

@@ -12,9 +12,13 @@ the sources from another directory, e.g. an unpacked parent commit's
 ``cl_multiview_stereo_tpu_torch/csrc``).  Prints one JSON line per kernel
 entry: ``source``, ``kernel``, ``registers``, ``spill_bytes`` (stores plus
 loads), ``sass_instructions`` (the static count of the kernel's code, NOPs
-left out) and ``card`` (name, power limit, SM clock and its maximum, as
-nvidia-smi reads them).  Needs nvcc and cuobjdump, so it runs where the
-kernels build.
+left out), ``sfu`` (the static count of each special-function op,
+``MUFU.EX2``, ``MUFU.RCP``, ..., and of ``FCHK``, the divide's range check
+that guards its slow path), ``inner_loops`` (each innermost loop of the
+code: a backward branch and the instructions from its target to it, with
+its start address, its instruction count and its ``sfu`` counts) and
+``card`` (name, power limit, SM clock and its maximum, as nvidia-smi reads
+them).  Needs nvcc and cuobjdump, so it runs where the kernels build.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
-_INSTR = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(\S[^;]*);")
+_INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S[^;]*);")
+_BRANCH = re.compile(r"^BRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)")
 
 
 def short_name(sym: str) -> str:
@@ -70,22 +75,55 @@ def ptxas_report(log: str) -> dict[str, dict]:
     return out
 
 
-def sass_counts(listing: str) -> dict[str, int]:
-    """Per function of a ``cuobjdump -sass`` listing: its instructions,
-    NOPs left out."""
-    out: dict[str, int] = {}
+def sass_code(listing: str) -> dict[str, list[tuple[int, str]]]:
+    """Per function of a ``cuobjdump -sass`` listing: its instructions as
+    (address, text without the predicate), NOPs left out."""
+    out: dict[str, list[tuple[int, str]]] = {}
     cur = None
     for line in listing.splitlines():
         if m := _FUNCTION.match(line):
             cur = short_name(m.group(1))
-            out[cur] = 0
+            out[cur] = []
         elif cur is not None and (m := _INSTR.match(line)):
-            op = m.group(1).split()
+            op = m.group(2).split()
             if op and op[0].startswith("@"):
                 op = op[1:]
             if op and op[0] != "NOP":
-                out[cur] += 1
+                out[cur].append((int(m.group(1), 16), " ".join(op)))
     return out
+
+
+def sass_counts(listing: str) -> dict[str, int]:
+    """Per function of a ``cuobjdump -sass`` listing: its instructions,
+    NOPs left out."""
+    return {name: len(code) for name, code in sass_code(listing).items()}
+
+
+def sfu_counts(code) -> dict[str, int]:
+    """The ``MUFU.*`` and ``FCHK`` instructions of ``code`` ((address,
+    text) pairs), by op."""
+    out: dict[str, int] = {}
+    for _, text in code:
+        op = text.split()[0]
+        if op.startswith("MUFU.") or op == "FCHK":
+            out[op] = out.get(op, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def inner_loops(code) -> list[dict]:
+    """The innermost loops of ``code``: each backward branch with the
+    instructions from its target to it, when no other such span lies
+    inside; their start address, instruction count and :func:`sfu_counts`."""
+    spans = []
+    for addr, text in code:
+        if (m := _BRANCH.match(text)) and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    inner = [a for a in spans if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in spans)]
+    loops = []
+    for lo, hi in sorted(set(inner)):
+        body = [(a, t) for a, t in code if lo <= a <= hi]
+        loops.append({"at": hex(lo), "instructions": len(body), "sfu": sfu_counts(body)})
+    return loops
 
 
 def _card() -> str:
@@ -107,9 +145,15 @@ def report(name: str, csrc: Path) -> list[dict]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stderr}")
     listing = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
-    regs, counts = ptxas_report(proc.stderr), sass_counts(listing)
-    return [{"source": name, "kernel": k, **regs.get(k, {}), "sass_instructions": counts.get(k)}
-            for k in sorted(set(regs) | set(counts))]
+    regs, code = ptxas_report(proc.stderr), sass_code(listing)
+    recs = []
+    for k in sorted(set(regs) | set(code)):
+        body = code.get(k)
+        recs.append({"source": name, "kernel": k, **regs.get(k, {}),
+                     "sass_instructions": None if body is None else len(body),
+                     "sfu": None if body is None else sfu_counts(body),
+                     "inner_loops": None if body is None else inner_loops(body)})
+    return recs
 
 
 def main(argv: list[str] | None = None) -> list[dict]:

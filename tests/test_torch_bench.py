@@ -113,6 +113,36 @@ def test_breakdown_of_a_trace():
     assert b["idle_gaps"][0] == {"ms": 0.03, "at_ms": 0.03, "range": "propagate", "op": "aten::item"}
 
 
+@pytest.mark.parametrize("kernels", [[4, 5], [5], [4, 4, 4]], ids=["dropped-then-whole", "whole", "never-whole"])
+def test_whole_profile_takes_a_trace_again_while_kernels_fall_short(monkeypatch, kernels):
+    """A made-up trace with a dropped kernel (4 kernels, 5 launch calls) is
+    taken again; the first whole one is what ``stage_device_ms`` reads;
+    none whole in PROFILE_TRIES raises.  Copies and fills are not kernels,
+    and a graph's replay (kernels, no launch call) is whole."""
+    traces = iter(kernels)
+
+    def fake(fn):
+        fn()
+        k = next(traces)
+        launched = tuple((1.0, 10.0 + i) for i in range(k))
+        return profile_stages.Profile(1.0, float(k), {"kern": (float(k), k), "Memcpy HtoD": (0.5, 3)},
+                                      {"cudaLaunchKernel": 5, "cudaMemcpyAsync": 3}, [(0.0, 1.0)],
+                                      [("propagate", 0.0, 100.0)], [], (0.0, 100.0), launched)
+
+    monkeypatch.setattr(profile_stages, "profiled", fake)
+    runs = []
+    if kernels[-1] < 5:
+        with pytest.raises(RuntimeError, match="no whole trace"):
+            profile_stages.whole_profile(lambda: runs.append(1))
+    else:
+        p = profile_stages.whole_profile(lambda: runs.append(1))
+        assert profile_stages.trace_launches(p) == (5, 5)
+        assert profile_stages.breakdown(p)["stage_device_ms"] == {"propagate": 5.0}
+    assert len(runs) == len(kernels) <= profile_stages.PROFILE_TRIES
+    graph = profile_stages.Profile(1.0, 9.0, {"kern": (9.0, 9)}, {"cudaGraphLaunch": 1}, [], [], [], None)
+    assert profile_stages.trace_launches(graph) == (9, 0)
+
+
 def test_stage_device_ms_by_launching_range():
     """Each device op's time goes to the innermost range open when the host
     launched it, however late the device ran it."""

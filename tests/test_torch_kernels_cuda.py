@@ -500,7 +500,7 @@ def test_gather_consistency_card_equals_cpu(strips_scene):
     sc = strips_scene
     ctx, cache = sc["ctx"], sc["cache"]
     got = refine.consistency_from_cache(ctx, cache, sc["d_c"], sc["n_c"], **sc["kw"])
-    to_cpu = lambda tup: type(tup)(*(x.cpu() for x in tup))  # noqa: E731
+    to_cpu = lambda tup: type(tup)(*(x.cpu() if isinstance(x, torch.Tensor) else x for x in tup))  # noqa: E731
     want = refine.consistency_from_cache(to_cpu(ctx), to_cpu(cache), sc["d_c"].cpu(),
                                          sc["n_c"].cpu(), **sc["kw"])
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
@@ -982,15 +982,18 @@ def test_slic_launches_of_one_run(cuda, connectivity):
     assert torch.equal(got.labels, art.labels)
 
 
-# Smoothness on csrc/smoothness.cu: the sweep's tap cache (smooth_cache)
-# and the moves' scores (smooth_moves), each bitwise its plain form
-# (ops/refine's build_cell_cache and smoothness_from_cache, taps summed in
-# tap order) on seeded cell maps: the main path's tap counts T = 8 (steps
-# 0) and 60 (steps 13), the main path's move counts, a ragged map (61x45
-# pixels at S = 8: 8x6 cells) and a band of cell rows.
+# Smoothness on csrc/smoothness.cu: the sweep's cell table and ring
+# (smooth_cache) and the moves' scores (smooth_moves), each bitwise its
+# plain form (ops/refine's build_cell_cache and smoothness_from_cache, taps
+# summed in tap order) on seeded cell maps: the main path's tap counts T =
+# 8 (steps 0) and 60 (steps 13), the main path's move counts, a ragged map
+# (61x45 pixels at S = 8: 8x6 cells) and a band of cell rows.  The card's
+# cache holds no tap field, so each routed score is held to the plain scorer
+# on the plain cache of the same inputs.
 SMOOTH_MAPS = {"3x12x16": (3, 12, 16), "ragged-9x8x6": (9, 8, 6)}
 SMOOTH_REACH = {"T8": (0, 328.0), "T60": (13, 1.5)}
 SMOOTH_GAMMA, SMOOTH_ALPHA = 0.125, 0.013888888888888888
+SMOOTH_TAP_FIELDS = ("tap_ax", "tap_ay", "tap_d", "tap_sim", "wn")
 
 
 def _smooth_inputs(shape, device, seed=11):
@@ -1028,9 +1031,24 @@ def _smooth_moves_in(tgt_d, m, seed=3):
 
 
 def _caches_equal(got, want):
-    for f in smoothness._CACHE_FIELDS:
+    """The routed cache's table, ring, tap weights and first row bitwise
+    the plain cache's; nothing T-wide in it."""
+    for f in (*smoothness._CACHE_FIELDS, "gammas"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=0, atol=0, equal_nan=True,
                                    msg=lambda m: f"{f}: {m}")
+    assert got.row0 == want.row0
+    assert all(getattr(got, f) is None for f in SMOOTH_TAP_FIELDS)
+
+
+def _scores_equal(cache, plain, d_c, n_c):
+    """The routed scores on the card's cache, and on the plain cache, bitwise
+    the plain scorer's on the plain cache; returns them."""
+    want = smoothness.smoothness_moves_reference(plain, d_c, n_c, alpha=SMOOTH_ALPHA)
+    got = smoothness.smoothness_moves(cache, d_c, n_c, alpha=SMOOTH_ALPHA)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(smoothness.smoothness_moves(plain, d_c, n_c, alpha=SMOOTH_ALPHA), want, rtol=0,
+                               atol=0, equal_nan=True)
+    return got
 
 
 @pytest.mark.cuda
@@ -1044,29 +1062,30 @@ def test_smooth_cache_bitwise(cuda, shape, reach):
     got = smoothness.cell_cache(ctx, tgt_d, **kw)
     torch.cuda.synchronize()
     assert smoothness.LAUNCHES["smooth_cache"] == before + 1
-    assert got.tap_ax.shape[-1] == 8 + 4 * steps
-    _caches_equal(got, smoothness.cell_cache_reference(ctx, tgt_d, **kw))
-    assert bool((got.wn == 0).any()) and bool((got.wn > 0).any())
+    assert got.gammas.numel() == 8 + 4 * steps and got.cell_table.shape == tgt_d.shape + (8,)
+    want = smoothness.cell_cache_reference(ctx, tgt_d, **kw)
+    _caches_equal(got, want)
+    assert bool((want.wn == 0).any()) and bool((want.wn > 0).any())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [(0, 3), (4, 5), (9, 3)], ids=str)
 def test_smooth_cache_row_band_bitwise(cuda, rows):
     """A band of cell rows (the row-sharded refinement's block): the kernel
-    writes those rows only, its taps read from the whole map; equal to the
-    whole map's cache cut to them, and to the plain band."""
+    writes those rows' ring and the whole map's table; equal to the whole
+    map's cache cut to them, and to the plain band; the band's scores, its
+    taps read from the whole map, bitwise the plain band's."""
     ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS["3x12x16"], cuda)
     kw = dict(gamma=SMOOTH_GAMMA, steps=13, step_size=1.5)
     band = smoothness.cell_cache(ctx, tgt_d, **kw, rows=rows)
-    assert band.tap_ax.is_contiguous() and band.tap_ax.shape[1] == rows[1]
-    _caches_equal(band, smoothness.cell_cache_reference(ctx, tgt_d, **kw, rows=rows))
+    assert band.ring_d.is_contiguous() and band.ring_d.shape[1] == rows[1] and band.row0 == rows[0]
+    plain = smoothness.cell_cache_reference(ctx, tgt_d, **kw, rows=rows)
+    _caches_equal(band, plain)
     whole = smoothness.cell_cache(ctx, tgt_d, **kw)
-    _caches_equal(band, whole._replace(**{f: getattr(whole, f)[:, rows[0]:rows[0] + rows[1]]
-                                          for f in smoothness._CACHE_FIELDS}))
+    _caches_equal(band, whole._replace(row0=rows[0], **{f: getattr(whole, f)[:, rows[0]:rows[0] + rows[1]]
+                                                        for f in ("ring_dcx", "ring_dcy", "ring_d", "ring_ok")}))
     d_c, n_c = _smooth_moves_in(tgt_d[:, rows[0]:rows[0] + rows[1]].contiguous(), 8)
-    torch.testing.assert_close(smoothness.smoothness_moves(band, d_c, n_c, alpha=SMOOTH_ALPHA),
-                               smoothness.smoothness_moves_reference(band, d_c, n_c, alpha=SMOOTH_ALPHA),
-                               rtol=0, atol=0, equal_nan=True)
+    _scores_equal(band, plain, d_c, n_c)
 
 
 @pytest.mark.cuda
@@ -1074,55 +1093,140 @@ def test_smooth_cache_row_band_bitwise(cuda, rows):
 @pytest.mark.parametrize("reach", list(SMOOTH_REACH))
 @pytest.mark.parametrize("shape", list(SMOOTH_MAPS))
 def test_smooth_moves_bitwise(cuda, shape, reach, m):
-    """M = 1 (the init: 8 lanes a cell, 7 idle), 8 (the refits), 13 (16
-    lanes, 3 idle) and 16 (sweep 4's updates), NaN normals in the first
-    move."""
+    """M = 1 (the init: 128 cells a block, 8 taps a chunk), 8 (the refits),
+    13 (9 cells a block, 11 lanes idle) and 16 (sweep 4's updates), NaN and
+    nz = 0 normals in the first move."""
     ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS[shape], cuda)
     steps, step_size = SMOOTH_REACH[reach]
-    cache = smoothness.cell_cache(ctx, tgt_d, gamma=SMOOTH_GAMMA, steps=steps, step_size=step_size)
+    kw = dict(gamma=SMOOTH_GAMMA, steps=steps, step_size=step_size)
+    cache, plain = smoothness.cell_cache(ctx, tgt_d, **kw), smoothness.cell_cache_reference(ctx, tgt_d, **kw)
     d_c, n_c = _smooth_moves_in(tgt_d, m)
     before = smoothness.LAUNCHES["smooth_moves"]
-    got = smoothness.smoothness_moves(cache, d_c, n_c, alpha=SMOOTH_ALPHA)
+    got = _scores_equal(cache, plain, d_c, n_c)
     torch.cuda.synchronize()
-    assert smoothness.LAUNCHES["smooth_moves"] == before + 1
-    torch.testing.assert_close(got, smoothness.smoothness_moves_reference(cache, d_c, n_c, alpha=SMOOTH_ALPHA),
-                               rtol=0, atol=0, equal_nan=True)
+    assert smoothness.LAUNCHES["smooth_moves"] == before + 2
     assert bool(torch.isnan(got[0]).any()) and bool((got == np.float32(1e-6)).any())
     # the refit phase's stride-0 input state, read in place (move stride 0)
-    d0 = tgt_d[None].expand(m, *tgt_d.shape)
-    torch.testing.assert_close(smoothness.smoothness_moves(cache, d0, n_c, alpha=SMOOTH_ALPHA),
-                               smoothness.smoothness_moves_reference(cache, d0, n_c, alpha=SMOOTH_ALPHA),
-                               rtol=0, atol=0, equal_nan=True)
+    _scores_equal(cache, plain, tgt_d[None].expand(m, *tgt_d.shape), n_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["center", "d"])
+def test_smooth_moves_nan_at_an_off_map_source(cuda, where):
+    """NaN planted in the centre or the disparity of cell (0, 5), the
+    clamped source of cell (2, 5)'s off-map U taps (every pitch 2 at this
+    flatness) and of none of its on-map taps: the plain sum is NaN there,
+    though the taps are off the map, and the kernel must not skip them."""
+    ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS["3x12x16"], cuda)
+    ctx = ctx._replace(fl=ctx.fl.clone())
+    ctx.fl[..., 0] = 1.0
+    if where == "center":
+        ctx = ctx._replace(center=ctx.center.clone())
+        ctx.center[:, 0, 5, 0] = float("nan")
+    else:
+        tgt_d = tgt_d.clone()
+        tgt_d[:, 0, 5] = float("nan")
+    kw = dict(gamma=SMOOTH_GAMMA, steps=13, step_size=1.5)
+    cache, plain = smoothness.cell_cache(ctx, tgt_d, **kw), smoothness.cell_cache_reference(ctx, tgt_d, **kw)
+    _caches_equal(cache, plain)
+    d_c, n_c = _smooth_moves_in(tgt_d.nan_to_num(7.0), 8)
+    n_c[0] = n_c[1]
+    got = _scores_equal(cache, plain, d_c, n_c)
+    nan = torch.isnan(got)
+    assert bool(nan[:, :, 2, 5].all()) and not bool(nan[:, :, 2, 7].any()) and bool((~nan).any())
+    assert not bool(cache.cell_table[:, 2, 5].isnan().any())
+
+
+@pytest.mark.cuda
+def test_smooth_moves_zero_divisor_and_numerator(cuda):
+    """Moves whose every tap divides 0 by nz (d = 0, fronto normals: the
+    full loop's zero quotient), 0 by 0 (nz = 0, d = 0, normal (0, 0, 0)),
+    x by 0 (nz = 0), and divisors past the hoisted divide's range (2^-70,
+    2^70): bitwise the plain form."""
+    ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS["ragged-9x8x6"], cuda)
+    ctx = ctx._replace(center=torch.zeros_like(ctx.center))  # ax = ay = 0 at every tap
+    kw = dict(gamma=SMOOTH_GAMMA, steps=2, step_size=1.5)
+    cache, plain = smoothness.cell_cache(ctx, tgt_d, **kw), smoothness.cell_cache_reference(ctx, tgt_d, **kw)
+    d_c = torch.zeros((5,) + tuple(tgt_d.shape), device=cuda)
+    d_c[3:] = tgt_d
+    n_c = torch.zeros(tuple(d_c.shape) + (3,), device=cuda)
+    n_c[0, ..., 2] = 1.0
+    n_c[2, ..., 0] = 1.0
+    n_c[3, ..., 2] = 2.0 ** -70
+    n_c[4, ..., 2] = 2.0 ** 70
+    got = _scores_equal(cache, plain, d_c, n_c)
+    eps = got == np.float32(1e-6)  # the far colour's cell: no weight
+    assert bool((torch.isnan(got[1]) | eps[1]).all()) and bool(torch.isnan(got[1]).any())
+    assert not bool(torch.isnan(got[0]).any())
+
+
+@pytest.mark.cuda
+def test_smooth_divide_matches_ieee(cuda):
+    """``smooth_moves``' divide, a reciprocal per divisor and the quotient
+    steps per numerator, bitwise CUDA's IEEE quotient: every float32
+    mantissa as divisor against numerators across and past its range,
+    random pairs over the whole exponent range, and the edge operands
+    (zeros, subnormals, the range's ends, inf, NaN, the largest floats)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    den = (1.0 + torch.arange(1 << 23, device=cuda, dtype=torch.float64) / (1 << 23)).float()
+    raw = torch.randint(0, 1 << 32, (1 << 22,), generator=g, device=cuda, dtype=torch.int64)
+    bits = lambda r: (r - (1 << 32) * (r >> 31)).to(torch.int32).view(torch.float32)  # noqa: E731
+    edge = torch.tensor([0.0, -0.0, 1e-45, -1e-40, 2.0 ** -126, 2.0 ** -60, -(2.0 ** -60), 2.0 ** 60,
+                         2.0 ** 61, 3.4028235e38, float("inf"), -float("inf"), float("nan"), 1.0, -3.0, 7.5],
+                        device=cuda)
+    cases = [
+        (torch.rand(1 << 23, generator=g, device=cuda) * 2.0 ** torch.randint(-64, 64, (1 << 23,), generator=g,
+                                                                               device=cuda), den),
+        (-(1.0 + torch.rand(1 << 23, generator=g, device=cuda)) * 2.0 ** 59, den * 2.0 ** -59),
+        (bits(raw), bits(raw.flip(0) * 3 % (1 << 32))),
+        (edge.repeat(edge.numel()), edge.repeat_interleave(edge.numel())),
+    ]
+    fast = 0
+    for num, d in cases:
+        q = smoothness.hoisted_divide(num, d)
+        torch.testing.assert_close(q, num / d, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(torch.signbit(q[q == 0]), torch.signbit((num / d)[q == 0]))
+        inside = lambda a: (a.abs() >= 2.0 ** -60) & (a.abs() <= 2.0 ** 60)  # noqa: E731
+        fast += int((inside(num) & inside(d)).sum())
+    assert fast > 3 * (1 << 22)
 
 
 @pytest.mark.cuda
 def test_smooth_moves_beyond_one_round(cuda):
-    """M = 40: each of a cell's 16 lanes scores up to three moves, bitwise
-    the plain form and each move's row of a call with that move alone."""
+    """M = 40 (3 cells a block, 8 lanes idle) and M = 130 (one cell a block,
+    two rounds of its 128 lanes, each staging the taps again): bitwise the
+    plain form and each move's row of a call with that move alone."""
     ctx, tgt_d = _smooth_inputs(SMOOTH_MAPS["ragged-9x8x6"], cuda)
-    cache = smoothness.cell_cache(ctx, tgt_d, gamma=SMOOTH_GAMMA, steps=2, step_size=1.5)
-    d_c, n_c = _smooth_moves_in(tgt_d, 40)
-    got = smoothness.smoothness_moves(cache, d_c, n_c, alpha=SMOOTH_ALPHA)
-    torch.testing.assert_close(got, smoothness.smoothness_moves_reference(cache, d_c, n_c, alpha=SMOOTH_ALPHA),
-                               rtol=0, atol=0, equal_nan=True)
-    for k in (0, 17, 39):
-        torch.testing.assert_close(smoothness.smoothness_moves(cache, d_c[k:k + 1], n_c[k:k + 1],
-                                                               alpha=SMOOTH_ALPHA)[0],
-                                   got[k], rtol=0, atol=0, equal_nan=True)
+    kw = dict(gamma=SMOOTH_GAMMA, steps=2, step_size=1.5)
+    cache, plain = smoothness.cell_cache(ctx, tgt_d, **kw), smoothness.cell_cache_reference(ctx, tgt_d, **kw)
+    for m in (40, 130):
+        d_c, n_c = _smooth_moves_in(tgt_d, m)
+        got = _scores_equal(cache, plain, d_c, n_c)
+        for k in (0, 17, 39, m - 1):
+            torch.testing.assert_close(smoothness.smoothness_moves(cache, d_c[k:k + 1], n_c[k:k + 1],
+                                                                   alpha=SMOOTH_ALPHA)[0],
+                                       got[k], rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
 def test_smoothness_on_the_card_launches_the_kernels(strips_scene, monkeypatch):
     """``refine.refine`` on the card: ``smooth_cache`` once a sweep and at
     the init, ``smooth_moves`` at the init and twice a sweep, the plain
-    forms never called; its state equals the run with the plain forms."""
+    forms never called, no cache holding a T-wide field; its state equals
+    the run with the plain forms."""
     sc = strips_scene
     sched, pairs = sc["sched"], sc["kw"]["pairs"]
     real_cache, real_moves = smoothness.cell_cache, smoothness.smoothness_moves
     monkeypatch.setattr(smoothness, "cell_cache", smoothness.cell_cache_reference)
     monkeypatch.setattr(smoothness, "smoothness_moves", smoothness.smoothness_moves_reference)
     want = refine.refine(sc["ctx"], sched, pairs=pairs)
-    monkeypatch.setattr(smoothness, "cell_cache", real_cache)
+    caches = []
+
+    def record(*a, **k):
+        caches.append(real_cache(*a, **k))
+        return caches[-1]
+
+    monkeypatch.setattr(smoothness, "cell_cache", record)
     monkeypatch.setattr(smoothness, "smoothness_moves", real_moves)
 
     def plain(*a, **k):
@@ -1138,6 +1242,41 @@ def test_smoothness_on_the_card_launches_the_kernels(strips_scene, monkeypatch):
     for f in refine.RefineState._fields:
         torch.testing.assert_close(getattr(got, f), getattr(want, f), rtol=0, atol=0, equal_nan=True,
                                    msg=lambda m: f"{f}: {m}")
+    assert len(caches) == 1 + sched.no_prop
+    for cache in caches:
+        assert all(getattr(cache, f) is None for f in SMOOTH_TAP_FIELDS)
+
+
+@pytest.mark.cuda
+def test_smooth_cache_allocates_nothing_t_wide(cuda, monkeypatch):
+    """The card's cache at the main path's reach (T = 60) on a 9x135x240 map,
+    the slice's: the tensors its call allocates (``torch.empty`` and
+    ``torch.zeros`` on this thread, recorded) are the table, the ring and
+    ``ras``'s zeros, none T wide, and the cache holds no tap field."""
+    import threading
+
+    ctx, tgt_d = _smooth_inputs((9, 135, 240), cuda)
+    kw = dict(gamma=SMOOTH_GAMMA, steps=13, step_size=328.0)
+    smoothness.cell_cache(ctx, tgt_d, **kw)  # builds the kernel, makes the weights' table
+    shapes, me = [], threading.get_ident()
+
+    def record(real):
+        def alloc(*a, **k):
+            out = real(*a, **k)
+            if threading.get_ident() == me and out.is_cuda:
+                shapes.append(tuple(out.shape))
+            return out
+        return alloc
+
+    for name in ("empty", "zeros", "empty_like", "zeros_like"):
+        monkeypatch.setattr(torch, name, record(getattr(torch, name)))
+    cache = smoothness.cell_cache(ctx, tgt_d, **kw)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    cells = tuple(tgt_d.shape)
+    assert sorted(shapes) == sorted([cells + (8,)] * 5 + [(1, 4)]), shapes
+    assert cache.gammas.numel() == 60 and all(s[-1] != 60 for s in shapes)
+    assert all(getattr(cache, f) is None for f in SMOOTH_TAP_FIELDS)
 
 
 @pytest.mark.cuda
@@ -1157,4 +1296,11 @@ def test_smoothness_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         smoothness.smoothness_moves(cache, d_c[:, :, :-1], n_c, alpha=SMOOTH_ALPHA)
     with pytest.raises(ValueError):
-        smoothness.smoothness_moves(cache._replace(wn=cache.wn.cpu()), d_c, n_c, alpha=SMOOTH_ALPHA)
+        smoothness.smoothness_moves(cache._replace(cell_table=cache.cell_table.cpu()), d_c, n_c, alpha=SMOOTH_ALPHA)
+    with pytest.raises(ValueError, match="band"):
+        smoothness.smoothness_moves(cache._replace(row0=1), d_c, n_c, alpha=SMOOTH_ALPHA)
+    with pytest.raises(ValueError, match="aligned"):
+        table = torch.empty(cache.cell_table.numel() + 1, device=cuda)[1:].view(cache.cell_table.shape)
+        smoothness.smoothness_moves(cache._replace(cell_table=table), d_c, n_c, alpha=SMOOTH_ALPHA)
+    with pytest.raises(ValueError, match="step_size"):
+        smoothness.cell_cache(ctx, tgt_d, gamma=SMOOTH_GAMMA, steps=2, step_size=2.0 ** 24)

@@ -103,7 +103,8 @@ def test_consistency_work_hand_count():
 def test_smooth_work_hand_count():
     """V = 2 views of 3x4 cells, a band of 2 rows cached with T = 16 taps,
     then M = 5 moves scored against it, dense and with one d row broadcast
-    over the moves (the refit phase's)."""
+    over the moves (the refit phase's): the function's work, whatever the
+    cache stores (the plain cache's T-wide fields count nothing)."""
     from cl_multiview_stereo_tpu_torch.ops import refine, smoothness
 
     v, mh, mw, rows, t, m = 2, 3, 4, 2, 16, 5
@@ -112,20 +113,48 @@ def test_smooth_work_hand_count():
                                ras_color=None)
     tgt_d = torch.zeros((v, mh, mw))
     cache = smoothness.cell_cache(ctx, tgt_d, gamma=0.1, steps=(t - 8) // 4, step_size=1.0, rows=(1, rows))
-    band = v * rows * mw
+    band, cells = v * rows * mw, v * mh * mw
     n_bytes, ops = roofline.smooth_cache_work(ctx, tgt_d, cache)
     # inputs: centre, colour, disparity, flatness's first channel of the
-    # whole map, the T weights; outputs: 4 tap fields, wn, 3 float ring
-    # fields, the ring's bools
-    assert n_bytes == 4 * v * mh * mw * (2 + 3 + 1 + 1) + 4 * t + 4 * band * (4 * t + 1 + 3 * 8) + band * 8
-    assert ops == 14 * band * t + 2 * band * 8
+    # whole map; outputs: 3 float ring fields, the ring's bools
+    assert n_bytes == 4 * cells * (2 + 3 + 1 + 1) + 4 * band * 3 * 8 + band * 8
+    assert ops == 2 * band * 8
     d_c, n_c = torch.zeros((m, v, rows, mw)), torch.zeros((m, v, rows, mw, 3))
     n_bytes, ops = roofline.smooth_moves_work(cache, d_c, n_c)
-    assert n_bytes == 4 * band * (4 * t + 1) + 4 * m * band * (1 + 3 + 1)
-    assert ops == 12 * m * band * t
+    assert n_bytes == 4 * cells * (2 + 3 + 1 + 1) + 4 * m * band * (1 + 3 + 1)
+    assert ops == 12 * m * band * t + 14 * band * t
     d0 = torch.zeros((v, rows, mw))
     assert roofline.smooth_moves_work(cache, d0[None].expand(m, v, rows, mw), n_c) == (
-        4 * band * (4 * t + 1) + 4 * band + 4 * m * band * (3 + 1), ops)
+        4 * cells * (2 + 3 + 1 + 1) + 4 * band + 4 * m * band * (3 + 1), ops)
+
+
+def test_smooth_turns_bounds_from_the_calls_shapes():
+    """``tools.smooth_turns`` keeps each call's shapes and rates them with
+    these counts on meta tensors: the same bounds as the counts on the
+    calls' own tensors, for a cache, a dense phase and the refit's
+    broadcast d row."""
+    from cl_multiview_stereo_tpu_torch.ops import refine, smoothness
+    from cl_multiview_stereo_tpu_torch.tools import smooth_turns
+
+    v, mh, mw, steps, m = 2, 3, 4, 2, 5
+    ctx = refine.RefineContext(center=torch.zeros((v, mh, mw, 2)), color=torch.zeros((v, mh, mw, 3)),
+                               disp0=None, labels=None, samples=None, fl=torch.ones((v, mh, mw, 2)),
+                               ras_color=None)
+    tgt_d = torch.zeros((v, mh, mw))
+    kw = dict(gamma=0.1, steps=steps, step_size=1.0)
+    cache = smoothness.cell_cache(ctx, tgt_d, **kw)
+    d_c, n_c = torch.zeros((m, v, mh, mw)), torch.zeros((m, v, mh, mw, 3))
+    d0 = tgt_d[None].expand(m, v, mh, mw)
+    calls = [("init cache", "smooth_cache", (ctx, tgt_d), kw), ("update", "smooth_moves", (cache, d_c, n_c), {}),
+             ("refit", "smooth_moves", (cache, d0, n_c), {})]
+    recs = [{"tag": tag, "kernel": kernel, "shape": smooth_turns._call_shape(kernel, a, k, steps)}
+            for tag, kernel, a, k in calls]
+    assert recs[2]["shape"] == {"moves": m, "rows": mh, "taps": 8 + 4 * steps, "broadcast_d": True}
+    assert smooth_turns._bounds(recs) == {
+        "init cache": roofline.bound(*roofline.smooth_cache_work(ctx, tgt_d, cache)),
+        "update": roofline.bound(*roofline.smooth_moves_work(cache, d_c, n_c)),
+        "refit": roofline.bound(*roofline.smooth_moves_work(cache, d0, n_c)),
+    }
 
 
 def test_slic_work_counted_one_pixel_at_a_time():

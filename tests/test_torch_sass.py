@@ -69,3 +69,40 @@ def test_sass_counts_leave_out_nops():
     """Each function's instruction lines, a predicated one included, the
     encoding's second lines and the NOPs left out."""
     assert sass.sass_counts(LISTING) == {"assign_kernel": 5, "consistency_kernel<true>": 1}
+
+
+MOVES = "_ZN12_GLOBAL__N_119smooth_moves_kernelEPKfS1_S1_S1_Pfiiiiiiixiiiif"
+LOOPS = f"""
+		Function : {MOVES}
+        /*0000*/                   MUFU.RCP R3, R2 ;                           /* 0x0000000200037308 */
+        /*0010*/                   FFMA R4, -R2, R3, 1 ;                       /* 0x0000000200037308 */
+        /*0020*/                   LDS.128 R8, [R0] ;                          /* 0x0000000200037308 */
+        /*0030*/                   MUFU.EX2 R5, R4 ;                           /* 0x0000000200037308 */
+        /*0040*/                   FADD R6, R6, R5 ;                           /* 0x0000000200037308 */
+        /*0050*/               @P0 BRA 0x20 ;                                  /* 0x0000000200037308 */
+        /*0060*/                   MUFU.EX2 R5, R4 ;                           /* 0x0000000200037308 */
+        /*0070*/                   MUFU.RCP R7, R2 ;                           /* 0x0000000200037308 */
+        /*0080*/                   FCHK P1, R4, R2 ;                           /* 0x0000000200037308 */
+        /*0090*/               @P1 BRA 0xd0 ;                                  /* 0x0000000200037308 */
+        /*00a0*/                   FADD R6, R6, R5 ;                           /* 0x0000000200037308 */
+        /*00b0*/                   NOP;                                        /* 0x0000000200037308 */
+        /*00c0*/              @!P2 BRA 0x60 ;                                  /* 0x0000000200037308 */
+        /*00d0*/              @!P3 BRA 0x10 ;                                  /* 0x0000000200037308 */
+        /*00e0*/                   EXIT ;                                      /* 0x0000000200037308 */
+        /*00f0*/                   BRA 0xf0;                                   /* 0x0000000200037308 */
+"""
+
+
+def test_sfu_counts_and_inner_loops():
+    """The special-function ops and FCHK of a kernel by op, and its
+    innermost loops (a backward branch's span holding no other): the fast
+    tap loop at 0x20 with one EX2, the full loop at 0x60 with its divide's
+    RCP and FCHK; the loop around both and the end's self-branch are not
+    innermost loops."""
+    code = sass.sass_code(LOOPS)["smooth_moves_kernel"]
+    assert len(code) == 15 and code[0] == (0, "MUFU.RCP R3, R2")
+    assert sass.sfu_counts(code) == {"FCHK": 1, "MUFU.EX2": 2, "MUFU.RCP": 2}
+    assert sass.inner_loops(code) == [
+        {"at": "0x20", "instructions": 4, "sfu": {"MUFU.EX2": 1}},
+        {"at": "0x60", "instructions": 6, "sfu": {"FCHK": 1, "MUFU.EX2": 1, "MUFU.RCP": 1}},
+    ]

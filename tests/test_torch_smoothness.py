@@ -164,13 +164,17 @@ def test_tap_gammas_are_the_plain_forms_doubles():
 
 
 def test_rows_band_is_the_whole_caches_rows():
+    """A band's fields of the scored cells are the whole cache's rows; its
+    table and tap weights are the whole map's, and ``row0`` its first row."""
     center, color, tgt_d, fl = _inputs(MAPS["4x12x16"])
     ctx, _ = _contexts(center, color, fl)
     kw = dict(gamma=GAMMA, steps=2, step_size=2.0)
     whole = smoothness.cell_cache(ctx, t(tgt_d), **kw)
     band = smoothness.cell_cache(ctx, t(tgt_d), **kw, rows=(4, 5))
-    for f in smoothness._CACHE_FIELDS:
+    for f in smoothness._BAND_FIELDS:
         assert torch.equal(getattr(band, f), getattr(whole, f)[:, 4:9]), f
+    assert torch.equal(band.cell_table, whole.cell_table) and torch.equal(band.gammas, whole.gammas)
+    assert whole.row0 == 0 and band.row0 == 4
     for rows in ((-1, 2), (10, 3)):
         with pytest.raises(ValueError, match="band"):
             smoothness.cell_cache(ctx, t(tgt_d), **kw, rows=rows)
@@ -244,7 +248,9 @@ def _c_entries() -> dict[str, list[str]]:
 
 
 def test_c_entries_are_the_bound_ones():
-    assert set(_c_entries()) == set(smoothness._ENTRIES) == set(smoothness.LAUNCHES)
+    """Every C entry is bound; each kernel of the path is counted, the
+    divide check is not."""
+    assert set(_c_entries()) == set(smoothness._ENTRIES) == set(smoothness.LAUNCHES) | {"smooth_divide"}
 
 
 @pytest.mark.parametrize("name", list(smoothness._ENTRIES))
@@ -255,32 +261,101 @@ def test_ctypes_signature_matches_the_c_entry(name):
     assert _c_entries()[name] == ["ptr"] * ptrs + ["int"] * ints + ["float"] * floats + ["stream"]
 
 
-@pytest.mark.parametrize("case", ["dense", "broadcast_d", "no_moves", "empty_band"])
+@pytest.mark.parametrize("case", ["dense", "broadcast_d", "no_moves", "empty_band", "band"])
 def test_kernel_wrappers_pass_the_c_entries_arguments(monkeypatch, case):
     """What the card's wrappers hand the C entries, with the launch itself
     replaced (CPU tensors): a dense ``d_c`` with move stride N; the refit's
     broadcast d row with move stride 0 and its own storage, not a copy; no
-    launch, and no count, where the output is empty."""
+    launch, and no count, where the output is empty; an empty band still
+    writes the table, and a band's moves go with its first row and the
+    whole map's table; the card's cache holds nothing T-wide."""
     calls = []
-    monkeypatch.setattr(smoothness, "_launch", lambda name, dev, *a: calls.append((name, a)))
+    monkeypatch.setattr(smoothness, "_launch", lambda name, dev, *a, **k: calls.append((name, a)))
     center, color, tgt_d, fl = _inputs(MAPS["4x12x16"])
     ctx, _ = _contexts(center, color, fl)
     v, mh, mw = tgt_d.shape
     if case == "empty_band":
         cache = smoothness._launch_cache(ctx, t(tgt_d), GAMMA, 2, 2.0, (5, 0))
-        assert calls == [] and cache.wn.shape == (v, 0, mw) and cache.tap_ax.shape == (v, 0, mw, 16)
+        (name, args), = calls
+        assert name == "smooth_cache" and len(args) == sum(smoothness._ENTRIES[name])
+        assert args[4] == cache.cell_table.data_ptr() and args[-6:] == (v, mh, mw, 5, 0, 2.0)
+        assert cache.ring_d.shape == (v, 0, mw, 8) and cache.cell_table.shape == (v, mh, mw, 8)
+        assert all(getattr(cache, f) is None for f in ("tap_ax", "tap_ay", "tap_d", "tap_sim", "wn"))
+        assert cache.gammas.shape == (16,) and cache.row0 == 5
         return
-    cache = smoothness.cell_cache(ctx, t(tgt_d), gamma=GAMMA, steps=2, step_size=2.0)
-    m = {"dense": 3, "broadcast_d": 8, "no_moves": 0}[case]
-    d_c, n_c = (t(a) for a in _moves(dict(tgt_d=tgt_d), max(m, 1)))
+    rows = (3, 6) if case == "band" else None
+    cache = smoothness.cell_cache(ctx, t(tgt_d), gamma=GAMMA, steps=2, step_size=2.0, rows=rows)
+    n_rows = mh if rows is None else rows[1]
+    m = {"dense": 3, "broadcast_d": 8, "no_moves": 0, "band": 2}[case]
+    d_c, n_c = (t(np.ascontiguousarray(a[:, :, :n_rows])) for a in _moves(dict(tgt_d=tgt_d), max(m, 1)))
     if case == "broadcast_d":
         d_c = t(tgt_d)[None].expand(m, v, mh, mw)
     out = smoothness._launch_moves(cache, d_c[:m], n_c[:m], ALPHA)
-    assert out.shape == (m, v, mh, mw)
+    assert out.shape == (m, v, n_rows, mw)
     if case == "no_moves":
         assert calls == []
         return
     (name, args), = calls
     assert name == "smooth_moves" and len(args) == sum(smoothness._ENTRIES[name])
-    assert args[-5:-1] == (m, v * mh * mw, 16, 0 if case == "broadcast_d" else v * mh * mw)
-    assert args[5] == d_c.data_ptr()
+    stride = 0 if case == "broadcast_d" else v * n_rows * mw
+    assert args[5:13] == (m, v, mh, mw, 0 if rows is None else rows[0], n_rows, 16, stride)
+    assert args[0] == cache.cell_table.data_ptr() and args[1] == cache.gammas.data_ptr()
+    assert args[2] == d_c.data_ptr()
+
+
+def _taps_from_table(cache, steps):
+    """The four tap fields as ``smooth_moves`` derives them from the table,
+    in numpy, by the kernel's rules: the long taps' pitch at most Mw + Mh,
+    each tap's unclamped position on the map or not, immediate taps
+    wrapped and long ones clamped, then (cx - tap cx, cy - tap cy, tap d,
+    sim); the similarity's exp by torch, as the plain form takes it."""
+    table = n(cache.cell_table)
+    v, mh, mw, _ = table.shape
+    vv, yy, xx = np.meshgrid(np.arange(v), np.arange(mh), np.arange(mw), indexing="ij")
+    pitch = np.minimum(table[..., 6].astype(np.int64), mw + mh)
+    moves = [(dx, dy, True) for dx, dy in refine._IMM]
+    for i in range(1, steps + 1):
+        off = i * pitch + 1
+        moves += [(-off, 0, False), (off, 0, False), (0, -off, False), (0, off, False)]
+    src, on = [], []
+    for dx, dy, imm in moves:
+        lx, ly = xx + dx, yy + dy
+        on.append((lx >= 0) & (lx < mw) & (ly >= 0) & (ly < mh))
+        tx, ty = (lx % mw, ly % mh) if imm else (np.clip(lx, 0, mw - 1), np.clip(ly, 0, mh - 1))
+        src.append((vv, ty, tx))
+    s = np.stack([table[sv, sy, sx] for sv, sy, sx in src], axis=-2)  # (V, Mh, Mw, T, 8)
+    on = np.stack(on, axis=-1)
+    cdiff = refine._sqdist3(t(table[..., None, 2:5]), t(s[..., 2:5]))
+    sim = torch.where(torch.as_tensor(on), refine._ftz(torch.exp(-cdiff * cache.gammas)), 0.0)
+    return table[..., None, 0] - s[..., 0], table[..., None, 1] - s[..., 1], s[..., 5], n(sim), on
+
+
+# the main path's reach at sweep 0 (pitches up to 328 cells, most past a
+# 12x16 map) beside REACH's
+TABLE_REACH = REACH | {"steps2-far": (2, 328.0)}
+
+
+@pytest.mark.parametrize("reach", list(TABLE_REACH))
+def test_plain_table_holds_the_tap_inputs(cell_map, reach):
+    """The plain cache's table is its own inputs, one 32-byte row a cell
+    (centre, colour, disparity, the long taps' pitch, 0), and every tap
+    field the plain form stores follows bitwise from it by the kernel's
+    rules; its ``gammas`` are the tap weights rounded once, ``row0`` 0."""
+    steps, step_size = TABLE_REACH[reach]
+    cm = cell_map
+    cache = smoothness.cell_cache(cm["ctx"], t(cm["tgt_d"]), gamma=GAMMA, steps=steps, step_size=step_size)
+    table = n(cache.cell_table)
+    assert table.shape == n(cm["ctx"].center).shape[:3] + (8,) and table.dtype == np.float32
+    np.testing.assert_array_equal(table[..., 0:2], n(cm["ctx"].center))
+    np.testing.assert_array_equal(table[..., 2:5], n(cm["ctx"].color))
+    np.testing.assert_array_equal(table[..., 5], cm["tgt_d"])
+    np.testing.assert_array_equal(table[..., 6], n(refine.tap_step(cm["ctx"].fl, step_size)).astype(np.float32))
+    assert (table[..., 7] == 0).all() and (table[..., 6] >= 1).all()
+    np.testing.assert_array_equal(n(cache.gammas), np.float32(refine.tap_gammas(GAMMA, steps)))
+    assert cache.row0 == 0
+    ax, ay, td, sim, on = _taps_from_table(cache, steps)
+    for name, want in (("tap_ax", ax), ("tap_ay", ay), ("tap_d", td), ("tap_sim", sim)):
+        np.testing.assert_array_equal(n(getattr(cache, name)), want, err_msg=name)
+    np.testing.assert_array_equal(on, n(refine.tap_on_map(refine.tap_step(cm["ctx"].fl, step_size), steps)))
+    if reach == "steps2-far" and cm["name"] == "4x12x16":
+        assert (table[..., 6] > 28).any() and not on[..., 8:].all()
