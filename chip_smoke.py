@@ -6,11 +6,11 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 0. device: a CUDA device is visible; print its name and power limit;
-1. build: compile ``csrc/{cost_volume,sweep,consistency,slic,smoothness}.cu``
+1. build: compile ``csrc/{cost_volume,sweep,consistency,slic,smoothness,raster,chain}.cu``
    with nvcc from this checkout, one nvcc each, all started together; print
    what ptxas reports, check that two cost-volume blocks and two sweep
-   blocks fit on an SM and that the sweep, consistency, SLIC and
-   smoothness kernels do not spill;
+   blocks fit on an SM and that the sweep, consistency, SLIC, smoothness,
+   raster and chain kernels do not spill;
 2. kernels against their plain twins, on the same device tensors, with
    both times from CUDA events, in turns, beside each kernel's bound (the
    larger of its bytes over the card's memory rate and its f32 operations
@@ -34,16 +34,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (T = 16), with no T-wide field allocated, and ``smooth_moves`` on the
    init state (M = 1), sweep 0's update and refit phases (M = 8) and sweep
    4's (M = 16, 8), each against the plain scorer on the plain cache;
+   the plane rasterization and the move chain's kernels, bitwise (NaN at
+   the same places), on the main path's calls at 9x1080x1920
+   (``tools.roofline.chain_calls``): ``raster_planes`` on the init's
+   table, sweep 0's and 4's tables and fusion's map, ``chain_moves`` on
+   sweep 0's (M = 8) and sweep 4's (M = 16) candidates, ``chain_update``
+   and ``chain_refit`` on those sweeps' accept walks, each against its
+   plain form;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
    per-stage device times, MP/s and peak memory; each run must launch the
    consistency kernel 1 + 2 x 5 = 11 times (the gather engine on the card),
    the SLIC assignment 5 + 1 = 6 times and the update 5 times,
-   ``smooth_cache`` 1 + 5 = 6 and ``smooth_moves`` 1 + 2 x 5 = 11 times;
+   ``smooth_cache`` 1 + 5 = 6 and ``smooth_moves`` 1 + 2 x 5 = 11 times,
+   ``raster_planes`` 1 + 5 + 1 = 7 times (the init's table, a table a
+   sweep, fusion's map) and ``chain_moves``, ``chain_update`` and
+   ``chain_refit`` 5 times each;
 3b. the same stages with the strips consistency engine
    (``refine.refine(cons_engine="strips")``): timed the same way, and its
-   refined disparity held against phase 3's gather engine;
+   refined disparity held against phase 3's gather engine; each run
+   launches the raster and chain kernels as phase 3's;
 3c. the dense plane sweep (``models.plane_sweep.plane_sweep_depth``) on
    the scene's Lab images: timed the same way, and held against the
    scene's disparity;
@@ -116,7 +127,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fits and 3 when the allocator refuses a request; 9a's replays must
    launch the cost volume once, the consistency kernel 11 times, the SLIC
    assignment 6 and the update 5 times, ``smooth_cache`` 6 and
-   ``smooth_moves`` 11 times each;
+   ``smooth_moves`` 11 times, ``raster_planes`` 7 times and each chain
+   kernel 5 times each;
 10. the tools ported last, each in its own process: 10a
    ``tools.profile_propagate --engine both`` at 9x1080x1920 (each
    component of sweep 0 under both engines with its ms, launches and share
@@ -177,9 +189,13 @@ SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
 # run --sfm: share of interior pixels within 1 of the scene's disparity
 SFM_RUN_NEAR = 0.90
 # the kernels' sources (csrc/<name>.cu), and the kernels of the JSON record
-SOURCES = ("cost_volume", "sweep", "consistency", "slic", "smoothness")
+SOURCES = ("cost_volume", "sweep", "consistency", "slic", "smoothness", "raster", "chain")
 KERNELS = ("cost_volume", "sweep", "consistency", "slic_assign", "slic_update", "slic_vote", "smooth_cache",
-           "smooth_moves")
+           "smooth_moves", "raster_planes", "chain_moves", "chain_update", "chain_refit")
+# the raster and chain kernels' launches in one run of the slice: the
+# init's table, then a table, the candidates and two accept walks a sweep
+# (5 sweeps), then fusion's map
+CHAIN_PER_RUN = {"raster_planes": 1 + 5 + 1, "chain_moves": 5, "chain_update": 5, "chain_refit": 5}
 # phase 8's scene B: the scene generator at another disparity and seed
 STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
 # phase 8's stream tool, seconds it may take
@@ -220,8 +236,9 @@ def phase_build() -> None:
         for line in logs[name].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
-    # the sweep, consistency, SLIC and smoothness kernels build without spills
-    for name in ("sweep", "consistency", "slic", "smoothness"):
+    # the sweep, consistency, SLIC, smoothness, raster and chain kernels
+    # build without spills
+    for name in ("sweep", "consistency", "slic", "smoothness", "raster", "chain"):
         spills = [ln.strip() for ln in logs[name].splitlines()
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
@@ -546,6 +563,56 @@ def phase_smoothness_vs_plain(card: str) -> dict:
             "smooth_moves": dict(per, max_abs_err=0.0, bound_by=moves[0]["bound_by"])}
 
 
+def _reset_chain() -> None:
+    from cl_multiview_stereo_tpu_torch.ops import chain, raster
+
+    for counts in (raster.LAUNCHES, chain.LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def _chain_counts() -> dict:
+    from cl_multiview_stereo_tpu_torch.ops import chain, raster
+
+    return {**raster.LAUNCHES, **chain.LAUNCHES}
+
+
+def phase_chain_vs_plain(card: str) -> dict:
+    """The plane rasterization and the move chain's kernels against their
+    plain forms on the main path's calls at the slice's size
+    (``tools.roofline.chain_calls``): the init's table, sweep 0's and sweep
+    4's table, candidates and two accept walks, each sweep run from the
+    initial state, and fusion's map of that state; every output bitwise
+    (NaN at the same places).  Returns each kernel's record: its launch of
+    sweep 0."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.tools.roofline import ITERS, _leaves, bound, chain_calls, chain_case, in_turns
+
+    s, rgb = _scene(FULL_H, FULL_W)
+    recs = {}
+    for tag, (wrapper, a, k) in chain_calls(s, rgb, "cuda", sweeps=(0, 4)).items():
+        kernel, kern, plain, work = chain_case(wrapper, a, k)
+        got, want = _leaves(kern()), _leaves(plain())
+        torch.cuda.synchronize()
+        if [(g.shape, g.dtype) for g in got] != [(w.shape, w.dtype) for w in want]:
+            raise AssertionError(f"[2] {kernel} {tag}: outputs {[g.shape for g in got]}, plain {[w.shape for w in want]}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _require_equal(f"[2] {kernel} {tag} output {i}", g, w, equal_nan=g.is_floating_point())
+        nan = sum(int(torch.isnan(g).sum()) for g in got if g.is_floating_point())
+        k_ms, p_ms = in_turns(kern, plain, *ITERS[kernel])
+        b_ms, by = bound(*work)
+        print(f"[2] {kernel} {tag} {tuple(got[0].shape)}: bitwise (NaN {nan}); kernel {k_ms:.4f} ms, bound "
+              f"{b_ms:.4g} ms ({by}), plain {p_ms:.3f} ms ({card})")
+        recs[tag] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        del got, want
+    parts = [recs[f"sweep 0 {p}"] for p in ("table", "candidates", "update", "refit")]
+    print(f"[2] raster and chain per sweep 0 (table, candidates, two walks): kernels "
+          f"{sum(r['ms'] for r in parts):.4f} ms, bound {sum(r['bound_ms'] for r in parts):.4g} ms, plain forms "
+          f"{sum(r['plain_ms'] for r in parts):.3f} ms ({card})")
+    return {"raster_planes": recs["sweep 0 table"], "chain_moves": recs["sweep 0 candidates"],
+            "chain_update": recs["sweep 0 update"], "chain_refit": recs["sweep 0 refit"]}
+
+
 def phase_slice(card: str):
     import numpy as np
     import torch
@@ -572,12 +639,13 @@ def phase_slice(card: str):
     slic_per_run = {"slic_assign": s.no_iter + 1, "slic_update": s.no_iter, "slic_vote": 0}
     # smoothness: the init's cache and state, and a cache and two phases a sweep
     smooth_per_run = {"smooth_cache": 1 + s.no_prop, "smooth_moves": 1 + 2 * s.no_prop}
-    slic_runs, smooth_runs = [], []
+    slic_runs, smooth_runs, chain_runs = [], [], []
     for _ in range(2):
         timer = StageTimer()
         consistency.LAUNCHES = 0
         _reset_slic()
         _reset_smoothness()
+        _reset_chain()
         t0 = time.perf_counter()
         art = pipe.run(rgb_dev, timer=timer)
         torch.cuda.synchronize()
@@ -585,6 +653,7 @@ def phase_slice(card: str):
         cons.append(consistency.LAUNCHES)
         slic_runs.append(dict(slic.LAUNCHES))
         smooth_runs.append(dict(smoothness.LAUNCHES))
+        chain_runs.append(_chain_counts())
     launches = cost_volume.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
@@ -597,6 +666,9 @@ def phase_slice(card: str):
     if smooth_runs != [smooth_per_run] * 2:
         raise AssertionError(f"the main path launched the smoothness kernels {smooth_runs} a run, "
                              f"expected {smooth_per_run}")
+    if chain_runs != [CHAIN_PER_RUN] * 2:
+        raise AssertionError(f"the main path launched the raster and chain kernels {chain_runs} a run, "
+                             f"expected {CHAIN_PER_RUN}")
 
     d = art.disp_full
     if not bool(torch.isfinite(d).all()):
@@ -610,14 +682,15 @@ def phase_slice(card: str):
     mp_s = 9 * FULL_H * FULL_W / t / 1e6
     print(f"[3] runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
           f"peak {peak / 2**30:.3f} GiB; disp_init near GT {near:.4f}; launches: cost_volume {launches}, "
-          f"consistency {cons} (gather engine), slic {slic_runs[0]} a run, smoothness {smooth_runs[0]} a run "
-          f"({card})")
+          f"consistency {cons} (gather engine), slic {slic_runs[0]} a run, smoothness {smooth_runs[0]} a run, "
+          f"raster and chain {chain_runs[0]} a run ({card})")
     stage_ms = timer.ms()
     print("[3] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}))
     print(f"[3] eager slic stage {stage_ms['slic']:.3f} ms of {sum(stage_ms.values()):.3f} ms of stages ({card})")
     slic_launches = {k: sum(r[k] for r in slic_runs) for k in slic_per_run}
-    smooth_launches = {k: sum(r[k] for r in smooth_runs) for k in smooth_per_run}
-    return launches, sum(cons), slic_launches, smooth_launches, pipe, rgb_dev, art
+    refine_launches = {k: sum(r[k] for r in smooth_runs) for k in smooth_per_run}
+    refine_launches.update({k: sum(r[k] for r in chain_runs) for k in CHAIN_PER_RUN})
+    return launches, sum(cons), slic_launches, refine_launches, pipe, rgb_dev, art
 
 
 def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
@@ -634,14 +707,19 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
 
     torch.cuda.reset_peak_memory_stats()
     consistency.LAUNCHES = 0
-    times, timer = [], None
+    times, timer, chain_runs = [], None, []
     for _ in range(2):
         timer = StageTimer()
+        _reset_chain()
         t0 = time.perf_counter()
         state, disp_full = strips_scene(pipe, rgb_dev, timer)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        chain_runs.append(_chain_counts())
     launches = consistency.LAUNCHES
+    if chain_runs != [CHAIN_PER_RUN] * 2:
+        raise AssertionError(f"the strips path launched the raster and chain kernels {chain_runs} a run, "
+                             f"expected {CHAIN_PER_RUN}")
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
         raise AssertionError("the strips path never launched the consistency kernel")
@@ -655,7 +733,7 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
     mp_s = 9 * FULL_H * FULL_W / t / 1e6
     print(f"[3b] strips runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
           f"peak {peak / 2**30:.3f} GiB; state.d vs gather (1e-3) {agree:.6f}; "
-          f"launches {launches} ({card})")
+          f"launches {launches}; raster and chain {chain_runs[0]} a run ({card})")
     print("[3b] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
     prof = profiled(lambda: strips_scene(pipe, rgb_dev))
     by_name = prof.device_ops
@@ -1482,7 +1560,8 @@ def phase_stream(card: str, root: str, lst: str) -> dict:
           f"{[round(x, 4) for x in serial]} s per scene = {9 * len(serial) / sum(serial):.4f} views/s "
           f"({card})")
     launches = dict(mvs_pipeline.REPLAYED_LAUNCHES)
-    for name in ("cost_volume", "consistency", "slic_assign", "slic_update", "smooth_cache", "smooth_moves"):
+    for name in ("cost_volume", "consistency", "slic_assign", "slic_update", "smooth_cache", "smooth_moves",
+                 *CHAIN_PER_RUN):
         if launches.get(name, 0) < 1:
             raise AssertionError(f"[8b-8d] no graph replay launched the {name} kernel")
 
@@ -1535,7 +1614,7 @@ def phase_tools(card: str, phase2: dict) -> dict:
     d = SystemSettings()
     per_run = {"cost_volume": 1, "consistency": 1 + 2 * d.no_prop, "slic_assign": d.no_iter + 1,
                "slic_update": d.no_iter, "slic_vote": 0, "smooth_cache": 1 + d.no_prop,
-               "smooth_moves": 1 + 2 * d.no_prop}
+               "smooth_moves": 1 + 2 * d.no_prop, **CHAIN_PER_RUN}
     if (rec["metric"] != "depth_mp_per_s" or len(rec["runs_s"]) != BENCH_RUNS or rec["card"] != card
             or any(launches[k] != BENCH_RUNS * n for k, n in per_run.items())):
         raise AssertionError(f"[9a] bench: {rec}")
@@ -1671,7 +1750,8 @@ def main() -> int:
     cons = phase_consistency_vs_plain(card)
     sl = phase_slic_vs_plain(card)
     sm = phase_smoothness_vs_plain(card)
-    _, cons_launches, slic_launches, smooth_launches, pipe, rgb_dev, art = phase_slice(card)
+    ch = phase_chain_vs_plain(card)
+    _, cons_launches, slic_launches, refine_launches, pipe, rgb_dev, art = phase_slice(card)
     cons_launches += phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
@@ -1685,7 +1765,7 @@ def main() -> int:
         stream_launches = phase_stream(card, root, lst)
     phase_gloo_two_ranks(card)
     del pipe, rgb_dev, art  # phase 9's tools each want the whole card
-    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl, **sm})
+    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl, **sm, **ch})
     phase_propagate_tools(card)
     # phase 8's graph replays and 9a's launch the cost volume and the
     # consistency kernel from the graph
@@ -1695,15 +1775,16 @@ def main() -> int:
     # SLIC: phase 3's runs, phase 8's replays and 9a's; the vote 5c's runs
     for name in ("slic_assign", "slic_update"):
         slic_launches[name] += stream_launches[name] + bench_launches[name]
-    # smoothness: phase 3's runs, phase 8's replays and 9a's
-    for name in smooth_launches:
-        smooth_launches[name] += stream_launches[name] + bench_launches[name]
+    # smoothness, raster and chain: phase 3's runs, phase 8's replays and 9a's
+    for name in refine_launches:
+        refine_launches[name] += stream_launches[name] + bench_launches[name]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
     # library_ms: no single PyTorch call computes the first three functions,
-    # SLIC's assignment and vote or the smoothness cache and scores;
-    # index_add_ computes the update's sums.  SLIC's and smoothness's
-    # kernels replace XLA functions of the JAX package, not Pallas
+    # SLIC's assignment and vote, the smoothness cache and scores, the
+    # rasterization or the chain; index_add_ computes the update's sums.
+    # SLIC's, smoothness's, raster's and chain's kernels replace XLA
+    # functions of the JAX package, not Pallas
     rows = (
         ("cost_volume", "cost_volume", "cl_multiview_stereo_tpu/ops/cost_volume.py:46", cv_launches, cv),
         ("sweep", "sweep", "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", sw_launches, sw),
@@ -1715,10 +1796,18 @@ def main() -> int:
          sl["slic_update"]),
         ("slic_vote", "slic", "cl_multiview_stereo_tpu/ops/slic.py:340", slic_launches["slic_vote"],
          sl["slic_vote"]),
-        ("smooth_cache", "smoothness", "cl_multiview_stereo_tpu/ops/refine.py:221", smooth_launches["smooth_cache"],
+        ("smooth_cache", "smoothness", "cl_multiview_stereo_tpu/ops/refine.py:221", refine_launches["smooth_cache"],
          sm["smooth_cache"]),
-        ("smooth_moves", "smoothness", "cl_multiview_stereo_tpu/ops/refine.py:359", smooth_launches["smooth_moves"],
+        ("smooth_moves", "smoothness", "cl_multiview_stereo_tpu/ops/refine.py:359", refine_launches["smooth_moves"],
          sm["smooth_moves"]),
+        ("raster_planes", "raster", "cl_multiview_stereo_tpu/ops/refine.py:187",
+         refine_launches["raster_planes"], ch["raster_planes"]),
+        ("chain_moves", "chain", "cl_multiview_stereo_tpu/ops/refine.py:778", refine_launches["chain_moves"],
+         ch["chain_moves"]),
+        ("chain_update", "chain", "cl_multiview_stereo_tpu/ops/refine.py:963", refine_launches["chain_update"],
+         ch["chain_update"]),
+        ("chain_refit", "chain", "cl_multiview_stereo_tpu/ops/refine.py:1023", refine_launches["chain_refit"],
+         ch["chain_refit"]),
     )
     if [r[0] for r in rows] != list(KERNELS):
         raise AssertionError("the kernels' record does not list every kernel")

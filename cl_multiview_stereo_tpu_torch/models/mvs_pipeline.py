@@ -29,7 +29,17 @@ from cl_multiview_stereo_tpu_torch.config import (
 )
 from cl_multiview_stereo_tpu_torch import convert
 from cl_multiview_stereo_tpu_torch.device import device_table
-from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, fusion, refine, slic, smoothness, superpixel
+from cl_multiview_stereo_tpu_torch.ops import (
+    chain,
+    consistency,
+    cost_volume,
+    fusion,
+    raster,
+    refine,
+    slic,
+    smoothness,
+    superpixel,
+)
 from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
 from cl_multiview_stereo_tpu_torch.utils.timing import StageTimer, maybe_stage
 
@@ -43,7 +53,7 @@ REPLAYED_LAUNCHES: dict[str, int] = {}
 def launch_counts() -> dict[str, int]:
     """Each hand kernel of ``run``: its launches so far, by name."""
     return {"cost_volume": cost_volume.LAUNCHES, "consistency": consistency.LAUNCHES, **slic.LAUNCHES,
-            **smoothness.LAUNCHES}
+            **smoothness.LAUNCHES, **raster.LAUNCHES, **chain.LAUNCHES}
 
 
 class PipelineArtifacts(NamedTuple):

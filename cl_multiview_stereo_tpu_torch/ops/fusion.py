@@ -3,7 +3,8 @@
 * ``spixl_to_image`` (``clcode.cl:1906-1931``): each pixel takes the
   refined plane of the superpixel that owns it.  The owner is read with a
   direct label gather; the JAX module's ``select_cell_lookup`` avoids that
-  gather on the TPU and is bitwise equal to it.
+  gather on the TPU and is bitwise equal to it.  On a card
+  :func:`rasterize_planes` launches ``csrc/raster.cu`` (``ops/raster``).
 * ``project_to_reference_inv`` (cl:1995-2034): occlusion-aware inverse warp,
   the largest disparity over the other views, probed with the evolving
   maximum in view-index order.
@@ -48,15 +49,25 @@ def plane_disparity(g: torch.Tensor, row0: int = 0) -> torch.Tensor:
     ) / g[..., 5]
 
 
-def rasterize_planes(
+def rasterize_planes_reference(
     labels: torch.Tensor,  # (V, H, W) int32
     centers: torch.Tensor,  # (V, Mh, Mw, 2)
     state_d: torch.Tensor,  # (V, Mh, Mw)
     state_n: torch.Tensor,  # (V, Mh, Mw, 3)
 ) -> torch.Tensor:
-    """Per-pixel disparity (V, H, W) from the owning superpixel's plane."""
+    """Per-pixel disparity (V, H, W) from the owning superpixel's plane:
+    the plain form of ``ops/raster.planes``, on any device."""
     pack = torch.cat([centers, state_d[..., None], state_n], dim=-1)
     return plane_disparity(gather_cells(labels, pack))
+
+
+def rasterize_planes(labels, centers, state_d, state_n) -> torch.Tensor:
+    """Per-pixel disparity (V, H, W) from the owning superpixel's plane:
+    one launch of ``csrc/raster.cu`` on a card, the plain form on the CPU
+    (``ops/raster.planes``)."""
+    from cl_multiview_stereo_tpu_torch.ops import raster
+
+    return raster.planes(labels, centers, state_d, state_n)
 
 
 def _probe(

@@ -32,7 +32,12 @@ a phase (:func:`smoothness_from_cache` per ``score_chunk`` batch on the
 CPU), each one launch of ``csrc/smoothness.cu`` on a card, whose cache is
 the table alone and whose scorer derives each tap from it.  Both plain
 forms add their taps one at a time in tap order (:func:`_sum_taps`), the
-order the kernels keep.
+order the kernels keep.  The rest of a sweep goes the same way: the
+rasterized table (:func:`rasterize_table`, ``ops/raster``), the update
+moves' candidates (:func:`update_candidates`) and the move chain's two
+accept walks (:func:`move_chain`, ``ops/chain``), each the plain form
+beside it (``*_reference``) on the CPU and one launch of
+``csrc/raster.cu`` or ``csrc/chain.cu`` on a card.
 """
 
 from __future__ import annotations
@@ -172,13 +177,23 @@ def _roll_cells(a: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
     return torch.roll(a, shifts=(-dy, -dx), dims=(1, 2))
 
 
-def rasterize_table(labels, center, ras_color, state_d, state_n, row0: int = 0) -> torch.Tensor:
+def rasterize_table_reference(labels, center, ras_color, state_d, state_n, row0: int = 0) -> torch.Tensor:
     """``spixl_to_image`` of the input state (cl:1906-1931) for the pixel
     rows ``labels`` holds (the image's rows from ``row0``), packed with
-    each pixel's superpixel colour ``ras_color``: (V*rows*W, 4)."""
+    each pixel's superpixel colour ``ras_color``: (V*rows*W, 4).  The plain
+    form of ``ops/raster.table``, on any device."""
     pack = torch.cat([center, state_d[..., None], state_n], dim=-1)
     disp = plane_disparity(gather_cells(labels, pack), row0)
     return torch.cat([disp.reshape(-1, 1), ras_color], dim=-1)
+
+
+def rasterize_table(labels, center, ras_color, state_d, state_n, row0: int = 0) -> torch.Tensor:
+    """:func:`rasterize_table_reference`'s table: one launch of
+    ``csrc/raster.cu`` on a card, the plain form on the CPU
+    (``ops/raster.table``)."""
+    from cl_multiview_stereo_tpu_torch.ops import raster
+
+    return raster.table(labels, center, ras_color, state_d, state_n, row0)
 
 
 def tap_gammas(gamma: float, steps: int) -> list[float]:
@@ -573,12 +588,28 @@ def gather_update_moves(ctx: RefineContext, state_in: RefineState, offs, gamma: 
     return d_adopt, n1x, n1y, n1z, sim_m, ok_m
 
 
-def update_candidates(ctx: RefineContext, state_in: RefineState, offs, gamma: float):
+def update_candidates_reference(ctx: RefineContext, state_in: RefineState, offs, gamma: float,
+                                rows: tuple[int, int] | None = None):
     """:func:`gather_update_moves` with the move axis leading: (d (M, V,
-    Mh, Mw), n (M, V, Mh, Mw, 3), sim, ok)."""
+    Mh, Mw), n (M, V, Mh, Mw, 3), sim, ok); with ``rows`` = (row0, n) the
+    cell rows row0 .. row0 + n - 1 of each (their neighbours still read
+    the whole map).  The plain form of ``ops/chain.candidates``."""
     d_adopt, n1x, n1y, n1z, sim_m, ok_m = gather_update_moves(ctx, state_in, offs, gamma)
     mv = lambda a: a.movedim(-1, 0)  # noqa: E731  (move axis leads)
-    return mv(d_adopt), torch.stack([mv(n1x), mv(n1y), mv(n1z)], dim=-1), mv(sim_m), mv(ok_m)
+    moves = mv(d_adopt), torch.stack([mv(n1x), mv(n1y), mv(n1z)], dim=-1), mv(sim_m), mv(ok_m)
+    if rows is None:
+        return moves
+    return tuple(a[:, :, rows[0]:rows[0] + rows[1]] for a in moves)
+
+
+def update_candidates(ctx: RefineContext, state_in: RefineState, offs, gamma: float,
+                      rows: tuple[int, int] | None = None):
+    """The update moves' candidates (:func:`update_candidates_reference`):
+    one launch of ``csrc/chain.cu``'s ``chain_moves`` on a card, the plain
+    form on the CPU (``ops/chain.candidates``)."""
+    from cl_multiview_stereo_tpu_torch.ops import chain
+
+    return chain.candidates(ctx, state_in, offs, gamma, rows=rows)
 
 
 def score_moves(
@@ -619,21 +650,14 @@ def score_moves(
     return sm, cs
 
 
-def move_chain(cache: IterCache, state: RefineState, moves, it: int, score) -> RefineState:
-    """The move chain of one Jacobi sweep for the cells of ``state`` (a
-    whole map, a band of cell rows or a block of views), scored by
-    ``score(d_c, n_c) -> (sm1, cs1)`` against the frozen input state that
-    ``cache`` and ``score`` hold: the update moves ``moves`` (from
-    :func:`update_candidates`, for these cells) in reference order, then
-    the normal refits through pairs of ring neighbours.  The port's one
-    accept rule: :func:`refine`, ``parallel/spatial.spatial_refine`` and
-    ``parallel/sharded_pipeline`` all run it."""
-    greedy = it < 4  # cl:1663 / cl:1713
+def update_phase_reference(cache: IterCache, state: RefineState, moves, sm1_upd, cs1_upd, greedy: bool):
+    """The accept walk over the update moves ``moves`` (from
+    :func:`update_candidates`) on their scores (cl:1779-1857), then the 8
+    ring refit normals of the new d and their validity (cl:1687-1723,
+    cl:1865-1891): (state, n_ref (8, ..., 3), ok_ref (8, ...)).  The plain
+    form of ``ops/chain.update``."""
     d_upd, n_upd, sim_upd, ok_upd = moves
-    sm1_upd, cs1_upd = score(d_upd, n_upd)
-
     d0, sm0, cs0, n0 = state.d, state.sm, state.cs, state.n
-    # update moves, in order (cl:1779-1857)
     for k in range(d_upd.shape[0]):
         sm1, cs1 = sm1_upd[k], cs1_upd[k]
         cond = _ftz(cs1 * sm1) > _ftz(sm0 * cs0)
@@ -646,7 +670,7 @@ def move_chain(cache: IterCache, state: RefineState, moves, it: int, score) -> R
         n0 = torch.where(accept[..., None], n_upd[k], n0)
 
     # spatial refinement: d is frozen, only the normal is re-fit through
-    # two ring neighbours (cl:1687-1723, cl:1865-1891)
+    # two ring neighbours
     n_ref, ok_ref = [], []
     for r in range(8):
         r2 = (r + 1) % 8
@@ -656,8 +680,13 @@ def move_chain(cache: IterCache, state: RefineState, moves, it: int, score) -> R
         norm = torch.sqrt(cx_ * cx_ + cy_ * cy_ + cz_ * cz_)
         n_ref.append(torch.stack([cx_ / norm, cy_ / norm, cz_ / norm], dim=-1))
         ok_ref.append(cache.ring_ok[..., r] & cache.ring_ok[..., r2])
-    n_ref = torch.stack(n_ref)
-    sm1_ref, cs1_ref = score(d0[None].expand((8,) + tuple(d0.shape)), n_ref)
+    return RefineState(d=d0, sm=sm0, cs=cs0, n=n0), torch.stack(n_ref), torch.stack(ok_ref)
+
+
+def refit_phase_reference(state: RefineState, n_ref, ok_ref, sm1_ref, cs1_ref, greedy: bool) -> RefineState:
+    """The accept walk over the 8 refits on their scores; d is unchanged.
+    The plain form of ``ops/chain.refit``."""
+    sm0, cs0, n0 = state.sm, state.cs, state.n
     for r in range(8):
         sm1, cs1 = sm1_ref[r], cs1_ref[r]
         cond = _ftz(sm1 * cs1) > _ftz(sm0 * cs0)
@@ -667,7 +696,38 @@ def move_chain(cache: IterCache, state: RefineState, moves, it: int, score) -> R
         sm0 = torch.where(accept, sm1, sm0)
         cs0 = torch.where(accept, cs1, cs0)
         n0 = torch.where(accept[..., None], n_ref[r], n0)
-    return RefineState(d=d0, sm=sm0, cs=cs0, n=n0)
+    return RefineState(d=state.d, sm=sm0, cs=cs0, n=n0)
+
+
+def _walk(update, refit, cache: IterCache, state: RefineState, moves, it: int, score) -> RefineState:
+    greedy = it < 4  # cl:1663 / cl:1713
+    sm1, cs1 = score(moves[0], moves[1])
+    state, n_ref, ok_ref = update(cache, state, moves, sm1, cs1, greedy)
+    d0 = state.d
+    sm1, cs1 = score(d0[None].expand((8,) + tuple(d0.shape)), n_ref)
+    return refit(state, n_ref, ok_ref, sm1, cs1, greedy)
+
+
+def move_chain(cache: IterCache, state: RefineState, moves, it: int, score) -> RefineState:
+    """The move chain of one Jacobi sweep for the cells of ``state`` (a
+    whole map, a band of cell rows or a block of views), scored by
+    ``score(d_c, n_c) -> (sm1, cs1)`` against the frozen input state that
+    ``cache`` and ``score`` hold: the update moves ``moves`` (from
+    :func:`update_candidates`, for these cells) in reference order, then
+    the normal refits through pairs of ring neighbours.  The port's one
+    accept rule: :func:`refine`, ``parallel/spatial.spatial_refine`` and
+    ``parallel/sharded_pipeline`` all run it.  Each walk goes through
+    ``ops/chain``: on a card ``chain_update``, the refits' scores, then
+    ``chain_refit``; on the CPU :func:`update_phase_reference` and
+    :func:`refit_phase_reference`."""
+    from cl_multiview_stereo_tpu_torch.ops import chain
+
+    return _walk(chain.update, chain.refit, cache, state, moves, it, score)
+
+
+def move_chain_reference(cache: IterCache, state: RefineState, moves, it: int, score) -> RefineState:
+    """:func:`move_chain` on the plain forms, on any device."""
+    return _walk(update_phase_reference, refit_phase_reference, cache, state, moves, it, score)
 
 
 def propagate_iteration(

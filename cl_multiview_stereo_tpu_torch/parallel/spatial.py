@@ -336,7 +336,7 @@ def block_sweep(
     offs = refine._update_move_offsets(steps, step_size, mw, mh)
     full_in = refine.RefineState(d=d_full, sm=None, cs=None, n=n_full)
     bh = mh // n
-    moves = tuple(a[:, :, t * bh:(t + 1) * bh] for a in refine.update_candidates(ctx, full_in, offs, kw["gamma"]))
+    moves = refine.update_candidates(ctx, full_in, offs, kw["gamma"], rows=(t * bh, bh))
     score = partial(refine.score_moves, blk, cache, **kw, img_hw=tuple(ctx.labels.shape[1:3]),
                     ras_rows=ras_rows)
     return refine.move_chain(cache, state, moves, it, score)

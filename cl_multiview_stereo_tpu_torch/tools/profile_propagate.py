@@ -19,8 +19,9 @@ component then runs at sweep 0's ``steps``/``step_size`` on that state:
   it before the scoring went to the kernels (on the CPU the two are one
   function);
 - ``rasterize_table`` and ``build_cell_cache``: the sweep's cache, the
-  latter ``smoothness.cell_cache`` (on a card one launch of
-  ``smooth_cache``); ``build_cell_cache, plain form`` beside it;
+  former ``refine.rasterize_table`` (on a card one launch of
+  ``raster_planes``), the latter ``smoothness.cell_cache`` (on a card one
+  launch of ``smooth_cache``); ``build_cell_cache, plain form`` beside it;
 - ``consistency_moves (update)``: the consistency of all update moves as
   the sweep scores them, ``consistency.consistency_moves`` under the
   engine's rule (on a card one launch of the CUDA kernel);
@@ -31,10 +32,12 @@ component then runs at sweep 0's ``steps``/``step_size`` on that state:
   ``smoothness.smoothness_moves`` (on a card one launch of
   ``smooth_moves``), and ``smoothness_from_cache x1``, the plain form on
   one batch, beside the sweep;
-- ``update_candidates``: the update moves' candidate planes;
+- ``update_candidates``: the update moves' candidate planes (on a card one
+  launch of ``chain_moves``);
 - ``accept_chain``: ``refine.move_chain`` scored by a function that returns
   the real scorer's outputs, recorded beforehand, so only the accept work
-  and the refit normals run;
+  and the refit normals run (on a card ``chain_update`` and
+  ``chain_refit``);
 - ``init_state``: the initial state's own stage, beside the sweep.
 
 A component beside the sweep has ``per_iteration`` 0 and no share.
@@ -211,17 +214,20 @@ def components(sw: Sweep0, engine: str) -> dict[str, Component]:
 
 def plain_sweep(sw: Sweep0):
     """Sweep 0 on the plain forms on any device: ``refine.propagate_iteration``
-    with ``build_cell_cache``, and ``smoothness_from_cache`` and
-    ``consistency_from_cache`` per ``score_chunk`` batch, in place of the
-    routed cache and scorers."""
+    with ``build_cell_cache``, ``rasterize_table_reference``,
+    ``update_candidates_reference``, ``move_chain_reference``, and
+    ``smoothness_from_cache`` and ``consistency_from_cache`` per
+    ``score_chunk`` batch, in place of the routed cache, table, candidates,
+    chain and scorers."""
     from cl_multiview_stereo_tpu_torch.ops import consistency, refine
 
     ctx, state, kw, sched, chunk = sw.ctx, sw.state, sw.kw, sw.sched, sw.score_chunk
     steps, step_size = sched.steps_per_iter[0], sched.step_size_per_iter[0]
     cache = refine.build_cell_cache(ctx, state.d, gamma=kw["gamma"], steps=steps, step_size=step_size)._replace(
-        ras=refine.rasterize_table(ctx.labels, ctx.center, ctx.ras_color, state.d, state.n))
+        ras=refine.rasterize_table_reference(ctx.labels, ctx.center, ctx.ras_color, state.d, state.n))
     mh, mw = state.d.shape[1:]
-    moves = refine.update_candidates(ctx, state, refine._update_move_offsets(steps, step_size, mw, mh), kw["gamma"])
+    moves = refine.update_candidates_reference(ctx, state, refine._update_move_offsets(steps, step_size, mw, mh),
+                                               kw["gamma"])
 
     def score(d_c, n_c):
         sm = torch.cat([refine.smoothness_from_cache(cache, d_c[k:k + chunk], n_c[k:k + chunk], alpha=kw["alpha"])
@@ -229,7 +235,7 @@ def plain_sweep(sw: Sweep0):
         return sm, consistency.consistency_moves_reference(ctx, cache, d_c.contiguous(), n_c.contiguous(),
                                                            score_chunk=chunk, rule="gather", **kw)
 
-    return refine.move_chain(cache, state, moves, 0, score)
+    return refine.move_chain_reference(cache, state, moves, 0, score)
 
 
 def real_indices(sw: Sweep0) -> torch.Tensor:

@@ -7,7 +7,10 @@ and the f32 operations it does on these inputs over the card's f32 peak.
 Each kernel has one work function that counts (bytes, operations) from its
 real inputs: :func:`cost_volume_work`, :func:`sweep_work`,
 :func:`consistency_work`, for SLIC's three kernels :func:`slic_work`, and
-for smoothness's two :func:`smooth_cache_work` and :func:`smooth_moves_work`.
+for smoothness's two :func:`smooth_cache_work` and :func:`smooth_moves_work`,
+for the plane rasterization :func:`raster_work` and for the move chain's
+three :func:`chain_moves_work`, :func:`chain_update_work` and
+:func:`chain_refit_work`.
 ``chip_smoke.py`` and this tool both use them, so a kernel's roofline
 share reads the same work whatever implements it.
 :func:`gather_work` counts the row gathers of ``tools.profile_propagate``'s
@@ -16,7 +19,8 @@ gather-rate ladder the same way.
 Usage:
 
   python -m cl_multiview_stereo_tpu_torch.tools.roofline \\
-      [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote|smooth_cache|smooth_moves] \\
+      [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote|smooth_cache|smooth_moves|
+                raster_planes|chain_moves|chain_update|chain_refit] \\
       [--shapes main|row] \\
       [--views 2 --height 480 --width 640 --d 64] [--device cuda|cpu]
 
@@ -24,7 +28,8 @@ Usage:
 ``SystemSettings()`` (31 hypotheses, 40 pairs; the consistency kernel on
 sweep 0's two calls of the gather engine, the main path's launches; the
 SLIC kernels on the scene's converged labels and map; the smoothness kernels
-on sweep 0's cache and its two calls, the main path's launches).
+on sweep 0's cache and its two calls, the main path's launches; the raster
+and chain kernels on sweep 0's table, candidates and two accept walks).
 ``--shapes row`` is the JAX tool's case: ``--views`` views in one row,
 ``--height`` x ``--width``, the ladder 4 .. 3 + ``--d``; the sweep there
 reads random Lab with each view against its right and left neighbour.  Without ``--shapes`` the sweep takes
@@ -70,14 +75,24 @@ SLIC_OPS_CAND, SLIC_OPS_MEMBER, SLIC_OPS_CLUSTER, SLIC_OPS_VOTE = 18, 5, 59, 50
 # products, 2 adds and divide, the difference, the weight's 2 products and
 # exp, the product and the add), each exp counted as one
 SMOOTH_OPS_TAP, SMOOTH_OPS_RING, SMOOTH_OPS_TERM = 14, 2, 12
+# the plane rasterization: a pixel's plane costs 8 (two differences, three
+# products, two adds, the divide); the move chain: a candidate (move, cell)
+# 19 (the plane's 8, the colour distance's 8, the weight's product,
+# negation and exp), an accept test 3 under the product rule (two products,
+# the compare) and 5 under the greedy rules (another product and compare),
+# a refit normal 20 (two differences, the cross product's 9, the norm's 6,
+# three divides), the sqrt and each exp counted as one
+RASTER_OPS_PIXEL, CHAIN_OPS_MOVE, CHAIN_OPS_ACCEPT, CHAIN_OPS_GREEDY, CHAIN_OPS_REFIT = 8, 19, 3, 5, 20
 # the bytes of one device memory sector, the unit a gather reads rows in
 SECTOR = 32
 # CUDA-event iterations of (kernel, plain twin) in each of the two turns
 ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1),
          "slic_assign": (20, 2), "slic_update": (20, 1), "slic_vote": (20, 2),
-         "smooth_cache": (10, 1), "smooth_moves": (10, 1)}
+         "smooth_cache": (10, 1), "smooth_moves": (10, 1),
+         "raster_planes": (20, 2), "chain_moves": (20, 2), "chain_update": (20, 1), "chain_refit": (20, 2)}
 SLIC_KERNELS = ("slic_assign", "slic_update", "slic_vote")
 SMOOTH_KERNELS = ("smooth_cache", "smooth_moves")
+CHAIN_KERNELS = ("raster_planes", "chain_moves", "chain_update", "chain_refit")
 KERNELS = tuple(ITERS)
 NOT_MEASURED = "not measured"
 # device clock cycles cuda_ms spins before its window: about 5 ms, longer
@@ -246,6 +261,61 @@ def smooth_moves_work(cache, d_c, n_c) -> tuple[int, int]:
     cells, t, m = d_c[0].numel(), cache.gammas.numel(), d_c.shape[0]
     n_bytes = _cell_input_bytes(v, mh, mw) + nbytes(n_c) + distinct_bytes(d_c) + 4 * d_c.numel()
     return n_bytes, SMOOTH_OPS_TERM * m * cells * t + SMOOTH_OPS_TAP * cells * t
+
+
+def _leaves(x) -> list:
+    """The tensors of ``x``, a tensor or a (nested) tuple holding tensors."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for a in x for t in _leaves(a)]
+    return []
+
+
+def raster_work(labels, center, state_d, state_n, ras_color, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``raster_planes`` launch that wrote
+    ``out``: the labels, the cell maps (centre, disparity, normal) and, for
+    the table, ``ras_color`` read once, ``out`` written once;
+    RASTER_OPS_PIXEL a pixel."""
+    n_bytes = nbytes(labels, center, state_d, state_n, out) + (0 if ras_color is None else nbytes(ras_color))
+    return n_bytes, RASTER_OPS_PIXEL * labels.numel()
+
+
+def chain_moves_work(ctx, state_in, offs, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``chain_moves`` launch that wrote ``out``
+    (d, n, sim, ok): the map's centre, colour, disparity and normal read
+    once, the move table's 8 bytes a move, the candidates written once;
+    CHAIN_OPS_MOVE a (move, cell)."""
+    n_bytes = nbytes(ctx.center, ctx.color, state_in.d, state_in.n, *out) + 8 * len(offs)
+    return n_bytes, CHAIN_OPS_MOVE * out[0].numel()
+
+
+def chain_update_work(cache, state, moves, sm1, cs1, greedy, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``chain_update`` launch that wrote ``out``
+    (state, n_ref, ok_ref), counted as this run's data needs: each move's
+    ``ok`` read once, its scores (and under the greedy rules its
+    similarity) only where it is valid; a cell's d and n once, from the
+    state or from its last accepted move; the state's sm and cs and the
+    ring fields read once, ``out`` written once; an accept test a valid
+    (move, cell), CHAIN_OPS_REFIT a (refit, cell)."""
+    valid = int(moves[3].sum())
+    ring = (cache.ring_dcx, cache.ring_dcy, cache.ring_d, cache.ring_ok)
+    n_bytes = (nbytes(moves[3], state.d, state.sm, state.cs, state.n, *ring, *_leaves(out))
+               + (12 if greedy else 8) * valid)
+    accept = CHAIN_OPS_GREEDY if greedy else CHAIN_OPS_ACCEPT
+    return n_bytes, accept * valid + CHAIN_OPS_REFIT * out[2].numel()
+
+
+def chain_refit_work(state, n_ref, ok_ref, sm1, cs1, greedy, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``chain_refit`` launch that wrote the
+    state ``out``, counted as this run's data needs: each refit's
+    ``ok_ref`` read once, its scores only where it is valid; a cell's n
+    once, from the state or from its last accepted refit; the state's sm
+    and cs read once, out's sm, cs and n written once; an accept test a
+    valid (refit, cell)."""
+    valid = int(ok_ref.sum())
+    n_bytes = nbytes(ok_ref, state.sm, state.cs, state.n, out.sm, out.cs, out.n) + 8 * valid
+    return n_bytes, (CHAIN_OPS_GREEDY if greedy else CHAIN_OPS_ACCEPT) * valid
 
 
 def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, int]:
@@ -433,6 +503,82 @@ def smooth_case(kernel: str, a, k, plain_a) -> tuple:
             lambda: smoothness.smoothness_moves_reference(*plain_a, **k), smooth_moves_work(*a))
 
 
+# each routed wrapper of the raster and chain kernels: (module, attribute,
+# kernel, its plain form's module and attribute)
+CHAIN_WRAPPERS = {
+    "table": ("raster", "table", "raster_planes", "refine", "rasterize_table_reference"),
+    "planes": ("raster", "planes", "raster_planes", "fusion", "rasterize_planes_reference"),
+    "candidates": ("chain", "candidates", "chain_moves", "refine", "update_candidates_reference"),
+    "update": ("chain", "update", "chain_update", "refine", "update_phase_reference"),
+    "refit": ("chain", "refit", "chain_refit", "refine", "refit_phase_reference"),
+}
+
+
+def _module(name: str):
+    import importlib
+
+    return importlib.import_module(f"cl_multiview_stereo_tpu_torch.ops.{name}")
+
+
+def chain_calls(settings, rgb, device, sweeps=(0,)) -> dict:
+    """The raster and chain calls of the refinement on scene ``rgb``, as
+    (wrapper, args, keywords), wrapper a key of CHAIN_WRAPPERS: ``init
+    table``, then for each sweep ``it`` of ``sweeps``, run from the initial
+    state at that sweep's reach, ``sweep it table``, ``sweep it
+    candidates``, ``sweep it update`` and ``sweep it refit``; last ``fusion
+    map``, fusion's rasterization of the initial state."""
+    ctx, state0, kw, sched = sweep0_state(settings, rgb, device)
+    calls, real = [], {}
+
+    def recorder(wrapper):
+        mod, attr = CHAIN_WRAPPERS[wrapper][:2]
+        fn = real[wrapper] = getattr(_module(mod), attr)
+
+        def record(*a, **k):
+            calls.append((wrapper, a, k))
+            return fn(*a, **k)
+        return record
+
+    for wrapper in CHAIN_WRAPPERS:
+        setattr(_module(CHAIN_WRAPPERS[wrapper][0]), CHAIN_WRAPPERS[wrapper][1], recorder(wrapper))
+    try:
+        from cl_multiview_stereo_tpu_torch.ops import fusion, refine
+
+        refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
+        for it in sweeps:
+            refine.propagate_iteration(ctx, state0, it, **kw, steps=sched.steps_per_iter[it],
+                                       step_size=sched.step_size_per_iter[it])
+        fusion.rasterize_planes(ctx.labels, ctx.center, state0.d, state0.n)
+    finally:
+        for wrapper, fn in real.items():
+            setattr(_module(CHAIN_WRAPPERS[wrapper][0]), CHAIN_WRAPPERS[wrapper][1], fn)
+    phases = ("table", "candidates", "update", "refit")
+    names = ["init table"] + [f"sweep {it} {p}" for it in sweeps for p in phases] + ["fusion map"]
+    if [c[0] for c in calls] != ["table", *phases * len(sweeps), "planes"]:
+        raise AssertionError(f"the init, sweeps {sweeps} and fusion made the calls {[c[0] for c in calls]}")
+    return dict(zip(names, calls))
+
+
+def chain_case(wrapper: str, a, k) -> tuple:
+    """(kernel, kernel fn, plain fn, (bytes, operations)) of one recorded
+    raster or chain call (:func:`chain_calls`)."""
+    mod, attr, kernel, plain_mod, plain_attr = CHAIN_WRAPPERS[wrapper]
+    routed, plain = getattr(_module(mod), attr), getattr(_module(plain_mod), plain_attr)
+    out = routed(*a, **k)
+    if wrapper == "table":
+        labels, center, ras_color, d, n = a[:5]
+        work = raster_work(labels, center, d, n, ras_color, out)
+    elif wrapper == "planes":
+        work = raster_work(*a, None, out)
+    elif wrapper == "candidates":
+        work = chain_moves_work(a[0], a[1], a[2], out)
+    elif wrapper == "update":
+        work = chain_update_work(*a, out)
+    else:
+        work = chain_refit_work(*a, out)
+    return kernel, (lambda: routed(*a, **k)), (lambda: plain(*a, **k)), work
+
+
 def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
     """(shape label, [(kernel fn, plain fn, (bytes, ops))]) of one kernel;
     a kernel of several launches (consistency: sweep 0's two) lists each."""
@@ -487,6 +633,14 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
             f"{tuple(a[1].shape)}" + (f" T {8 + 4 * k['steps']}" if kernel == "smooth_cache" else "")
             for _, a, k, _ in calls)
         return label, [smooth_case(*c) for c in calls]
+    if kernel in CHAIN_KERNELS:
+        wrapper = next(w for w, spec in CHAIN_WRAPPERS.items() if spec[2] == kernel and w != "planes")
+        (_, a, k), = [c for name, c in chain_calls(s, rgb, device).items() if name == f"sweep 0 {wrapper}"]
+        _, kern, plain, work = chain_case(wrapper, a, k)
+        # the table's labels, else the cells' state
+        shape = a[0].shape if wrapper == "table" else (a[0] if wrapper == "refit" else a[1]).d.shape
+        label = f"sweep 0's launch, {wrapper} of {tuple(shape)}"
+        return label, [(kern, plain, work)]
     calls = [c for name, c in refine_calls(s, rgb, device).items() if name != "init"]
     label = "sweep 0's launches " + ", ".join(str(tuple(a[2].shape)) for a, _ in calls)
     return label, [(lambda a=a, k=k: consistency.consistency_moves(*a, **k),

@@ -9,6 +9,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
 CUDA device every test here skips.
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -23,9 +25,11 @@ from cl_multiview_stereo_tpu_torch.config import (
 )
 from cl_multiview_stereo_tpu_torch.models import plane_sweep
 from cl_multiview_stereo_tpu_torch.ops import (
+    chain,
     consistency,
     cost_volume,
     fusion,
+    raster,
     refine,
     slic,
     smoothness,
@@ -1304,3 +1308,248 @@ def test_smoothness_wrappers_reject_bad_input(cuda):
         smoothness.smoothness_moves(cache._replace(cell_table=table), d_c, n_c, alpha=SMOOTH_ALPHA)
     with pytest.raises(ValueError, match="step_size"):
         smoothness.cell_cache(ctx, tgt_d, gamma=SMOOTH_GAMMA, steps=2, step_size=2.0 ** 24)
+
+
+# ---------------------------------------------------------------------------
+# The plane rasterization (csrc/raster.cu) and the move chain (csrc/chain.cu)
+# ---------------------------------------------------------------------------
+
+# (views, cell rows, cell columns): a map of 8-pixel cells, and a ragged
+# one whose image is not a whole number of cells
+CHAIN_MAPS = {"3x12x16": (3, 12, 16), "ragged-9x7x5": (9, 7, 5)}
+CHAIN_GAMMA = 0.125
+# the update moves at M = 8 (immediate only) and M = 16 (two reach steps)
+CHAIN_REACH = {8: (0, 1.0), 16: (2, 1.0)}
+
+
+def _exact(got, want, tag=""):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True, msg=lambda m: f"{tag}: {m}")
+
+
+def _chain_inputs(shape, device, seed=21):
+    """A seeded cell map, its image's labels and a state with every edge the
+    kernels meet: NaN and +-inf disparities, nz = 0, zero and NaN normals,
+    a far colour (its similarities flush to 0), scores whose products
+    underflow to subnormals, NaN and inf scores."""
+    v, mh, mw = shape
+    h, w = mh * 8 - (3 if mh % 2 else 0), mw * 8 - (5 if mw % 2 else 0)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(mh), np.arange(mw), indexing="ij")
+    center = np.stack([xx * 8 + 3.5, yy * 8 + 3.5], -1)[None] + rng.uniform(-2, 2, (v, mh, mw, 2))
+    color = np.array([50.0, 0.0, 0.0]) + rng.normal(0, [3.0, 1.5, 1.5], (v, mh, mw, 3))
+    color[:, mh // 2, mw // 2] = (400.0, 90.0, -90.0)
+    labels = rng.integers(0, mh * mw, (v, h, w)).astype(np.int32)
+    d = rng.uniform(4.0, 11.0, (v, mh, mw))
+    d.reshape(-1)[5::13] = np.nan
+    d.reshape(-1)[7::17] = np.inf
+    d.reshape(-1)[9::19] = -np.inf
+    nrm = rng.normal(0, 0.2, (v, mh, mw, 3))
+    nrm[..., 2] += 1.0
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    flat = nrm.reshape(-1, 3)
+    flat[0::7] = (1.0, 0.0, 0.0)
+    flat[1::11] = 0.0
+    flat[2::23] = np.nan
+    sm, cs = rng.uniform(0.01, 1.0, (2, v, mh, mw))
+    sm.reshape(-1)[3::9] = 1e-20  # sm0 * cs0 underflows
+    cs.reshape(-1)[3::9] = 1e-19
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    ctx = refine.RefineContext(center=f(center), color=f(color), disp0=None,
+                               labels=torch.as_tensor(labels, device=device), samples=None, fl=None,
+                               ras_color=None)
+    state = refine.RefineState(d=f(d), sm=f(sm), cs=f(cs), n=f(nrm))
+    return ctx, state
+
+
+def _chain_scores(m, shape, device, seed):
+    """(sm1, cs1) of m moves: uniform, with NaN, +inf, and products that
+    underflow to subnormals (flushed: they never beat a normal product)."""
+    rng = np.random.default_rng(seed)
+    sm1, cs1 = rng.uniform(0.0, 1.2, (2, m) + shape)
+    sm1.reshape(m, -1)[:, 1::10] = np.nan
+    cs1.reshape(m, -1)[:, 2::10] = np.inf
+    sm1.reshape(m, -1)[:, 3::10] = 2e-20
+    cs1.reshape(m, -1)[:, 3::10] = 3e-20
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return f(sm1), f(cs1)
+
+
+def _ring(shape, device, seed, ok="random"):
+    """A cache holding only the ring fields the chain reads, (V, rows, Mw,
+    8) each, with NaN and inf entries; ``ok`` "random" or "none"."""
+    rng = np.random.default_rng(seed)
+    dcx, dcy = rng.uniform(-12, 12, (2,) + shape + (8,))
+    rd = rng.uniform(4.0, 11.0, shape + (8,))
+    rd.reshape(-1)[4::29] = np.nan
+    dcx.reshape(-1)[6::31] = np.inf
+    dcx.reshape(-1)[8::37] = 0.0
+    dcy.reshape(-1)[8::37] = 0.0
+    rok = rng.random(shape + (8,)) < 0.8 if ok == "random" else np.zeros(shape + (8,), bool)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    return refine.IterCache(tap_ax=None, tap_ay=None, tap_d=None, tap_sim=None, wn=None, ras=None,
+                            ring_dcx=f(dcx), ring_dcy=f(dcy), ring_d=f(rd),
+                            ring_ok=torch.as_tensor(rok, device=device), cell_table=None, gammas=None, row0=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", ["whole", "band"])
+@pytest.mark.parametrize("shape", list(CHAIN_MAPS))
+def test_raster_planes_bitwise(cuda, shape, band):
+    """The table (rasterize_table) and the map (rasterize_planes) bitwise
+    their plain forms, NaN and +-inf included; a band of pixel rows from
+    ``row0`` > 0 as ``spatial.block_table`` takes it."""
+    ctx, state = _chain_inputs(CHAIN_MAPS[shape], cuda)
+    labels = ctx.labels
+    h = labels.shape[1]
+    row0, rows = (0, h) if band == "whole" else (h // 3, h // 2)
+    labels = labels[:, row0:row0 + rows]
+    color = fusion.gather_cells(labels, ctx.color).reshape(-1, 3)
+    before = raster.LAUNCHES["raster_planes"]
+    got = raster.table(labels, ctx.center, color, state.d, state.n, row0)
+    want = refine.rasterize_table_reference(labels, ctx.center, color, state.d, state.n, row0)
+    _exact(got, want, "table")
+    assert torch.isnan(got[:, 0]).any() and torch.isinf(got[:, 0]).any()
+    _exact(refine.rasterize_table(labels, ctx.center, color, state.d, state.n, row0), want, "routed table")
+    if band == "whole":
+        _exact(fusion.rasterize_planes(labels, ctx.center, state.d, state.n),
+               fusion.rasterize_planes_reference(labels, ctx.center, state.d, state.n), "planes")
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES["raster_planes"] - before == (2 if band == "band" else 3)
+
+
+@pytest.mark.cuda
+def test_raster_planes_off_map_label_is_nan(cuda):
+    """A label outside the view's map writes NaN (the plain gather raises)."""
+    ctx, state = _chain_inputs(CHAIN_MAPS["3x12x16"], cuda)
+    labels = ctx.labels.clone()
+    labels[0, 0, 0], labels[1, 2, 3] = -1, 12 * 16
+    got = raster.planes(labels, ctx.center, state.d, state.n)
+    assert torch.isnan(got[0, 0, 0]) and torch.isnan(got[1, 2, 3])
+    ok = labels == ctx.labels
+    _exact(got[ok], fusion.rasterize_planes_reference(ctx.labels, ctx.center, state.d, state.n)[ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, (2, 3), (0, 1)])
+@pytest.mark.parametrize("m", list(CHAIN_REACH))
+@pytest.mark.parametrize("shape", list(CHAIN_MAPS))
+def test_chain_moves_bitwise(cuda, shape, m, rows):
+    """``chain_moves`` bitwise ``update_candidates_reference`` at M = 8 and
+    16, the whole map and bands of cell rows, the wrapped neighbours'
+    values included (``ok`` masks them)."""
+    ctx, state = _chain_inputs(CHAIN_MAPS[shape], cuda)
+    v, mh, mw = state.d.shape
+    offs = refine._update_move_offsets(*CHAIN_REACH[m], mw, mh)
+    assert len(offs) == m
+    got = chain.candidates(ctx, state, offs, CHAIN_GAMMA, rows=rows)
+    want = refine.update_candidates_reference(ctx, state, offs, CHAIN_GAMMA, rows=rows)
+    for name, a, b in zip(("d", "n", "sim", "ok"), got, want):
+        assert a.is_contiguous() and a.dtype == b.dtype
+        _exact(a, b, name)
+    assert got[3].any() and not got[3].all()
+    _exact(refine.update_candidates(ctx, state, offs, CHAIN_GAMMA, rows=rows)[0], want[0], "routed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ok", ["random", "none"])
+@pytest.mark.parametrize("it", [0, 4], ids=["greedy", "product"])
+@pytest.mark.parametrize("m", list(CHAIN_REACH))
+@pytest.mark.parametrize("shape", list(CHAIN_MAPS))
+def test_chain_update_bitwise(cuda, shape, m, it, ok):
+    """``chain_update`` bitwise ``update_phase_reference``: the state after
+    the update moves and the 8 refit normals and their validity, greedy
+    and not, with NaN, inf and underflowing scores, and with no move or
+    ring neighbour valid."""
+    ctx, state = _chain_inputs(CHAIN_MAPS[shape], cuda)
+    v, mh, mw = state.d.shape
+    moves = refine.update_candidates_reference(ctx, state, refine._update_move_offsets(*CHAIN_REACH[m], mw, mh),
+                                               CHAIN_GAMMA)
+    if ok == "none":
+        moves = (*moves[:3], torch.zeros_like(moves[3]))
+    sm1, cs1 = _chain_scores(m, tuple(state.d.shape), cuda, seed=m + it)
+    cache = _ring(tuple(state.d.shape), cuda, seed=7, ok=ok)
+    got = chain.update(cache, state, moves, sm1, cs1, it < 4)
+    want = refine.update_phase_reference(cache, state, moves, sm1, cs1, it < 4)
+    for f in refine.RefineState._fields:
+        _exact(getattr(got[0], f), getattr(want[0], f), f)
+    _exact(got[1], want[1], "n_ref")
+    _exact(got[2], want[2], "ok_ref")
+    changed = (got[0].d != state.d) & ~torch.isnan(state.d)
+    assert changed.any() == (ok == "random") and torch.isnan(got[1]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ok", ["random", "none"])
+@pytest.mark.parametrize("it", [0, 4], ids=["greedy", "product"])
+@pytest.mark.parametrize("shape", list(CHAIN_MAPS))
+def test_chain_refit_bitwise(cuda, shape, it, ok):
+    """``chain_refit`` bitwise ``refit_phase_reference``, greedy and not,
+    with NaN refit normals, NaN, inf and underflowing scores, and with no
+    refit valid; d is the input state's own tensor."""
+    ctx, state = _chain_inputs(CHAIN_MAPS[shape], cuda)
+    cache = _ring(tuple(state.d.shape), cuda, seed=9, ok=ok)
+    _, n_ref, ok_ref = refine.update_phase_reference(
+        cache, state, tuple(a[:0] for a in refine.update_candidates_reference(ctx, state, [(1, 0)], CHAIN_GAMMA)),
+        state.sm[None][:0], state.cs[None][:0], False)
+    sm1, cs1 = _chain_scores(8, tuple(state.d.shape), cuda, seed=40 + it)
+    got = chain.refit(state, n_ref, ok_ref, sm1, cs1, it < 4)
+    want = refine.refit_phase_reference(state, n_ref, ok_ref, sm1, cs1, it < 4)
+    assert got.d is state.d
+    for f in refine.RefineState._fields:
+        _exact(getattr(got, f), getattr(want, f), f)
+    assert (got.sm != state.sm).any() == (ok == "random")
+
+
+@pytest.mark.cuda
+def test_move_chain_on_the_card_launches_the_kernels(strips_scene):
+    """One sweep on the card (``refine.propagate_iteration``, greedy and
+    not): ``chain_moves`` once, ``chain_update`` and ``chain_refit`` once
+    each, the table once; its state bitwise the sweep on the plain forms
+    (the plain table, candidates and chain, the routed scorers)."""
+    sc = strips_scene
+    ctx, sched, kw = sc["ctx"], sc["sched"], sc["kw"]
+    state = refine.init_state(ctx, **kw, steps=sched.kernel_steps, step_size=sched.sp_kernel_step)
+    mh, mw = state.d.shape[1:]
+    for it in (0, 4):  # the reach of the scene's last sweep at it = 4
+        sweep = min(it, sched.no_prop - 1)
+        reach = dict(steps=sched.steps_per_iter[sweep], step_size=sched.step_size_per_iter[sweep])
+        before = dict(chain.LAUNCHES), raster.LAUNCHES["raster_planes"]
+        got = refine.propagate_iteration(ctx, state, it, **kw, **reach)
+        torch.cuda.synchronize()
+        assert {k: chain.LAUNCHES[k] - before[0][k] for k in chain.LAUNCHES} == {
+            "chain_moves": 1, "chain_update": 1, "chain_refit": 1}
+        assert raster.LAUNCHES["raster_planes"] - before[1] == 1
+        cache = refine.build_cache(ctx, state.d, state.n, gamma=kw["gamma"], **reach)
+        cache = cache._replace(ras=refine.rasterize_table_reference(ctx.labels, ctx.center, ctx.ras_color,
+                                                                    state.d, state.n))
+        offs = refine._update_move_offsets(reach["steps"], reach["step_size"], mw, mh)
+        moves = refine.update_candidates_reference(ctx, state, offs, kw["gamma"])
+        want = refine.move_chain_reference(cache, state, moves, it, partial(refine.score_moves, ctx, cache, **kw))
+        for f in refine.RefineState._fields:
+            _exact(getattr(got, f), getattr(want, f), f"it {it} {f}")
+
+
+@pytest.mark.cuda
+def test_chain_and_raster_wrappers_reject_bad_input(cuda):
+    ctx, state = _chain_inputs(CHAIN_MAPS["3x12x16"], cuda)
+    offs = refine._update_move_offsets(0, 1.0, 16, 12)
+    with pytest.raises(TypeError):
+        chain.candidates(ctx, state._replace(n=state.n.double()), offs, CHAIN_GAMMA)
+    with pytest.raises(ValueError, match="band"):
+        chain.candidates(ctx, state, offs, CHAIN_GAMMA, rows=(10, 4))
+    with pytest.raises(ValueError):
+        chain.candidates(ctx._replace(color=ctx.color.cpu()), state, offs, CHAIN_GAMMA)
+    moves = chain.candidates(ctx, state, offs, CHAIN_GAMMA)
+    sm1, cs1 = _chain_scores(8, tuple(state.d.shape), cuda, seed=1)
+    cache = _ring(tuple(state.d.shape), cuda, seed=2)
+    with pytest.raises(ValueError):
+        chain.update(cache, state, moves, sm1[:7], cs1, True)
+    with pytest.raises(TypeError):
+        chain.update(cache._replace(ring_ok=cache.ring_ok.float()), state, moves, sm1, cs1, True)
+    _, n_ref, ok_ref = chain.update(cache, state, moves, sm1, cs1, True)
+    with pytest.raises(ValueError):
+        chain.refit(state, n_ref[:, :1], ok_ref, sm1, cs1, False)
+    with pytest.raises(ValueError):
+        raster.planes(ctx.labels[0], ctx.center, state.d, state.n)
+    with pytest.raises(ValueError):
+        raster.table(ctx.labels, ctx.center, torch.zeros((5, 3), device=cuda), state.d, state.n)
