@@ -6,11 +6,12 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 0. device: a CUDA device is visible; print its name and power limit;
-1. build: compile ``csrc/{cost_volume,sweep,consistency,slic,smoothness,raster,chain}.cu``
+1. build: compile
+   ``csrc/{cost_volume,sweep,consistency,slic,smoothness,raster,chain,color,extent}.cu``
    with nvcc from this checkout, one nvcc each, all started together; print
    what ptxas reports, check that two cost-volume blocks and two sweep
    blocks fit on an SM and that the sweep, consistency, SLIC, smoothness,
-   raster and chain kernels do not spill;
+   raster, chain, Lab and extent kernels do not spill;
 2. kernels against their plain twins, on the same device tensors, with
    both times from CUDA events, in turns, beside each kernel's bound (the
    larger of its bytes over the card's memory rate and its f32 operations
@@ -40,7 +41,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    table, sweep 0's and 4's tables and fusion's map, ``chain_moves`` on
    sweep 0's (M = 8) and sweep 4's (M = 16) candidates, ``chain_update``
    and ``chain_refit`` on those sweeps' accept walks, each against its
-   plain form;
+   plain form; the Lab conversion (``lab_convert``) on the 9-view 1080p
+   scene and on every uint8 RGB triple once (a 4096x4096 image), and the
+   extent walk (``extent_walk``) on the scene's converged labels and map
+   (``tools.roofline.slic_inputs``), each bitwise its plain form;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
@@ -49,12 +53,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the SLIC assignment 5 + 1 = 6 times and the update 5 times,
    ``smooth_cache`` 1 + 5 = 6 and ``smooth_moves`` 1 + 2 x 5 = 11 times,
    ``raster_planes`` 1 + 5 + 1 = 7 times (the init's table, a table a
-   sweep, fusion's map) and ``chain_moves``, ``chain_update`` and
-   ``chain_refit`` 5 times each;
+   sweep, fusion's map), ``chain_moves``, ``chain_update`` and
+   ``chain_refit`` 5 times each, and ``lab_convert`` and ``extent_walk``
+   once each;
 3b. the same stages with the strips consistency engine
    (``refine.refine(cons_engine="strips")``): timed the same way, and its
    refined disparity held against phase 3's gather engine; each run
-   launches the raster and chain kernels as phase 3's;
+   launches the Lab, extent, raster and chain kernels as phase 3's;
 3c. the dense plane sweep (``models.plane_sweep.plane_sweep_depth``) on
    the scene's Lab images: timed the same way, and held against the
    scene's disparity;
@@ -127,8 +132,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fits and 3 when the allocator refuses a request; 9a's replays must
    launch the cost volume once, the consistency kernel 11 times, the SLIC
    assignment 6 and the update 5 times, ``smooth_cache`` 6 and
-   ``smooth_moves`` 11 times, ``raster_planes`` 7 times and each chain
-   kernel 5 times each;
+   ``smooth_moves`` 11 times, ``raster_planes`` 7 times, each chain
+   kernel 5 times and ``lab_convert`` and ``extent_walk`` once each;
 10. the tools ported last, each in its own process: 10a
    ``tools.profile_propagate --engine both`` at 9x1080x1920 (each
    component of sweep 0 under both engines with its ms, launches and share
@@ -189,13 +194,16 @@ SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
 # run --sfm: share of interior pixels within 1 of the scene's disparity
 SFM_RUN_NEAR = 0.90
 # the kernels' sources (csrc/<name>.cu), and the kernels of the JSON record
-SOURCES = ("cost_volume", "sweep", "consistency", "slic", "smoothness", "raster", "chain")
+SOURCES = ("cost_volume", "sweep", "consistency", "slic", "smoothness", "raster", "chain", "color", "extent")
 KERNELS = ("cost_volume", "sweep", "consistency", "slic_assign", "slic_update", "slic_vote", "smooth_cache",
-           "smooth_moves", "raster_planes", "chain_moves", "chain_update", "chain_refit")
-# the raster and chain kernels' launches in one run of the slice: the
-# init's table, then a table, the candidates and two accept walks a sweep
-# (5 sweeps), then fusion's map
-CHAIN_PER_RUN = {"raster_planes": 1 + 5 + 1, "chain_moves": 5, "chain_update": 5, "chain_refit": 5}
+           "smooth_moves", "raster_planes", "chain_moves", "chain_update", "chain_refit", "lab_convert",
+           "extent_walk")
+# the Lab, extent, raster and chain kernels' launches in one run of the
+# slice: the Lab image and the extent once, the init's table, then a
+# table, the candidates and two accept walks a sweep (5 sweeps), then
+# fusion's map
+PER_RUN = {"lab_convert": 1, "extent_walk": 1, "raster_planes": 1 + 5 + 1, "chain_moves": 5, "chain_update": 5,
+           "chain_refit": 5}
 # phase 8's scene B: the scene generator at another disparity and seed
 STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
 # phase 8's stream tool, seconds it may take
@@ -236,9 +244,8 @@ def phase_build() -> None:
         for line in logs[name].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name}: {line.strip()}")
-    # the sweep, consistency, SLIC, smoothness, raster and chain kernels
-    # build without spills
-    for name in ("sweep", "consistency", "slic", "smoothness", "raster", "chain"):
+    # every kernel but the cost volume builds without spills
+    for name in SOURCES[1:]:
         spills = [ln.strip() for ln in logs[name].splitlines()
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
@@ -563,17 +570,19 @@ def phase_smoothness_vs_plain(card: str) -> dict:
             "smooth_moves": dict(per, max_abs_err=0.0, bound_by=moves[0]["bound_by"])}
 
 
-def _reset_chain() -> None:
-    from cl_multiview_stereo_tpu_torch.ops import chain, raster
+def _reset_counts() -> None:
+    """Sets the launch counts of PER_RUN's kernels to 0."""
+    from cl_multiview_stereo_tpu_torch.ops import chain, color, raster, superpixel
 
-    for counts in (raster.LAUNCHES, chain.LAUNCHES):
+    for counts in (color.LAUNCHES, superpixel.LAUNCHES, raster.LAUNCHES, chain.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
 
 
-def _chain_counts() -> dict:
-    from cl_multiview_stereo_tpu_torch.ops import chain, raster
+def _counts() -> dict:
+    """The launch counts of PER_RUN's kernels."""
+    from cl_multiview_stereo_tpu_torch.ops import chain, color, raster, superpixel
 
-    return {**raster.LAUNCHES, **chain.LAUNCHES}
+    return {**color.LAUNCHES, **superpixel.LAUNCHES, **raster.LAUNCHES, **chain.LAUNCHES}
 
 
 def phase_chain_vs_plain(card: str) -> dict:
@@ -613,6 +622,60 @@ def phase_chain_vs_plain(card: str) -> dict:
             "chain_update": recs["sweep 0 update"], "chain_refit": recs["sweep 0 refit"]}
 
 
+def _require_same_bits(tag: str, got, want) -> None:
+    """float32 tensors equal bit for bit (NaN payloads and signed zeros too)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tag}: {tuple(got.shape)} {got.dtype}, plain {tuple(want.shape)} {want.dtype}")
+    _require_equal(tag, got.view(torch.int32), want.view(torch.int32))
+
+
+def phase_lab_extent_vs_plain(card: str) -> dict:
+    """The Lab conversion and the extent walk against their plain forms on
+    the card: ``lab_convert`` on the slice's 9-view 1080p scene and on every
+    uint8 RGB triple once, ``extent_walk`` on that scene's converged labels
+    and map (``tools.roofline.slic_inputs``, the roofline tool's inputs
+    too); each bitwise.  Returns each kernel's record on the scene."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.ops import superpixel
+    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab, rgb_to_lab_reference
+    from cl_multiview_stereo_tpu_torch.tools.roofline import ITERS, bound, extent_work, in_turns, lab_work, slic_inputs
+
+    s, rgb = _scene(FULL_H, FULL_W)
+    x = torch.as_tensor(rgb, device="cuda")
+    code = torch.arange(2**24, dtype=torch.int32, device="cuda")
+    triples = torch.stack([code >> 16, (code >> 8) & 255, code & 255], dim=-1).to(torch.uint8).reshape(4096, 4096, 3)
+    _require_same_bits("[2] lab_convert, every uint8 triple", rgb_to_lab(triples), rgb_to_lab_reference(triples))
+    print(f"[2] lab_convert on every uint8 RGB triple (4096x4096x3): bitwise the plain form ({card})")
+    del code, triples
+    _, geom, _, labels, spmap = slic_inputs(rgb, s, "cuda")
+    ex = (labels, spmap.center, geom)
+    cases = {
+        "lab_convert": (f"{tuple(x.shape)} uint8", lambda: rgb_to_lab(x), lambda: rgb_to_lab_reference(x),
+                        lambda out: lab_work(x, out)),
+        "extent_walk": (f"{tuple(labels.shape)} S{geom.spixl_size} -> {geom.map_h}x{geom.map_w} cells",
+                        lambda: superpixel.superpixel_extent(*ex), lambda: superpixel.superpixel_extent_reference(*ex),
+                        lambda out: extent_work(*ex, out)),
+    }
+    recs = {}
+    for name, (label, kern, plain, work) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if name == "lab_convert":
+            _require_same_bits(f"[2] {name} {label}", got, want)
+        else:
+            _require_equal(f"[2] {name} {label}", got, want)
+        k_ms, p_ms = in_turns(kern, plain, *ITERS[name])
+        b_ms, by = bound(*work(got))
+        print(f"[2] {name} {label}: bitwise; kernel {k_ms:.4f} ms, bound {b_ms:.4g} ms ({by}), plain "
+              f"{p_ms:.3f} ms ({card})")
+        recs[name] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        del got, want
+    return recs
+
+
 def phase_slice(card: str):
     import numpy as np
     import torch
@@ -645,7 +708,7 @@ def phase_slice(card: str):
         consistency.LAUNCHES = 0
         _reset_slic()
         _reset_smoothness()
-        _reset_chain()
+        _reset_counts()
         t0 = time.perf_counter()
         art = pipe.run(rgb_dev, timer=timer)
         torch.cuda.synchronize()
@@ -653,7 +716,7 @@ def phase_slice(card: str):
         cons.append(consistency.LAUNCHES)
         slic_runs.append(dict(slic.LAUNCHES))
         smooth_runs.append(dict(smoothness.LAUNCHES))
-        chain_runs.append(_chain_counts())
+        chain_runs.append(_counts())
     launches = cost_volume.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
@@ -666,9 +729,9 @@ def phase_slice(card: str):
     if smooth_runs != [smooth_per_run] * 2:
         raise AssertionError(f"the main path launched the smoothness kernels {smooth_runs} a run, "
                              f"expected {smooth_per_run}")
-    if chain_runs != [CHAIN_PER_RUN] * 2:
-        raise AssertionError(f"the main path launched the raster and chain kernels {chain_runs} a run, "
-                             f"expected {CHAIN_PER_RUN}")
+    if chain_runs != [PER_RUN] * 2:
+        raise AssertionError(f"the main path launched the Lab, extent, raster and chain kernels {chain_runs} a "
+                             f"run, expected {PER_RUN}")
 
     d = art.disp_full
     if not bool(torch.isfinite(d).all()):
@@ -683,13 +746,13 @@ def phase_slice(card: str):
     print(f"[3] runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
           f"peak {peak / 2**30:.3f} GiB; disp_init near GT {near:.4f}; launches: cost_volume {launches}, "
           f"consistency {cons} (gather engine), slic {slic_runs[0]} a run, smoothness {smooth_runs[0]} a run, "
-          f"raster and chain {chain_runs[0]} a run ({card})")
+          f"Lab, extent, raster and chain {chain_runs[0]} a run ({card})")
     stage_ms = timer.ms()
     print("[3] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in stage_ms.items()}))
     print(f"[3] eager slic stage {stage_ms['slic']:.3f} ms of {sum(stage_ms.values()):.3f} ms of stages ({card})")
     slic_launches = {k: sum(r[k] for r in slic_runs) for k in slic_per_run}
     refine_launches = {k: sum(r[k] for r in smooth_runs) for k in smooth_per_run}
-    refine_launches.update({k: sum(r[k] for r in chain_runs) for k in CHAIN_PER_RUN})
+    refine_launches.update({k: sum(r[k] for r in chain_runs) for k in PER_RUN})
     return launches, sum(cons), slic_launches, refine_launches, pipe, rgb_dev, art
 
 
@@ -710,16 +773,16 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
     times, timer, chain_runs = [], None, []
     for _ in range(2):
         timer = StageTimer()
-        _reset_chain()
+        _reset_counts()
         t0 = time.perf_counter()
         state, disp_full = strips_scene(pipe, rgb_dev, timer)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        chain_runs.append(_chain_counts())
+        chain_runs.append(_counts())
     launches = consistency.LAUNCHES
-    if chain_runs != [CHAIN_PER_RUN] * 2:
-        raise AssertionError(f"the strips path launched the raster and chain kernels {chain_runs} a run, "
-                             f"expected {CHAIN_PER_RUN}")
+    if chain_runs != [PER_RUN] * 2:
+        raise AssertionError(f"the strips path launched the Lab, extent, raster and chain kernels {chain_runs} a "
+                             f"run, expected {PER_RUN}")
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
         raise AssertionError("the strips path never launched the consistency kernel")
@@ -733,7 +796,7 @@ def phase_strips(card: str, pipe, rgb_dev, gather_d) -> int:
     mp_s = 9 * FULL_H * FULL_W / t / 1e6
     print(f"[3b] strips runs {[round(x, 4) for x in times]} s; best {t:.4f} s = {mp_s:.4f} MP/s; "
           f"peak {peak / 2**30:.3f} GiB; state.d vs gather (1e-3) {agree:.6f}; "
-          f"launches {launches}; raster and chain {chain_runs[0]} a run ({card})")
+          f"launches {launches}; Lab, extent, raster and chain {chain_runs[0]} a run ({card})")
     print("[3b] stage ms (last run): " + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}))
     prof = profiled(lambda: strips_scene(pipe, rgb_dev))
     by_name = prof.device_ops
@@ -1561,7 +1624,7 @@ def phase_stream(card: str, root: str, lst: str) -> dict:
           f"({card})")
     launches = dict(mvs_pipeline.REPLAYED_LAUNCHES)
     for name in ("cost_volume", "consistency", "slic_assign", "slic_update", "smooth_cache", "smooth_moves",
-                 *CHAIN_PER_RUN):
+                 *PER_RUN):
         if launches.get(name, 0) < 1:
             raise AssertionError(f"[8b-8d] no graph replay launched the {name} kernel")
 
@@ -1610,11 +1673,12 @@ def phase_tools(card: str, phase2: dict) -> dict:
     rec = json.loads(out[-1])
     launches = rec["launches"]
     # each replay launches the cost volume once, the consistency kernel at
-    # the init state and twice a sweep, and SLIC's assignment and update
+    # the init state and twice a sweep, SLIC's assignment and update, the
+    # smoothness kernels and PER_RUN's
     d = SystemSettings()
     per_run = {"cost_volume": 1, "consistency": 1 + 2 * d.no_prop, "slic_assign": d.no_iter + 1,
                "slic_update": d.no_iter, "slic_vote": 0, "smooth_cache": 1 + d.no_prop,
-               "smooth_moves": 1 + 2 * d.no_prop, **CHAIN_PER_RUN}
+               "smooth_moves": 1 + 2 * d.no_prop, **PER_RUN}
     if (rec["metric"] != "depth_mp_per_s" or len(rec["runs_s"]) != BENCH_RUNS or rec["card"] != card
             or any(launches[k] != BENCH_RUNS * n for k, n in per_run.items())):
         raise AssertionError(f"[9a] bench: {rec}")
@@ -1751,6 +1815,7 @@ def main() -> int:
     sl = phase_slic_vs_plain(card)
     sm = phase_smoothness_vs_plain(card)
     ch = phase_chain_vs_plain(card)
+    le = phase_lab_extent_vs_plain(card)
     _, cons_launches, slic_launches, refine_launches, pipe, rgb_dev, art = phase_slice(card)
     cons_launches += phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
@@ -1765,7 +1830,8 @@ def main() -> int:
         stream_launches = phase_stream(card, root, lst)
     phase_gloo_two_ranks(card)
     del pipe, rgb_dev, art  # phase 9's tools each want the whole card
-    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl, **sm, **ch})
+    bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl, **sm, **ch,
+                                        **le})
     phase_propagate_tools(card)
     # phase 8's graph replays and 9a's launch the cost volume and the
     # consistency kernel from the graph
@@ -1775,16 +1841,18 @@ def main() -> int:
     # SLIC: phase 3's runs, phase 8's replays and 9a's; the vote 5c's runs
     for name in ("slic_assign", "slic_update"):
         slic_launches[name] += stream_launches[name] + bench_launches[name]
-    # smoothness, raster and chain: phase 3's runs, phase 8's replays and 9a's
+    # smoothness, raster, chain, Lab and extent: phase 3's runs, phase 8's
+    # replays and 9a's
     for name in refine_launches:
         refine_launches[name] += stream_launches[name] + bench_launches[name]
 
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
     # library_ms: no single PyTorch call computes the first three functions,
     # SLIC's assignment and vote, the smoothness cache and scores, the
-    # rasterization or the chain; index_add_ computes the update's sums.
-    # SLIC's, smoothness's, raster's and chain's kernels replace XLA
-    # functions of the JAX package, not Pallas
+    # rasterization, the chain, the Lab conversion or the extent;
+    # index_add_ computes the update's sums.  SLIC's, smoothness's,
+    # raster's, chain's, Lab's and extent's kernels replace XLA functions of
+    # the JAX package, not Pallas
     rows = (
         ("cost_volume", "cost_volume", "cl_multiview_stereo_tpu/ops/cost_volume.py:46", cv_launches, cv),
         ("sweep", "sweep", "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", sw_launches, sw),
@@ -1808,6 +1876,10 @@ def main() -> int:
          ch["chain_update"]),
         ("chain_refit", "chain", "cl_multiview_stereo_tpu/ops/refine.py:1023", refine_launches["chain_refit"],
          ch["chain_refit"]),
+        ("lab_convert", "color", "cl_multiview_stereo_tpu/ops/color.py:46", refine_launches["lab_convert"],
+         le["lab_convert"]),
+        ("extent_walk", "extent", "cl_multiview_stereo_tpu/ops/superpixel.py:182", refine_launches["extent_walk"],
+         le["extent_walk"]),
     )
     if [r[0] for r in rows] != list(KERNELS):
         raise AssertionError("the kernels' record does not list every kernel")

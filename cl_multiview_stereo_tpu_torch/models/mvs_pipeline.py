@@ -31,6 +31,7 @@ from cl_multiview_stereo_tpu_torch import convert
 from cl_multiview_stereo_tpu_torch.device import device_table
 from cl_multiview_stereo_tpu_torch.ops import (
     chain,
+    color,
     consistency,
     cost_volume,
     fusion,
@@ -52,8 +53,8 @@ REPLAYED_LAUNCHES: dict[str, int] = {}
 
 def launch_counts() -> dict[str, int]:
     """Each hand kernel of ``run``: its launches so far, by name."""
-    return {"cost_volume": cost_volume.LAUNCHES, "consistency": consistency.LAUNCHES, **slic.LAUNCHES,
-            **smoothness.LAUNCHES, **raster.LAUNCHES, **chain.LAUNCHES}
+    return {**color.LAUNCHES, "cost_volume": cost_volume.LAUNCHES, "consistency": consistency.LAUNCHES,
+            **slic.LAUNCHES, **superpixel.LAUNCHES, **smoothness.LAUNCHES, **raster.LAUNCHES, **chain.LAUNCHES}
 
 
 class PipelineArtifacts(NamedTuple):

@@ -222,10 +222,21 @@ def kernel_launches() -> dict[str, int]:
 
 def reset_launches() -> None:
     from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import REPLAYED_LAUNCHES
-    from cl_multiview_stereo_tpu_torch.ops import chain, consistency, cost_volume, raster, slic, smoothness, sweep
+    from cl_multiview_stereo_tpu_torch.ops import (
+        chain,
+        color,
+        consistency,
+        cost_volume,
+        raster,
+        slic,
+        smoothness,
+        superpixel,
+        sweep,
+    )
 
     cost_volume.LAUNCHES = sweep.LAUNCHES = consistency.LAUNCHES = 0
-    for counts in (slic.LAUNCHES, smoothness.LAUNCHES, raster.LAUNCHES, chain.LAUNCHES):
+    for counts in (color.LAUNCHES, superpixel.LAUNCHES, slic.LAUNCHES, smoothness.LAUNCHES, raster.LAUNCHES,
+                   chain.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
     REPLAYED_LAUNCHES.clear()
 

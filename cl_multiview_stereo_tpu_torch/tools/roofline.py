@@ -8,9 +8,10 @@ Each kernel has one work function that counts (bytes, operations) from its
 real inputs: :func:`cost_volume_work`, :func:`sweep_work`,
 :func:`consistency_work`, for SLIC's three kernels :func:`slic_work`, and
 for smoothness's two :func:`smooth_cache_work` and :func:`smooth_moves_work`,
-for the plane rasterization :func:`raster_work` and for the move chain's
+for the plane rasterization :func:`raster_work`, for the move chain's
 three :func:`chain_moves_work`, :func:`chain_update_work` and
-:func:`chain_refit_work`.
+:func:`chain_refit_work`, and for the Lab conversion and the superpixel
+extent :func:`lab_work` and :func:`extent_work`.
 ``chip_smoke.py`` and this tool both use them, so a kernel's roofline
 share reads the same work whatever implements it.
 :func:`gather_work` counts the row gathers of ``tools.profile_propagate``'s
@@ -20,7 +21,7 @@ Usage:
 
   python -m cl_multiview_stereo_tpu_torch.tools.roofline \\
       [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote|smooth_cache|smooth_moves|
-                raster_planes|chain_moves|chain_update|chain_refit] \\
+                raster_planes|chain_moves|chain_update|chain_refit|lab_convert|extent_walk] \\
       [--shapes main|row] \\
       [--views 2 --height 480 --width 640 --d 64] [--device cuda|cpu]
 
@@ -29,7 +30,9 @@ Usage:
 sweep 0's two calls of the gather engine, the main path's launches; the
 SLIC kernels on the scene's converged labels and map; the smoothness kernels
 on sweep 0's cache and its two calls, the main path's launches; the raster
-and chain kernels on sweep 0's table, candidates and two accept walks).
+and chain kernels on sweep 0's table, candidates and two accept walks; the
+Lab conversion on the scene's uint8 views and the extent on its converged
+labels and map).
 ``--shapes row`` is the JAX tool's case: ``--views`` views in one row,
 ``--height`` x ``--width``, the ladder 4 .. 3 + ``--d``; the sweep there
 reads random Lab with each view against its right and left neighbour.  Without ``--shapes`` the sweep takes
@@ -83,13 +86,19 @@ SMOOTH_OPS_TAP, SMOOTH_OPS_RING, SMOOTH_OPS_TERM = 14, 2, 12
 # a refit normal 20 (two differences, the cross product's 9, the norm's 6,
 # three divides), the sqrt and each exp counted as one
 RASTER_OPS_PIXEL, CHAIN_OPS_MOVE, CHAIN_OPS_ACCEPT, CHAIN_OPS_GREEDY, CHAIN_OPS_REFIT = 8, 19, 3, 5, 20
+# the Lab conversion: a pixel costs 33 (3 scalings, the matrix's 9 products
+# and 6 adds, 3 white-point products, each f()'s compare and cube root, L's
+# 2, a's 2 and b's 2), each cube root counted as one; the extent walk does
+# no float arithmetic (integer bounds tests and label compares)
+LAB_OPS_PIXEL = 33
 # the bytes of one device memory sector, the unit a gather reads rows in
 SECTOR = 32
 # CUDA-event iterations of (kernel, plain twin) in each of the two turns
 ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1),
          "slic_assign": (20, 2), "slic_update": (20, 1), "slic_vote": (20, 2),
          "smooth_cache": (10, 1), "smooth_moves": (10, 1),
-         "raster_planes": (20, 2), "chain_moves": (20, 2), "chain_update": (20, 1), "chain_refit": (20, 2)}
+         "raster_planes": (20, 2), "chain_moves": (20, 2), "chain_update": (20, 1), "chain_refit": (20, 2),
+         "lab_convert": (20, 1), "extent_walk": (20, 1)}
 SLIC_KERNELS = ("slic_assign", "slic_update", "slic_vote")
 SMOOTH_KERNELS = ("smooth_cache", "smooth_moves")
 CHAIN_KERNELS = ("raster_planes", "chain_moves", "chain_update", "chain_refit")
@@ -316,6 +325,35 @@ def chain_refit_work(state, n_ref, ok_ref, sm1, cs1, greedy, out) -> tuple[int, 
     valid = int(ok_ref.sum())
     n_bytes = nbytes(ok_ref, state.sm, state.cs, state.n, out.sm, out.cs, out.n) + 8 * valid
     return n_bytes, (CHAIN_OPS_GREEDY if greedy else CHAIN_OPS_ACCEPT) * valid
+
+
+def lab_work(rgb, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``lab_convert`` launch on the image
+    ``rgb`` (..., 3) that wrote ``out``: ``rgb`` read once, ``out`` written
+    once; LAB_OPS_PIXEL a pixel."""
+    return nbytes(rgb, out), LAB_OPS_PIXEL * (rgb.numel() // 3)
+
+
+def extent_work(labels, centers, geom, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``extent_walk`` launch that wrote ``out``,
+    counted as this run's data needs: the labels on each superpixel's rays
+    that lie inside its view, in the distinct SECTOR-byte sectors of the
+    (contiguous int32) label map that hold them, each read once; the
+    centres read once, ``out`` written once.  No float arithmetic."""
+    from cl_multiview_stereo_tpu_torch.ops.superpixel import _DIRS, clamp_center
+
+    v, h, w = labels.shape
+    s = geom.spixl_size
+    cx, cy = clamp_center(centers[..., 0].to(torch.int64), centers[..., 1].to(torch.int64), w, h, s)
+    base = (torch.arange(v, dtype=torch.int64, device=labels.device) * h * w).reshape(v, 1, 1)
+    per_sector = SECTOR // 4
+    touched = torch.zeros(-(-v * h * w // per_sector), dtype=torch.bool, device=labels.device)
+    for i in range(1, s):
+        for dx, dy in _DIRS:
+            px, py = cx + i * dx, cy + i * dy
+            inb = (px >= 0) & (py >= 0) & (px < w) & (py < h)
+            touched[((base + py * w + px)[inb]) // per_sector] = True
+    return SECTOR * int(touched.sum()) + nbytes(centers, out), 0
 
 
 def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, int]:
@@ -584,8 +622,8 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
     a kernel of several launches (consistency: sweep 0's two) lists each."""
     from cl_multiview_stereo_tpu_torch.config import SystemSettings, build_disp_levels
     from cl_multiview_stereo_tpu_torch.models.plane_sweep import plane_sweep_reference, sweep_args
-    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, sweep
-    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+    from cl_multiview_stereo_tpu_torch.ops import consistency, cost_volume, superpixel, sweep
+    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab, rgb_to_lab_reference
     from cl_multiview_stereo_tpu_torch.testing.synthetic import fronto_parallel_scene
 
     if shapes == "main":
@@ -609,6 +647,17 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
         bl = 1.0
     else:
         rgb, _ = fronto_parallel_scene(h, w, s.array_width, s.array_height, disp=disp, bl_ratio=s.bl_ratio)
+    if kernel == "lab_convert":
+        x = torch.as_tensor(rgb, device=device)
+        label = f"{x.shape[0]}x{h}x{w} uint8"
+        return label, [(lambda: rgb_to_lab(x), lambda: rgb_to_lab_reference(x), lab_work(x, rgb_to_lab(x)))]
+    if kernel == "extent_walk":
+        _, geom, _, labels, spmap = slic_inputs(rgb, s, device)
+        ex = (labels, spmap.center, geom)
+        label = f"{labels.shape[0]}x{h}x{w} S{geom.spixl_size} -> {geom.map_h}x{geom.map_w} cells"
+        return label, [(lambda: superpixel.superpixel_extent(*ex),
+                        lambda: superpixel.superpixel_extent_reference(*ex),
+                        extent_work(*ex, superpixel.superpixel_extent(*ex)))]
     if kernel == "cost_volume":
         lab, centers, step = depth_inputs(rgb, s, device)
         levels = torch.as_tensor(build_disp_levels(s), device=device)

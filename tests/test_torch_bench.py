@@ -48,9 +48,10 @@ def test_bench_record_on_the_cpu(cell, capsys):
     }[rec["metric"]]
     assert rec["value"] == want
     # no kernel on the CPU
-    assert rec["launches"] == {"cost_volume": 0, "sweep": 0, "consistency": 0, "slic_assign": 0, "slic_update": 0,
-                               "slic_vote": 0, "smooth_cache": 0, "smooth_moves": 0, "raster_planes": 0,
-                               "chain_moves": 0, "chain_update": 0, "chain_refit": 0}
+    assert rec["launches"] == {"lab_convert": 0, "cost_volume": 0, "sweep": 0, "consistency": 0, "slic_assign": 0,
+                               "slic_update": 0, "slic_vote": 0, "extent_walk": 0, "smooth_cache": 0,
+                               "smooth_moves": 0, "raster_planes": 0, "chain_moves": 0, "chain_update": 0,
+                               "chain_refit": 0}
 
 
 def test_bench_slice_cell_equals_run(tmp_path):

@@ -26,6 +26,7 @@ from cl_multiview_stereo_tpu_torch.config import (
 from cl_multiview_stereo_tpu_torch.models import plane_sweep
 from cl_multiview_stereo_tpu_torch.ops import (
     chain,
+    color,
     consistency,
     cost_volume,
     fusion,
@@ -36,7 +37,7 @@ from cl_multiview_stereo_tpu_torch.ops import (
     superpixel,
     sweep,
 )
-from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab, rgb_to_lab_reference
 from cl_multiview_stereo_tpu_torch.testing import synthetic
 
 
@@ -1553,3 +1554,111 @@ def test_chain_and_raster_wrappers_reject_bad_input(cuda):
         raster.planes(ctx.labels[0], ctx.center, state.d, state.n)
     with pytest.raises(ValueError):
         raster.table(ctx.labels, ctx.center, torch.zeros((5, 3), device=cuda), state.d, state.n)
+
+
+# the Lab conversion (csrc/color.cu) and the extent walk (csrc/extent.cu)
+
+
+def _same_bits(got, want, tag=""):
+    """float32 tensors equal bit for bit; the first differences shown."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32, tag
+    bad = (got.view(torch.int32) != want.view(torch.int32)).nonzero()
+    if len(bad):
+        rows = [(tuple(i.tolist()), got[tuple(i)].item(), want[tuple(i)].item()) for i in bad[:8]]
+        raise AssertionError(f"{tag}: {len(bad)} of {got.numel()} differ; (index, kernel, plain): {rows}")
+
+
+def _lab_input(case, device):
+    """The image of a lab_convert case: every uint8 RGB triple once (a
+    4096x4096 image), the 9-view scene, floats in [0, 255], a strided view,
+    float64, or no pixel."""
+    if case == "every_triple":
+        code = torch.arange(2**24, dtype=torch.int32, device=device)
+        return torch.stack([code >> 16, (code >> 8) & 255, code & 255], dim=-1).to(torch.uint8).reshape(4096, 4096, 3)
+    rng = np.random.default_rng(3)
+    if case == "scene":
+        rgb, _ = synthetic.fronto_parallel_scene(270, 480, 3, 3, disp=7.0, bl_ratio=1.0359)
+        return torch.as_tensor(rgb, device=device)
+    if case == "float32":
+        return torch.as_tensor(rng.random((2, 61, 45, 3), dtype=np.float32) * 255, device=device)
+    if case == "strided":
+        rgb = torch.as_tensor(rng.integers(0, 256, (3, 40, 64, 3), dtype=np.uint8), device=device)
+        return rgb.permute(0, 2, 1, 3)[:, ::3]
+    if case == "float64":
+        return torch.as_tensor(rng.random((5, 7, 3)) * 255, device=device)
+    return torch.zeros((2, 0, 5, 3), dtype=torch.uint8, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["every_triple", "scene", "float32", "strided", "float64", "empty"])
+def test_lab_convert_bitwise(cuda, case):
+    """``lab_convert`` bitwise the plain form run on the card: every uint8
+    RGB triple, a float input, a non-contiguous view, a dtype the wrapper
+    casts; one launch a call, none for no pixel."""
+    rgb = _lab_input(case, cuda)
+    before = color.LAUNCHES["lab_convert"]
+    got = rgb_to_lab(rgb)
+    torch.cuda.synchronize()
+    assert color.LAUNCHES["lab_convert"] - before == (0 if case == "empty" else 1)
+    assert got.is_contiguous() and got.shape == rgb.shape
+    _same_bits(got, rgb_to_lab_reference(rgb), case)
+
+
+def _extent_inputs(case, device):
+    """(labels, centres, geometry) of an extent_walk case: SLIC's labels and
+    map on a 2x2 two-plane scene (the CPU parity test's shapes), on the
+    slice's 9-view 1080p scene, on a view narrower than 2 S, or that scene's
+    labels with centres off the view (negative, huge, inf, NaN)."""
+    if case == "full":
+        s, (h, w) = SystemSettings(), (1080, 1920)
+        rgb, _ = synthetic.fronto_parallel_scene(h, w, 3, 3, disp=40.0, bl_ratio=s.bl_ratio)
+    else:
+        s = SystemSettings(array_width=2, array_height=2, min_disp=2, max_disp=6, bl_ratio=1.0, no_prop=1)
+        h, w = {"narrow": (40, 12), "off_view": (48, 64)}.get(case, case)
+        rgb, _ = synthetic.two_plane_scene(h, w, array_width=2, array_height=2, disp_bg=3.0, disp_fg=5.0,
+                                           bl_ratio=1.0, seed=h)
+    geom = DerivedGeometry.create(w, h, s)
+    labels, spmap = slic.segment(rgb_to_lab(torch.as_tensor(rgb, device=device)), geom, SlicParams.create(s))
+    centers = spmap.center
+    if case == "off_view":
+        odd = torch.tensor([-3.7, -1e30, 1e30, 3e9, float("inf"), float("-inf"), float("nan"), w + 0.5],
+                           device=device)
+        centers = centers.clone()
+        centers.view(-1)[: 2 * len(odd):2] = odd
+        centers.view(-1)[1: 2 * len(odd):2] = odd.flip(0)
+    return labels, centers, geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(48, 64), (37, 53), (61, 45), "full", "narrow", "off_view"], ids=str)
+def test_extent_walk_bitwise(cuda, case):
+    """``extent_walk`` bitwise the plain walk on the card: SLIC's labels at
+    the CPU parity test's three shapes and the slice's, a view narrower
+    than 2 S (rays leave it even after the centre clamp), and centres off
+    the view; one launch a call."""
+    labels, centers, geom = _extent_inputs(case, cuda)
+    if case == "narrow":
+        assert labels.shape[2] < 2 * geom.spixl_size
+    before = superpixel.LAUNCHES["extent_walk"]
+    got = superpixel.superpixel_extent(labels, centers, geom)
+    torch.cuda.synchronize()
+    assert superpixel.LAUNCHES["extent_walk"] - before == 1
+    want = superpixel.superpixel_extent_reference(labels, centers, geom)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+    assert int(got.max()) > 0
+
+
+@pytest.mark.cuda
+def test_lab_and_extent_wrappers_reject_bad_input(cuda):
+    with pytest.raises(ValueError):
+        rgb_to_lab(torch.zeros((2, 4, 5, 4), dtype=torch.uint8, device=cuda))
+    labels, centers, geom = _extent_inputs((48, 64), cuda)
+    with pytest.raises(ValueError):
+        superpixel.superpixel_extent(labels[0], centers, geom)
+    with pytest.raises(TypeError):
+        superpixel.superpixel_extent(labels, centers.double(), geom)
+    with pytest.raises(ValueError):
+        superpixel.superpixel_extent(labels, centers[:, :-1], geom)
+    with pytest.raises(ValueError):
+        superpixel.superpixel_extent(labels, centers.cpu(), geom)
