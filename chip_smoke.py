@@ -11,7 +11,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with nvcc from this checkout, one nvcc each, all started together; print
    what ptxas reports, check that two cost-volume blocks and two sweep
    blocks fit on an SM and that the sweep, consistency, SLIC, smoothness,
-   raster, chain, Lab and extent kernels do not spill;
+   raster, chain, Lab and extent kernels do not spill; print the Lab
+   kernel's blocks an SM (uint8 and float32 input) and the extent
+   kernel's;
 2. kernels against their plain twins, on the same device tensors, with
    both times from CUDA events, in turns, beside each kernel's bound (the
    larger of its bytes over the card's memory rate and its f32 operations
@@ -38,13 +40,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the plane rasterization and the move chain's kernels, bitwise (NaN at
    the same places), on the main path's calls at 9x1080x1920
    (``tools.roofline.chain_calls``): ``raster_planes`` on the init's
-   table, sweep 0's and 4's tables and fusion's map, ``chain_moves`` on
-   sweep 0's (M = 8) and sweep 4's (M = 16) candidates, ``chain_update``
-   and ``chain_refit`` on those sweeps' accept walks, each against its
-   plain form; the Lab conversion (``lab_convert``) on the 9-view 1080p
-   scene and on every uint8 RGB triple once (a 4096x4096 image), and the
-   extent walk (``extent_walk``) on the scene's converged labels and map
-   (``tools.roofline.slic_inputs``), each bitwise its plain form;
+   table, sweeps 0-4's tables and fusion's map, ``chain_moves`` on
+   sweeps 0-4's candidates (M = 8 at sweep 0, 16 at sweep 4),
+   ``chain_update`` and ``chain_refit`` on those sweeps' accept walks,
+   each against its plain form, and ``chain_update``'s share of its
+   bound over the five sweeps; the Lab conversion (``lab_convert``) on
+   the 9-view 1080p scene and on every uint8 RGB triple once (a 4096x4096
+   image), and the extent walk (``extent_walk``) on the scene's converged
+   labels and map (``tools.roofline.slic_inputs``), each bitwise its plain
+   form, with each kernel's issue time (``tools.roofline.issue_ms`` from
+   ``tools.sass``'s instructions and the card's top SM clock) beside its
+   byte bound;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
@@ -204,6 +210,9 @@ KERNELS = ("cost_volume", "sweep", "consistency", "slic_assign", "slic_update", 
 # fusion's map
 PER_RUN = {"lab_convert": 1, "extent_walk": 1, "raster_planes": 1 + 5 + 1, "chain_moves": 5, "chain_update": 5,
            "chain_refit": 5}
+# the sweeps whose raster and chain calls phase 2 holds to their plain
+# forms (each from the initial state at that sweep's reach)
+SWEEPS = (0, 1, 2, 3, 4)
 # phase 8's scene B: the scene generator at another disparity and seed
 STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
 # phase 8's stream tool, seconds it may take
@@ -260,6 +269,24 @@ def phase_build() -> None:
         if rc != 0 or blocks.value < 2:
             raise AssertionError(f"{name}: {blocks.value} blocks per SM (CUDA error {rc}), expected >= 2")
         print(f"[1] {name}: {blocks.value} blocks per SM")
+    # the Lab kernel's persistent grid is this times the SMs; the extent
+    # kernel's block is a tile of cells, 8 threads a cell
+    fn = build.load("color").lab_convert_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    for is_float, dtype in enumerate(("uint8", "float32")):
+        blocks = ctypes.c_int(0)
+        rc = fn(is_float, ctypes.byref(blocks))
+        if rc != 0 or blocks.value < 1:
+            raise AssertionError(f"lab_convert ({dtype}): {blocks.value} blocks per SM (CUDA error {rc})")
+        print(f"[1] lab_convert ({dtype} in): {blocks.value} blocks of 256 threads per SM")
+    fn = build.load("extent").extent_walk_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)] * 3, ctypes.c_int
+    blocks, ty, tx = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(ctypes.byref(blocks), ctypes.byref(ty), ctypes.byref(tx))
+    if rc != 0 or blocks.value < 1:
+        raise AssertionError(f"extent_walk: {blocks.value} blocks per SM (CUDA error {rc})")
+    print(f"[1] extent_walk: {blocks.value} blocks of {ty.value} x {tx.value} cells ({8 * ty.value * tx.value} "
+          f"threads) per SM")
 
 
 def phase_kernel_vs_plain(card: str) -> dict:
@@ -588,18 +615,18 @@ def _counts() -> dict:
 def phase_chain_vs_plain(card: str) -> dict:
     """The plane rasterization and the move chain's kernels against their
     plain forms on the main path's calls at the slice's size
-    (``tools.roofline.chain_calls``): the init's table, sweep 0's and sweep
-    4's table, candidates and two accept walks, each sweep run from the
-    initial state, and fusion's map of that state; every output bitwise
-    (NaN at the same places).  Returns each kernel's record: its launch of
-    sweep 0."""
+    (``tools.roofline.chain_calls``): the init's table, sweeps 0-4's table,
+    candidates and two accept walks, each sweep run from the initial state,
+    and fusion's map of that state; every output bitwise (NaN at the same
+    places); then ``chain_update``'s five launches summed against their
+    bounds.  Returns each kernel's record: its launch of sweep 0."""
     import torch
 
     from cl_multiview_stereo_tpu_torch.tools.roofline import ITERS, _leaves, bound, chain_calls, chain_case, in_turns
 
     s, rgb = _scene(FULL_H, FULL_W)
     recs = {}
-    for tag, (wrapper, a, k) in chain_calls(s, rgb, "cuda", sweeps=(0, 4)).items():
+    for tag, (wrapper, a, k) in chain_calls(s, rgb, "cuda", sweeps=SWEEPS).items():
         kernel, kern, plain, work = chain_case(wrapper, a, k)
         got, want = _leaves(kern()), _leaves(plain())
         torch.cuda.synchronize()
@@ -618,6 +645,12 @@ def phase_chain_vs_plain(card: str) -> dict:
     print(f"[2] raster and chain per sweep 0 (table, candidates, two walks): kernels "
           f"{sum(r['ms'] for r in parts):.4f} ms, bound {sum(r['bound_ms'] for r in parts):.4g} ms, plain forms "
           f"{sum(r['plain_ms'] for r in parts):.3f} ms ({card})")
+    walk_ms = [recs[f"sweep {it} update"]["ms"] for it in SWEEPS]
+    walk_bound = [recs[f"sweep {it} update"]["bound_ms"] for it in SWEEPS]
+    print(f"[2] chain_update over sweeps {SWEEPS[0]}-{SWEEPS[-1]}: kernel {', '.join(f'{t:.4f}' for t in walk_ms)} "
+          f"ms, bound {', '.join(f'{t:.4f}' for t in walk_bound)} ms; the {len(SWEEPS)} launches "
+          f"{sum(walk_ms):.4f} ms against {sum(walk_bound):.4f} ms, share {sum(walk_bound) / sum(walk_ms):.3f} "
+          f"({card})")
     return {"raster_planes": recs["sweep 0 table"], "chain_moves": recs["sweep 0 candidates"],
             "chain_update": recs["sweep 0 update"], "chain_refit": recs["sweep 0 refit"]}
 
@@ -631,17 +664,51 @@ def _require_same_bits(tag: str, got, want) -> None:
     _require_equal(tag, got.view(torch.int32), want.view(torch.int32))
 
 
+def _instructions_per_item() -> dict:
+    """SASS instructions an item of the Lab and extent kernels, from
+    ``tools.sass`` (a fresh build of each source): for ``lab_convert`` a
+    pixel, the largest inner loop of ``lab_kernel<unsigned char>`` (the
+    element path's loop, one pixel a trip, every branch of its three powf
+    counted once); for ``extent_walk`` a ray (one thread), the whole
+    ``extent_kernel`` counted once (its walk loop runs S - 1 trips).
+    Static counts: a note beside the byte bound."""
+    from cl_multiview_stereo_tpu_torch.kernels import build
+    from cl_multiview_stereo_tpu_torch.tools import sass
+
+    lab = {r["kernel"]: r for r in sass.report("color", build.CSRC)}["lab_kernel<unsigned char>"]
+    ext = {r["kernel"]: r for r in sass.report("extent", build.CSRC)}["extent_kernel"]
+    return {"lab_convert": max(loop["instructions"] for loop in lab["inner_loops"]),
+            "extent_walk": ext["sass_instructions"]}
+
+
+def _max_sm_clock_ghz() -> float:
+    """The card's top SM clock, ``nvidia-smi --query-gpu=clocks.max.sm``."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) / 1e3
+
+
 def phase_lab_extent_vs_plain(card: str) -> dict:
     """The Lab conversion and the extent walk against their plain forms on
     the card: ``lab_convert`` on the slice's 9-view 1080p scene and on every
     uint8 RGB triple once, ``extent_walk`` on that scene's converged labels
     and map (``tools.roofline.slic_inputs``, the roofline tool's inputs
-    too); each bitwise.  Returns each kernel's record on the scene."""
+    too); each bitwise.  Beside each kernel's byte bound, its issue time
+    (``tools.roofline.issue_ms``) at the card's top SM clock.  Returns each
+    kernel's record on the scene."""
     import torch
 
     from cl_multiview_stereo_tpu_torch.ops import superpixel
     from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab, rgb_to_lab_reference
-    from cl_multiview_stereo_tpu_torch.tools.roofline import ITERS, bound, extent_work, in_turns, lab_work, slic_inputs
+    from cl_multiview_stereo_tpu_torch.tools.roofline import (
+        ITERS,
+        bound,
+        extent_work,
+        in_turns,
+        issue_ms,
+        lab_work,
+        slic_inputs,
+    )
 
     s, rgb = _scene(FULL_H, FULL_W)
     x = torch.as_tensor(rgb, device="cuda")
@@ -659,6 +726,8 @@ def phase_lab_extent_vs_plain(card: str) -> dict:
                         lambda: superpixel.superpixel_extent(*ex), lambda: superpixel.superpixel_extent_reference(*ex),
                         lambda out: extent_work(*ex, out)),
     }
+    per_item, ghz = _instructions_per_item(), _max_sm_clock_ghz()
+    items = {"lab_convert": x.numel() // 3, "extent_walk": 8 * spmap.center.numel() // 2}
     recs = {}
     for name, (label, kern, plain, work) in cases.items():
         got, want = kern(), plain()
@@ -669,8 +738,10 @@ def phase_lab_extent_vs_plain(card: str) -> dict:
             _require_equal(f"[2] {name} {label}", got, want)
         k_ms, p_ms = in_turns(kern, plain, *ITERS[name])
         b_ms, by = bound(*work(got))
+        i_ms = issue_ms(per_item[name], items[name], ghz)
         print(f"[2] {name} {label}: bitwise; kernel {k_ms:.4f} ms, bound {b_ms:.4g} ms ({by}), plain "
-              f"{p_ms:.3f} ms ({card})")
+              f"{p_ms:.3f} ms; issue {i_ms:.4f} ms ({per_item[name]} SASS instructions a "
+              f"{'pixel' if name == 'lab_convert' else 'ray'} x {items[name]} at {ghz:.3f} GHz, a note) ({card})")
         recs[name] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
         del got, want
     return recs
@@ -1878,7 +1949,7 @@ def main() -> int:
          ch["chain_refit"]),
         ("lab_convert", "color", "cl_multiview_stereo_tpu/ops/color.py:46", refine_launches["lab_convert"],
          le["lab_convert"]),
-        ("extent_walk", "extent", "cl_multiview_stereo_tpu/ops/superpixel.py:182", refine_launches["extent_walk"],
+        ("extent_walk", "extent", "cl_multiview_stereo_tpu/ops/superpixel.py:111", refine_launches["extent_walk"],
          le["extent_walk"]),
     )
     if [r[0] for r in rows] != list(KERNELS):

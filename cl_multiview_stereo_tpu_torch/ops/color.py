@@ -5,8 +5,8 @@ scaled by the reference's ``0.0039216``, no sRGB linearization on the live
 path.
 
 :func:`rgb_to_lab` routes by the device of its input (:func:`route`): on a
-CUDA tensor it launches ``lab_convert`` (``csrc/color.cu``, one thread a
-pixel) or raises, on a CPU tensor it runs the plain form
+CUDA tensor it launches ``lab_convert`` (``csrc/color.cu``: tiles of
+pixels staged through shared memory) or raises, on a CPU tensor it runs the plain form
 :func:`rgb_to_lab_reference`; any other device raises.  Nothing falls back
 from one to the other.  The kernel repeats the op sequence that the plain
 form runs on the card, so it is bitwise that.

@@ -9,7 +9,8 @@ to this walk.
 
 :func:`superpixel_extent` routes by the device of the labels
 (:func:`route`): on a CUDA tensor it launches ``extent_walk``
-(``csrc/extent.cu``, one thread a superpixel) or raises, on a CPU tensor
+(``csrc/extent.cu``: a tile of superpixels a block, a thread a ray) or
+raises, on a CPU tensor
 it runs the plain form :func:`superpixel_extent_reference`; any other
 device raises.  Nothing falls back from one to the other.  The extent is
 integer, so the kernel is bitwise the plain form.

@@ -93,6 +93,9 @@ RASTER_OPS_PIXEL, CHAIN_OPS_MOVE, CHAIN_OPS_ACCEPT, CHAIN_OPS_GREEDY, CHAIN_OPS_
 LAB_OPS_PIXEL = 33
 # the bytes of one device memory sector, the unit a gather reads rows in
 SECTOR = 32
+# the card's SMs, warp schedulers an SM (each issues one warp instruction a
+# clock) and lanes a warp (H100 SXM), for issue_ms
+SMS, SCHEDULERS, WARP = 132, 4, 32
 # CUDA-event iterations of (kernel, plain twin) in each of the two turns
 ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1),
          "slic_assign": (20, 2), "slic_update": (20, 1), "slic_vote": (20, 2),
@@ -114,6 +117,15 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     the bytes over the memory rate and the operations over the f32 peak."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_F32_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def issue_ms(instructions_per_item: float, items: int, clock_ghz: float) -> float:
+    """The least ms the card takes to issue ``items`` items' SASS
+    instructions, ``instructions_per_item`` on the lane that runs each item
+    (32 items a warp instruction), at one warp instruction a clock on each
+    of SMS x SCHEDULERS schedulers at ``clock_ghz``.  A note beside
+    :func:`bound`, which it does not change."""
+    return instructions_per_item * items / WARP / (SMS * SCHEDULERS * clock_ghz * 1e9) * 1e3
 
 
 def nbytes(*tensors) -> int:

@@ -40,11 +40,17 @@ _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(\S[^;]*);")
 _BRANCH = re.compile(r"^BRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)")
 
 
+# Itanium codes of the builtin types a kernel template takes
+_TYPE_CODES = {"h": "unsigned char", "f": "float", "i": "int", "j": "unsigned int", "d": "double"}
+
+
 def short_name(sym: str) -> str:
-    """The innermost identifier of an Itanium-mangled symbol, with a bool
-    template argument spelled out (``_ZN12_GLOBAL__N_113assign_kernelE...``
-    -> ``assign_kernel``; ``..._118consistency_kernelILb1EEEv...`` ->
-    ``consistency_kernel<true>``); an unmangled symbol as it is."""
+    """The innermost identifier of an Itanium-mangled symbol, with a bool or
+    builtin type template argument spelled out
+    (``_ZN12_GLOBAL__N_113assign_kernelE...`` -> ``assign_kernel``;
+    ``..._118consistency_kernelILb1EEEv...`` -> ``consistency_kernel<true>``;
+    ``..._110lab_kernelIhEEv...`` -> ``lab_kernel<unsigned char>``); an
+    unmangled symbol as it is."""
     if not sym.startswith("_Z"):
         return sym
     i = 3 if sym.startswith("_ZN") else 2
@@ -57,6 +63,8 @@ def short_name(sym: str) -> str:
         name, i = sym[j:j + n], j + n
     if sym.startswith("ILb", i) and sym[i + 3] in "01":
         name += "<true>" if sym[i + 3] == "1" else "<false>"
+    elif sym.startswith("I", i) and sym[i + 1:i + 2] in _TYPE_CODES and sym.startswith("E", i + 2):
+        name += f"<{_TYPE_CODES[sym[i + 1]]}>"
     return name
 
 

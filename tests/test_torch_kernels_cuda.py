@@ -1568,14 +1568,43 @@ def _same_bits(got, want, tag=""):
         raise AssertionError(f"{tag}: {len(bad)} of {got.numel()} differ; (index, kernel, plain): {rows}")
 
 
+def _lab_grid(is_float: bool) -> int:
+    """The most blocks of a ``lab_convert`` launch: its blocks per SM
+    (``lab_convert_blocks_per_sm``) times the SMs."""
+    import ctypes
+
+    from cl_multiview_stereo_tpu_torch.kernels import build
+
+    fn = build.load("color").lab_convert_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    blocks = ctypes.c_int(0)
+    assert fn(int(is_float), ctypes.byref(blocks)) == 0 and blocks.value >= 1
+    return blocks.value * torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _lab_input(case, device):
     """The image of a lab_convert case: every uint8 RGB triple once (a
     4096x4096 image), the 9-view scene, floats in [0, 255], a strided view,
-    float64, or no pixel."""
+    float64, no pixel, a contiguous view whose base sits 1 byte (uint8) or
+    4 bytes (float32) past a 16-byte boundary, 1, 1,023 and 1,025 pixels
+    (no whole 1,024-pixel tile, less than one, one and a pixel), or more
+    whole tiles than the launch has blocks."""
     if case == "every_triple":
         code = torch.arange(2**24, dtype=torch.int32, device=device)
         return torch.stack([code >> 16, (code >> 8) & 255, code & 255], dim=-1).to(torch.uint8).reshape(4096, 4096, 3)
     rng = np.random.default_rng(3)
+    if case in ("offset_uint8", "offset_float32"):
+        n = 2 * 61 * 45 * 3 + 7 * 1024 * 3
+        flat = rng.integers(0, 256, n + 1).astype(np.uint8 if case == "offset_uint8" else np.float32)
+        rgb = torch.as_tensor(flat, device=device)[1:].view(-1, 3)
+        assert rgb.is_contiguous() and rgb.data_ptr() % 16 == rgb.element_size()
+        return rgb
+    if case.startswith("pixels_"):
+        return torch.as_tensor(rng.integers(0, 256, (int(case[7:]), 3), dtype=np.uint8), device=device)
+    if case == "more_tiles":
+        rgb = torch.as_tensor(rng.integers(0, 256, (2, 1000, 1000, 3), dtype=np.uint8), device=device)
+        assert rgb.numel() // 3 // 1024 > _lab_grid(False)
+        return rgb
     if case == "scene":
         rgb, _ = synthetic.fronto_parallel_scene(270, 480, 3, 3, disp=7.0, bl_ratio=1.0359)
         return torch.as_tensor(rgb, device=device)
@@ -1590,11 +1619,13 @@ def _lab_input(case, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["every_triple", "scene", "float32", "strided", "float64", "empty"])
+@pytest.mark.parametrize("case", ["every_triple", "scene", "float32", "strided", "float64", "empty", "offset_uint8",
+                                  "offset_float32", "pixels_1", "pixels_1023", "pixels_1025", "more_tiles"])
 def test_lab_convert_bitwise(cuda, case):
     """``lab_convert`` bitwise the plain form run on the card: every uint8
     RGB triple, a float input, a non-contiguous view, a dtype the wrapper
-    casts; one launch a call, none for no pixel."""
+    casts, bases off 16-byte alignment, ragged tiles and more tiles than
+    blocks; one launch a call, none for no pixel."""
     rgb = _lab_input(case, cuda)
     before = color.LAUNCHES["lab_convert"]
     got = rgb_to_lab(rgb)
@@ -1606,15 +1637,21 @@ def test_lab_convert_bitwise(cuda, case):
 
 def _extent_inputs(case, device):
     """(labels, centres, geometry) of an extent_walk case: SLIC's labels and
-    map on a 2x2 two-plane scene (the CPU parity test's shapes), on the
-    slice's 9-view 1080p scene, on a view narrower than 2 S, or that scene's
-    labels with centres off the view (negative, huge, inf, NaN)."""
+    map on a 2x2 two-plane scene (the CPU parity test's shapes, and a width
+    of 70, not a multiple of 4), on the slice's 9-view 1080p scene, on a
+    view narrower than 2 S, or that scene's labels with centres off the
+    view (negative, huge, inf, NaN); at S = 4 and S = 16; labels whose base
+    sits 4 bytes past a 16-byte boundary; or centres of one cell a view
+    moved 100 rows down, 12 cells from its tile's other cells."""
     if case == "full":
         s, (h, w) = SystemSettings(), (1080, 1920)
         rgb, _ = synthetic.fronto_parallel_scene(h, w, 3, 3, disp=40.0, bl_ratio=s.bl_ratio)
     else:
-        s = SystemSettings(array_width=2, array_height=2, min_disp=2, max_disp=6, bl_ratio=1.0, no_prop=1)
-        h, w = {"narrow": (40, 12), "off_view": (48, 64)}.get(case, case)
+        spixl = {"S4": 4, "S16": 16}.get(case, 8)
+        s = SystemSettings(array_width=2, array_height=2, min_disp=2, max_disp=6, bl_ratio=1.0, no_prop=1,
+                           spixl_size=spixl)
+        h, w = {"narrow": (40, 12), "off_view": (48, 64), "S4": (48, 64), "S16": (96, 128), "offset": (48, 64),
+                "moved": (192, 128)}.get(case, case)
         rgb, _ = synthetic.two_plane_scene(h, w, array_width=2, array_height=2, disp_bg=3.0, disp_fg=5.0,
                                            bl_ratio=1.0, seed=h)
     geom = DerivedGeometry.create(w, h, s)
@@ -1626,16 +1663,27 @@ def _extent_inputs(case, device):
         centers = centers.clone()
         centers.view(-1)[: 2 * len(odd):2] = odd
         centers.view(-1)[1: 2 * len(odd):2] = odd.flip(0)
+    if case == "offset":
+        flat = torch.empty(labels.numel() + 1, dtype=labels.dtype, device=device)
+        flat[1:] = labels.reshape(-1)
+        labels = flat[1:].view(labels.shape)
+        assert labels.is_contiguous() and labels.data_ptr() % 16 == 4
+    if case == "moved":
+        centers = centers.clone()
+        centers[:, 0, 0, 1] += 100.0
     return labels, centers, geom
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [(48, 64), (37, 53), (61, 45), "full", "narrow", "off_view"], ids=str)
+@pytest.mark.parametrize("case", [(48, 64), (37, 53), (61, 45), "full", "narrow", "off_view", (45, 70), "S4", "S16",
+                                  "offset", "moved"], ids=str)
 def test_extent_walk_bitwise(cuda, case):
     """``extent_walk`` bitwise the plain walk on the card: SLIC's labels at
     the CPU parity test's three shapes and the slice's, a view narrower
-    than 2 S (rays leave it even after the centre clamp), and centres off
-    the view; one launch a call."""
+    than 2 S (rays leave it even after the centre clamp), centres off the
+    view, a width not a multiple of 4, S = 4 and 16, a label base off
+    16-byte alignment, and a centre far from its tile's other cells; one
+    launch a call."""
     labels, centers, geom = _extent_inputs(case, cuda)
     if case == "narrow":
         assert labels.shape[2] < 2 * geom.spixl_size

@@ -5,7 +5,7 @@ device raises), the ctypes bindings against the C entries of
 ``csrc/color.cu`` and ``csrc/extent.cu``, what the wrappers hand those
 entries (the launch itself replaced), the plain forms against the code
 they were before the kernels (a frozen copy below), and
-``tools.roofline``'s work counts for the two kernels.  No JAX: the plain
+``tools.roofline``'s work counts for the two kernels and its issue time.  No JAX: the plain
 forms are held to JAX by test_torch_color.py and test_torch_superpixel.py;
 the kernels against the plain forms are in test_torch_kernels_cuda.py.
 """
@@ -213,6 +213,20 @@ def test_extent_wrapper_passes_the_c_entrys_arguments(geom, monkeypatch, case):
         superpixel._extent_kernel(labels, centers.double(), geom)
     with pytest.raises(ValueError):
         superpixel._extent_kernel(labels, centers[:, :, :2], geom)
+
+
+@pytest.mark.parametrize("instructions, items, ghz", [(140, 18_662_400, 1.98), (64, 2_332_800, 1.755), (1, 32, 1.0)])
+def test_issue_ms_hand_count(instructions, items, ghz):
+    """Issue time: items x instructions lane-instructions, 32 a warp
+    instruction, one warp instruction a clock on each of 132 x 4
+    schedulers.  At 140 instructions a pixel on the 9x1080x1920 scene and
+    1.98 GHz: 81.6 M warp instructions over 1,045 G a second."""
+    warp_instructions = instructions * items / 32
+    want = warp_instructions / (132 * 4 * ghz * 1e9) * 1e3
+    assert roofline.issue_ms(instructions, items, ghz) == pytest.approx(want, rel=1e-12)
+    if items == 18_662_400:
+        assert warp_instructions == 81_648_000
+        assert roofline.issue_ms(instructions, items, ghz) == pytest.approx(0.0781, abs=1e-4)
 
 
 def test_lab_work_hand_count():

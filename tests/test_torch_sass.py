@@ -53,6 +53,8 @@ compile_size = 64bit
     (GATHER, "consistency_kernel<true>"),
     ("_ZN12_GLOBAL__N_118consistency_kernelILb0EEEvPKf", "consistency_kernel<false>"),
     ("vote_kernel", "vote_kernel"),
+    ("_ZN40_GLOBAL__N__8f2e47ec_8_color_cu_30fcb7b710lab_kernelIhEEvPKT_Pfii", "lab_kernel<unsigned char>"),
+    ("_ZN40_GLOBAL__N__8f2e47ec_8_color_cu_30fcb7b710lab_kernelIfEEvPKT_Pfii", "lab_kernel<float>"),
 ])
 def test_short_name(sym, want):
     assert sass.short_name(sym) == want
