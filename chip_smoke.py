@@ -43,9 +43,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    table, sweeps 0-4's tables and fusion's map, ``chain_moves`` on
    sweeps 0-4's candidates (M = 8 at sweep 0, 16 at sweep 4),
    ``chain_update`` and ``chain_refit`` on those sweeps' accept walks,
-   each against its plain form, and ``chain_update``'s share of its
-   bound over the five sweeps; the Lab conversion (``lab_convert``) on
-   the 9-view 1080p scene and on every uint8 RGB triple once (a 4096x4096
+   each against its plain form, ``chain_update``'s share of its bound
+   over the five sweeps and fusion's map's share of its own (the
+   ``raster_planes`` record's ``map_ms`` and ``map_bound_ms``); the Lab
+   conversion (``lab_convert``) on the 9-view 1080p scene and on every
+   uint8 RGB triple once (a 4096x4096
    image), and the extent walk (``extent_walk``) on the scene's converged
    labels and map (``tools.roofline.slic_inputs``), each bitwise its plain
    form, with each kernel's issue time (``tools.roofline.issue_ms`` from
@@ -651,8 +653,13 @@ def phase_chain_vs_plain(card: str) -> dict:
           f"ms, bound {', '.join(f'{t:.4f}' for t in walk_bound)} ms; the {len(SWEEPS)} launches "
           f"{sum(walk_ms):.4f} ms against {sum(walk_bound):.4f} ms, share {sum(walk_bound) / sum(walk_ms):.3f} "
           f"({card})")
-    return {"raster_planes": recs["sweep 0 table"], "chain_moves": recs["sweep 0 candidates"],
-            "chain_update": recs["sweep 0 update"], "chain_refit": recs["sweep 0 refit"]}
+    fmap = recs["fusion map"]
+    tables = ", ".join(f"{recs[f'sweep {it} table']['ms']:.4f}" for it in SWEEPS)
+    print(f"[2] raster_planes, fusion map: kernel {fmap['ms']:.4f} ms against {fmap['bound_ms']:.4f} ms, share "
+          f"{fmap['bound_ms'] / fmap['ms']:.3f}; sweeps {SWEEPS[0]}-{SWEEPS[-1]}'s tables {tables} ms ({card})")
+    return {"raster_planes": dict(recs["sweep 0 table"], map_ms=fmap["ms"], map_bound_ms=fmap["bound_ms"]),
+            "chain_moves": recs["sweep 0 candidates"], "chain_update": recs["sweep 0 update"],
+            "chain_refit": recs["sweep 0 refit"]}
 
 
 def _require_same_bits(tag: str, got, want) -> None:
@@ -1958,7 +1965,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src(source), "replaces": replaces,
          "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r.get("library_ms")}
+         "library_ms": r.get("library_ms"), **{k: r[k] for k in ("map_ms", "map_bound_ms") if k in r}}
         for name, source, replaces, launches, r in rows
     ]}
     print(card)

@@ -22,7 +22,7 @@ Usage:
   python -m cl_multiview_stereo_tpu_torch.tools.roofline \\
       [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote|smooth_cache|smooth_moves|
                 raster_planes|chain_moves|chain_update|chain_refit|lab_convert|extent_walk] \\
-      [--shapes main|row] \\
+      [--shapes main|row] [--calls sweep0|path] [--csrc DIR] \\
       [--views 2 --height 480 --width 640 --d 64] [--device cuda|cpu]
 
 ``--shapes main`` is the slice's scene: 9 views of 1080x1920 at
@@ -37,13 +37,22 @@ labels and map).
 ``--height`` x ``--width``, the ladder 4 .. 3 + ``--d``; the sweep there
 reads random Lab with each view against its right and left neighbour.  Without ``--shapes`` the sweep takes
 ``row`` (2x480x640, D = 64: BASELINE config 1) and the others ``main``.
+``--calls path`` takes the raster and chain kernels on every call of the
+main path instead of sweep 0's: ``raster_planes`` on the init's table,
+sweeps 0-4's tables and fusion's map (7 launches), each chain kernel on
+sweeps 0-4 (5), each sweep run from the initial state.  ``--csrc DIR``
+builds every kernel from the sources in DIR (e.g. an unpacked parent
+commit's ``cl_multiview_stereo_tpu_torch/csrc``, whose C entries must be
+this tree's), so two kernels' versions are timed on the same calls.
 
 Each kernel and its plain twin run once, then their times are taken with
 CUDA events in turns (kernel, plain, kernel, plain).  Prints one JSON line
 per kernel: ``kernel``, ``shape``, ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``share`` (= bound_ms / ms) and ``card`` (nvidia-smi's name
-and power limit).  With ``--device cpu`` nothing is timed: ``ms``,
-``plain_ms`` and ``share`` read "not measured" and ``card`` "cpu".
+and power limit), the sums over the kernel's launches, and ``calls``: each
+launch's ``call``, ``ms``, ``plain_ms`` and ``bound_ms``.  With ``--device
+cpu`` nothing is timed: ``ms``, ``plain_ms`` and ``share`` read "not
+measured" and ``card`` "cpu".
 """
 
 from __future__ import annotations
@@ -695,13 +704,19 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
             for _, a, k, _ in calls)
         return label, [smooth_case(*c) for c in calls]
     if kernel in CHAIN_KERNELS:
-        wrapper = next(w for w, spec in CHAIN_WRAPPERS.items() if spec[2] == kernel and w != "planes")
-        (_, a, k), = [c for name, c in chain_calls(s, rgb, device).items() if name == f"sweep 0 {wrapper}"]
-        _, kern, plain, work = chain_case(wrapper, a, k)
+        sweeps = tuple(range(s.no_prop)) if args.calls == "path" else (0,)
+        calls = {name: c for name, c in chain_calls(s, rgb, device, sweeps=sweeps).items()
+                 if CHAIN_WRAPPERS[c[0]][2] == kernel and (args.calls == "path" or name.startswith("sweep 0"))}
+        cases = []
+        for name, (wrapper, a, k) in calls.items():
+            _, kern, plain, work = chain_case(wrapper, a, k)
+            cases.append((kern, plain, work, name))
+        wrapper, a, _ = next(iter(calls.values()))
         # the table's labels, else the cells' state
         shape = a[0].shape if wrapper == "table" else (a[0] if wrapper == "refit" else a[1]).d.shape
-        label = f"sweep 0's launch, {wrapper} of {tuple(shape)}"
-        return label, [(kern, plain, work)]
+        label = f"{'the main path' if args.calls == 'path' else 'sweep 0'}'s launches: {', '.join(calls)} " \
+                f"({wrapper} of {tuple(shape)})"
+        return label, cases
     calls = [c for name, c in refine_calls(s, rgb, device).items() if name != "init"]
     label = "sweep 0's launches " + ", ".join(str(tuple(a[2].shape)) for a, _ in calls)
     return label, [(lambda a=a, k=k: consistency.consistency_moves(*a, **k),
@@ -710,22 +725,28 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
 
 
 def measure(kernel: str, shapes: str, args, device, card: str) -> dict:
-    """One kernel's record: its launches' summed ms, plain ms and bound."""
+    """One kernel's record: its launches' summed ms, plain ms and bound,
+    and each launch's."""
     label, launches = _cases(kernel, shapes, args, device)
     k_iters, p_iters = ITERS[kernel]
     ms = plain_ms = bound_ms = 0.0
     bound_by = ""
-    for kern, plain, work in launches:
+    calls = []
+    for i, (kern, plain, work, *name) in enumerate(launches):
         b, bound_by = bound(*work)
         bound_ms += b
+        call = {"call": name[0] if name else f"launch {i}", "ms": NOT_MEASURED, "plain_ms": NOT_MEASURED,
+                "bound_ms": b}
         if device.type == "cuda":
             kern()
             plain()
             k, p = in_turns(kern, plain, k_iters, p_iters)
             ms += k
             plain_ms += p
+            call.update(ms=k, plain_ms=p)
+        calls.append(call)
     rec = {"kernel": kernel, "shape": label, "ms": NOT_MEASURED, "plain_ms": NOT_MEASURED,
-           "bound_ms": bound_ms, "bound_by": bound_by, "share": NOT_MEASURED, "card": card}
+           "bound_ms": bound_ms, "bound_by": bound_by, "share": NOT_MEASURED, "card": card, "calls": calls}
     if device.type == "cuda":
         rec.update(ms=ms, plain_ms=plain_ms, share=bound_ms / ms)
     return rec
@@ -741,6 +762,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--d", type=int, default=64, help="hypotheses of the row case")
+    ap.add_argument("--calls", choices=("sweep0", "path"), default="sweep0",
+                    help="the raster and chain kernels on sweep 0's calls, or on every call of the main path")
+    ap.add_argument("--csrc", help="build the kernels from this directory's sources")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu (counts only)")
     return ap
@@ -752,6 +776,14 @@ def main(argv: list[str] | None = None) -> list[dict]:
     from cl_multiview_stereo_tpu_torch.cli import resolve_device
     from cl_multiview_stereo_tpu_torch.device import card_name
 
+    if args.csrc:
+        from pathlib import Path
+
+        from cl_multiview_stereo_tpu_torch.kernels import build
+
+        build.CSRC = Path(args.csrc).resolve()
+        if not any(build.CSRC.glob("*.cu")):
+            raise SystemExit(f"roofline: no kernel sources in {build.CSRC}")
     dev = resolve_device(args.device)
     card = card_name() if dev.type == "cuda" else "cpu"
     recs = []

@@ -44,13 +44,19 @@ _BRANCH = re.compile(r"^BRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)")
 _TYPE_CODES = {"h": "unsigned char", "f": "float", "i": "int", "j": "unsigned int", "d": "double"}
 
 
+# an integer or bool template argument: L, its type's code, its value, E
+_LITERAL = re.compile(r"L([bij])(n?\d+)E")
+
+
 def short_name(sym: str) -> str:
-    """The innermost identifier of an Itanium-mangled symbol, with a bool or
-    builtin type template argument spelled out
+    """The innermost identifier of an Itanium-mangled symbol, with its
+    template arguments spelled out where each is a builtin type or an
+    integer or bool value
     (``_ZN12_GLOBAL__N_113assign_kernelE...`` -> ``assign_kernel``;
     ``..._118consistency_kernelILb1EEEv...`` -> ``consistency_kernel<true>``;
-    ``..._110lab_kernelIhEEv...`` -> ``lab_kernel<unsigned char>``); an
-    unmangled symbol as it is."""
+    ``..._110lab_kernelIhEEv...`` -> ``lab_kernel<unsigned char>``;
+    ``..._113raster_kernelILi4ELi4ELb0EEEv...`` -> ``raster_kernel<4, 4,
+    false>``); an unmangled symbol as it is."""
     if not sym.startswith("_Z"):
         return sym
     i = 3 if sym.startswith("_ZN") else 2
@@ -61,11 +67,21 @@ def short_name(sym: str) -> str:
             j += 1
         n = int(sym[i:j])
         name, i = sym[j:j + n], j + n
-    if sym.startswith("ILb", i) and sym[i + 3] in "01":
-        name += "<true>" if sym[i + 3] == "1" else "<false>"
-    elif sym.startswith("I", i) and sym[i + 1:i + 2] in _TYPE_CODES and sym.startswith("E", i + 2):
-        name += f"<{_TYPE_CODES[sym[i + 1]]}>"
-    return name
+    if not sym.startswith("I", i):
+        return name
+    args, i = [], i + 1
+    while not sym.startswith("E", i):
+        if m := _LITERAL.match(sym, i):
+            kind, value = m.groups()
+            value = value.replace("n", "-")
+            args.append(("true" if value == "1" else "false") if kind == "b" else value)
+            i = m.end()
+        elif sym[i:i + 1] in _TYPE_CODES:
+            args.append(_TYPE_CODES[sym[i]])
+            i += 1
+        else:
+            return name
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_report(log: str) -> dict[str, dict]:

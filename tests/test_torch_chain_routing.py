@@ -305,7 +305,7 @@ def test_ctypes_signature_matches_the_c_entry(name):
     assert _c_entries(source, f"{source}_")[name] == ["ptr"] * ptrs + ["int"] * ints + ["float"] * floats + ["stream"]
 
 
-@pytest.mark.parametrize("case", ["table", "table_band", "planes", "planes_empty"])
+@pytest.mark.parametrize("case", ["table", "table_band", "planes", "planes_band", "planes_empty"])
 def test_raster_wrapper_passes_the_c_entrys_arguments(scene, monkeypatch, case):
     """What the card's wrapper hands ``raster_planes_launch``, the launch
     itself replaced (CPU tensors): the colour pointer for the table and
@@ -315,16 +315,17 @@ def test_raster_wrapper_passes_the_c_entrys_arguments(scene, monkeypatch, case):
     monkeypatch.setattr(raster, "_launch", lambda name, dev, *a: calls.append((name, a)))
     x, ctx = scene["x"], scene["ctx"]
     d, nrm = t(x["d"]), t(x["n"])
-    labels = ctx.labels[:, 8:24] if case == "table_band" else ctx.labels
+    band = case.endswith("_band")
+    labels = ctx.labels[:, 8:24] if band else ctx.labels
     if case == "planes_empty":
         labels = ctx.labels[:, :0]
-    rows, row0 = labels.shape[1], 8 if case == "table_band" else 0
+    rows, row0 = labels.shape[1], 8 if band else 0
     if case.startswith("table"):
         color = fusion.gather_cells(labels, ctx.color).reshape(-1, 3)
         out = raster._raster(labels, ctx.center, d, nrm, color, row0)
         assert out.shape == (V * rows * W, 4)
     else:
-        out = raster._raster(labels, ctx.center, d, nrm, None, 0)
+        out = raster._raster(labels, ctx.center, d, nrm, None, row0)
         assert out.shape == (V, rows, W)
     if case == "planes_empty":
         assert calls == []
@@ -332,7 +333,7 @@ def test_raster_wrapper_passes_the_c_entrys_arguments(scene, monkeypatch, case):
     (name, args), = calls
     assert name == "raster_planes" and len(args) == sum(raster._ENTRIES[name])
     assert args[-5:] == (V, MH * MW, rows, W, row0) and args[5] == out.data_ptr()
-    assert (args[4] is None) == (case == "planes")
+    assert (args[4] is None) == case.startswith("planes")
 
 
 @pytest.mark.parametrize("case", ["whole", "band", "no_moves"])
@@ -374,6 +375,22 @@ def test_chain_wrappers_pass_the_c_entries_arguments(scene, monkeypatch, case):
     assert u_args[-3:] == (m, V * n_rows * MW, 1)
     assert r_name == "chain_refit" and len(r_args) == sum(chain._ENTRIES[r_name])
     assert r_args[-2:] == (V * n_rows * MW, 0)
+
+
+def test_default_schedule_update_move_counts():
+    """The update moves a sweep of the default schedule walks on the main
+    path's 135 x 240 cell map (1080x1920 at S = 8): the M that
+    ``csrc/chain.cu``'s ``chain_update`` stages and walks, at most 16 (one
+    chunk) a sweep."""
+    from cl_multiview_stereo_tpu_torch.config import SystemSettings
+
+    s = SystemSettings()
+    geom = DerivedGeometry.create(1920, 1080, s)
+    assert (geom.map_h, geom.map_w) == (135, 240)
+    sched = RefinementSchedule.create(s)
+    counts = [len(refine._update_move_offsets(steps, size, geom.map_w, geom.map_h))
+              for steps, size in zip(sched.steps_per_iter, sched.step_size_per_iter)]
+    assert counts == [8, 10, 14, 14, 16]
 
 
 def test_chain_work_hand_count(scene):

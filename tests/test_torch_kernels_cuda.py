@@ -1318,9 +1318,17 @@ def test_smoothness_wrappers_reject_bad_input(cuda):
 # (views, cell rows, cell columns): a map of 8-pixel cells, and a ragged
 # one whose image is not a whole number of cells
 CHAIN_MAPS = {"3x12x16": (3, 12, 16), "ragged-9x7x5": (9, 7, 5)}
+# chain_update's tiles are 32 cells: 33 cells leave a tail tile of one
+UPDATE_MAPS = {**CHAIN_MAPS, "33-cells-1x3x11": (1, 3, 11)}
 CHAIN_GAMMA = 0.125
 # the update moves at M = 8 (immediate only) and M = 16 (two reach steps)
 CHAIN_REACH = {8: (0, 1.0), 16: (2, 1.0)}
+# M of the update walk, the first M of the moves of 8 reach steps of
+# pitch 1 (CHAIN_REACH's at M = 8 and 16): none, the main path's sweeps
+# 0-4 (8, 10, 14, 16) and 40, past the kernel's 16-move chunks (a map too
+# small for 40 keeps the moves that lie on it)
+UPDATE_M = (0, 8, 10, 14, 16, 40)
+UPDATE_REACH = (8, 1.0)
 
 
 def _exact(got, want, tag=""):
@@ -1393,17 +1401,26 @@ def _ring(shape, device, seed, ok="random"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("band", ["whole", "band"])
+@pytest.mark.parametrize("band", ["whole", "band", "offset"])
 @pytest.mark.parametrize("shape", list(CHAIN_MAPS))
 def test_raster_planes_bitwise(cuda, shape, band):
     """The table (rasterize_table) and the map (rasterize_planes) bitwise
     their plain forms, NaN and +-inf included; a band of pixel rows from
-    ``row0`` > 0 as ``spatial.block_table`` takes it."""
+    ``row0`` > 0 as ``spatial.block_table`` takes it, for the map too (its
+    disparities are the plain table's); labels 4 bytes off 16-byte
+    alignment ("offset": the kernel's one-pixel-a-thread form).  The
+    ragged map's 35-pixel rows are not a multiple of the kernel's 4 pixels
+    a thread."""
     ctx, state = _chain_inputs(CHAIN_MAPS[shape], cuda)
     labels = ctx.labels
     h = labels.shape[1]
-    row0, rows = (0, h) if band == "whole" else (h // 3, h // 2)
+    row0, rows = (h // 3, h // 2) if band == "band" else (0, h)
     labels = labels[:, row0:row0 + rows]
+    if band == "offset":
+        flat = torch.empty(labels.numel() + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = labels.reshape(-1)
+        labels = flat[1:].view(labels.shape)
+        assert labels.data_ptr() % 16 == 4
     color = fusion.gather_cells(labels, ctx.color).reshape(-1, 3)
     before = raster.LAUNCHES["raster_planes"]
     got = raster.table(labels, ctx.center, color, state.d, state.n, row0)
@@ -1411,11 +1428,14 @@ def test_raster_planes_bitwise(cuda, shape, band):
     _exact(got, want, "table")
     assert torch.isnan(got[:, 0]).any() and torch.isinf(got[:, 0]).any()
     _exact(refine.rasterize_table(labels, ctx.center, color, state.d, state.n, row0), want, "routed table")
+    # the map of the same rows: the plain table's disparities
+    _exact(raster._raster(labels, ctx.center, state.d, state.n, None, row0), want[:, 0].reshape(labels.shape),
+           "map")
     if band == "whole":
         _exact(fusion.rasterize_planes(labels, ctx.center, state.d, state.n),
                fusion.rasterize_planes_reference(labels, ctx.center, state.d, state.n), "planes")
     torch.cuda.synchronize()
-    assert raster.LAUNCHES["raster_planes"] - before == (2 if band == "band" else 3)
+    assert raster.LAUNCHES["raster_planes"] - before == (4 if band == "whole" else 3)
 
 
 @pytest.mark.cuda
@@ -1451,24 +1471,41 @@ def test_chain_moves_bitwise(cuda, shape, m, rows):
     _exact(refine.update_candidates(ctx, state, offs, CHAIN_GAMMA, rows=rows)[0], want[0], "routed")
 
 
+def _misaligned(a: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``a`` whose base is 4 bytes off 16-byte
+    alignment."""
+    flat = torch.empty(a.numel() * a.element_size() + 4, dtype=torch.uint8, device=a.device)
+    out = flat[4:].view(a.dtype).view(a.shape)
+    out.copy_(a)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ok", ["random", "none"])
+@pytest.mark.parametrize("ok", ["random", "none", "offset"])
 @pytest.mark.parametrize("it", [0, 4], ids=["greedy", "product"])
-@pytest.mark.parametrize("m", list(CHAIN_REACH))
-@pytest.mark.parametrize("shape", list(CHAIN_MAPS))
+@pytest.mark.parametrize("m", UPDATE_M)
+@pytest.mark.parametrize("shape", list(UPDATE_MAPS))
 def test_chain_update_bitwise(cuda, shape, m, it, ok):
     """``chain_update`` bitwise ``update_phase_reference``: the state after
     the update moves and the 8 refit normals and their validity, greedy
     and not, with NaN, inf and underflowing scores, and with no move or
-    ring neighbour valid."""
-    ctx, state = _chain_inputs(CHAIN_MAPS[shape], cuda)
+    ring neighbour valid; M = 0 (the refits alone) to 40 (more than one
+    chunk of moves), a map whose cells end in a ragged tile, and
+    ("offset") ring fields 4 bytes off 16-byte alignment."""
+    ctx, state = _chain_inputs(UPDATE_MAPS[shape], cuda)
     v, mh, mw = state.d.shape
-    moves = refine.update_candidates_reference(ctx, state, refine._update_move_offsets(*CHAIN_REACH[m], mw, mh),
-                                               CHAIN_GAMMA)
+    offs = refine._update_move_offsets(*UPDATE_REACH, mw, mh)
+    moves = tuple(a[:m] for a in refine.update_candidates_reference(ctx, state, offs, CHAIN_GAMMA))
+    offs = offs[:m]
+    assert len(offs) == m or m > 16
     if ok == "none":
         moves = (*moves[:3], torch.zeros_like(moves[3]))
-    sm1, cs1 = _chain_scores(m, tuple(state.d.shape), cuda, seed=m + it)
-    cache = _ring(tuple(state.d.shape), cuda, seed=7, ok=ok)
+    sm1, cs1 = (a[:len(offs)] for a in _chain_scores(max(m, 1), tuple(state.d.shape), cuda, seed=m + it))
+    cache = _ring(tuple(state.d.shape), cuda, seed=7, ok="none" if ok == "none" else "random")
+    if ok == "offset":
+        cache = cache._replace(**{f: _misaligned(getattr(cache, f))
+                                  for f in ("ring_dcx", "ring_dcy", "ring_d", "ring_ok")})
     got = chain.update(cache, state, moves, sm1, cs1, it < 4)
     want = refine.update_phase_reference(cache, state, moves, sm1, cs1, it < 4)
     for f in refine.RefineState._fields:
@@ -1476,7 +1513,7 @@ def test_chain_update_bitwise(cuda, shape, m, it, ok):
     _exact(got[1], want[1], "n_ref")
     _exact(got[2], want[2], "ok_ref")
     changed = (got[0].d != state.d) & ~torch.isnan(state.d)
-    assert changed.any() == (ok == "random") and torch.isnan(got[1]).any()
+    assert changed.any() == (ok != "none" and len(offs) > 0) and torch.isnan(got[1]).any()
 
 
 @pytest.mark.cuda

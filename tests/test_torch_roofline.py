@@ -209,3 +209,24 @@ def test_roofline_counts_on_the_cpu(capsys):
         assert r["card"] == "cpu" and r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
         assert r["ms"] == r["plain_ms"] == r["share"] == "not measured"
     assert len(capsys.readouterr().out.strip().splitlines()) == len(roofline.KERNELS)
+
+
+def test_roofline_calls_path_on_the_cpu(tmp_path):
+    """``--calls path``: a raster or chain kernel on every main-path call
+    (the init's table, each sweep's, fusion's map; each sweep's walk), each
+    call's bound beside the sum; ``--csrc`` refuses a directory with no
+    kernel sources."""
+    row = ["--device", "cpu", "--shapes", "row", "--views", "2", "--height", "24", "--width", "40", "--d", "4",
+           "--calls", "path"]
+    raster, = roofline.main(row + ["--kernel", "raster_planes"])
+    update, = roofline.main(row + ["--kernel", "chain_update"])
+    sweeps = range(5)  # the row case's SystemSettings: no_prop 5
+    assert [c["call"] for c in raster["calls"]] == ["init table", *(f"sweep {i} table" for i in sweeps),
+                                                    "fusion map"]
+    assert [c["call"] for c in update["calls"]] == [f"sweep {i} update" for i in sweeps]
+    for r in (raster, update):
+        assert r["bound_ms"] == pytest.approx(sum(c["bound_ms"] for c in r["calls"]), rel=1e-12)
+        assert all(c["ms"] == "not measured" for c in r["calls"])
+    with pytest.raises(SystemExit):
+        roofline.main(row + ["--kernel", "chain_update", "--csrc", str(tmp_path)])
+

@@ -55,6 +55,8 @@ compile_size = 64bit
     ("vote_kernel", "vote_kernel"),
     ("_ZN40_GLOBAL__N__8f2e47ec_8_color_cu_30fcb7b710lab_kernelIhEEvPKT_Pfii", "lab_kernel<unsigned char>"),
     ("_ZN40_GLOBAL__N__8f2e47ec_8_color_cu_30fcb7b710lab_kernelIfEEvPKT_Pfii", "lab_kernel<float>"),
+    ("_ZN12_GLOBAL__N_113raster_kernelILi4ELi4ELb0EEEvPKiPKfS4_S4_S4_Pfiiiii", "raster_kernel<4, 4, false>"),
+    ("_ZN12_GLOBAL__N_113raster_kernelILi1ELi1ELb1EEEvPKiPKfS4_S4_S4_Pfiiiii", "raster_kernel<1, 1, true>"),
 ])
 def test_short_name(sym, want):
     assert sass.short_name(sym) == want
