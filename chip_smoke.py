@@ -7,11 +7,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 0. device: a CUDA device is visible; print its name and power limit;
 1. build: compile
-   ``csrc/{cost_volume,sweep,consistency,slic,smoothness,raster,chain,color,extent}.cu``
+   ``csrc/{cost_volume,sweep,consistency,slic,smoothness,raster,chain,color,extent,crosscheck}.cu``
    with nvcc from this checkout, one nvcc each, all started together; print
    what ptxas reports, check that two cost-volume blocks and two sweep
    blocks fit on an SM and that the sweep, consistency, SLIC, smoothness,
-   raster, chain, Lab and extent kernels do not spill; print the Lab
+   raster, chain, Lab, extent and cross-check kernels do not spill; print the Lab
    kernel's blocks an SM (uint8 and float32 input) and the extent
    kernel's;
 2. kernels against their plain twins, on the same device tensors, with
@@ -52,7 +52,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    labels and map (``tools.roofline.slic_inputs``), each bitwise its plain
    form, with each kernel's issue time (``tools.roofline.issue_ms`` from
    ``tools.sass``'s instructions and the card's top SM clock) beside its
-   byte bound;
+   byte bound; the cross-check's warp (``fuse_warp``) on the slice's
+   refined disparity at 9x1080x1920 and its vote (``fuse_vote``) on that
+   map and its warp, and the seeds' edge snap (``edge_snap``) on the
+   scene's Lab and SLIC's seed centres (``tools.roofline.fusion_inputs``,
+   ``snap_inputs``), each bitwise its plain form (NaN at the same places),
+   with its SASS instruction counts (and the snap's issue time) beside its
+   bound;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
@@ -63,7 +69,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``raster_planes`` 1 + 5 + 1 = 7 times (the init's table, a table a
    sweep, fusion's map), ``chain_moves``, ``chain_update`` and
    ``chain_refit`` 5 times each, and ``lab_convert`` and ``extent_walk``
-   once each;
+   once each, and neither the cross-check's kernels nor the edge snap;
 3b. the same stages with the strips consistency engine
    (``refine.refine(cons_engine="strips")``): timed the same way, and its
    refined disparity held against phase 3's gather engine; each run
@@ -81,10 +87,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    written as 9 PNGs, default depth method "dense" through the cost-volume
    kernel, cross-check fusion, PLY and checkpoint): 5a one warm-up and two
    timed runs, the wall seconds per scene, stage times, peak memory and
-   the disparity recovered; 5b a ``--resume`` from 5a's checkpoint, whose
-   ``disp_full`` must be bitwise 5a's; 5c the SLIC flags
-   (``--set enforce_connectivity=true --set edge_enable=true``), timed as
-   5a, their vote launches counted; 5d ``pair_layout="view"`` (the
+   the disparity recovered, each timed run launching ``fuse_warp`` and
+   ``fuse_vote`` once, then one more run under ``torch.profiler`` for each
+   stage's device ms (the ``fusion`` stage's printed); 5b a ``--resume``
+   from 5a's checkpoint, whose ``disp_full`` must be bitwise 5a's; 5c the
+   SLIC flags (``--set enforce_connectivity=true --set edge_enable=true``),
+   timed and profiled as 5a, their vote launches counted and each timed run
+   launching ``edge_snap`` once (the ``slic`` stage's device ms printed); 5d ``pair_layout="view"`` (the
    packed scorer in the port) bitwise equal to phase 3's packed state,
    and the gather depth init timed against the kernel's, their WTA
    agreeing on >= 0.999 of cells;
@@ -141,7 +150,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launch the cost volume once, the consistency kernel 11 times, the SLIC
    assignment 6 and the update 5 times, ``smooth_cache`` 6 and
    ``smooth_moves`` 11 times, ``raster_planes`` 7 times, each chain
-   kernel 5 times and ``lab_convert`` and ``extent_walk`` once each;
+   kernel 5 times and ``lab_convert`` and ``extent_walk`` once each, and
+   the cross-check's kernels and the edge snap never;
 10. the tools ported last, each in its own process: 10a
    ``tools.profile_propagate --engine both`` at 9x1080x1920 (each
    component of sweep 0 under both engines with its ms, launches and share
@@ -202,16 +212,21 @@ SFM_KP_AGREE, SFM_CARD_CPU_ATE = 0.99, 1e-3
 # run --sfm: share of interior pixels within 1 of the scene's disparity
 SFM_RUN_NEAR = 0.90
 # the kernels' sources (csrc/<name>.cu), and the kernels of the JSON record
-SOURCES = ("cost_volume", "sweep", "consistency", "slic", "smoothness", "raster", "chain", "color", "extent")
+SOURCES = ("cost_volume", "sweep", "consistency", "slic", "smoothness", "raster", "chain", "color", "extent",
+           "crosscheck")
 KERNELS = ("cost_volume", "sweep", "consistency", "slic_assign", "slic_update", "slic_vote", "smooth_cache",
            "smooth_moves", "raster_planes", "chain_moves", "chain_update", "chain_refit", "lab_convert",
-           "extent_walk")
+           "extent_walk", "fuse_warp", "fuse_vote", "edge_snap")
 # the Lab, extent, raster and chain kernels' launches in one run of the
 # slice: the Lab image and the extent once, the init's table, then a
 # table, the candidates and two accept walks a sweep (5 sweeps), then
 # fusion's map
 PER_RUN = {"lab_convert": 1, "extent_walk": 1, "raster_planes": 1 + 5 + 1, "chain_moves": 5, "chain_update": 5,
            "chain_refit": 5}
+# the kernels of the knobs off the defaults: the cross-check's warp and vote
+# (cross_check) and the seeds' edge snap (edge_enable); 0 launches a run of
+# the slice, 1 a run of the CLI with --cross-check or edge_enable=true
+OFF_DEFAULTS = ("fuse_warp", "fuse_vote", "edge_snap")
 # the sweeps whose raster and chain calls phase 2 holds to their plain
 # forms (each from the initial state at that sweep's reach)
 SWEEPS = (0, 1, 2, 3, 4)
@@ -607,6 +622,21 @@ def _reset_counts() -> None:
         counts.update(dict.fromkeys(counts, 0))
 
 
+def _off_defaults() -> dict:
+    """The launch counts of OFF_DEFAULTS' kernels."""
+    from cl_multiview_stereo_tpu_torch.ops import crosscheck, slic
+
+    return {name: {**crosscheck.LAUNCHES, **slic.LAUNCHES}[name] for name in OFF_DEFAULTS}
+
+
+def _reset_off_defaults() -> None:
+    """Sets the launch counts of OFF_DEFAULTS' kernels to 0."""
+    from cl_multiview_stereo_tpu_torch.ops import crosscheck, slic
+
+    crosscheck.LAUNCHES.update(dict.fromkeys(crosscheck.LAUNCHES, 0))
+    slic.LAUNCHES["edge_snap"] = 0
+
+
 def _counts() -> dict:
     """The launch counts of PER_RUN's kernels."""
     from cl_multiview_stereo_tpu_torch.ops import chain, color, raster, superpixel
@@ -754,6 +784,74 @@ def phase_lab_extent_vs_plain(card: str) -> dict:
     return recs
 
 
+def phase_crosscheck_snap_vs_plain(card: str) -> dict:
+    """The cross-check's warp and vote and the seeds' edge snap against
+    their plain forms on the card: ``fuse_warp`` on the slice's refined
+    disparity at 9x1080x1920 (``MVSPipeline.run``'s ``disp_full``;
+    ``tools.roofline.fusion_inputs``, the roofline tool's inputs too),
+    ``fuse_vote`` on that map and its warp, ``edge_snap`` on the scene's Lab
+    and SLIC's seed centres (``tools.roofline.snap_inputs``); each output
+    bitwise (NaN at the same places); the vote's candidates looked at and
+    lookups made (``tools.roofline.vote_counts``).  Beside each bound, the
+    kernel's static SASS instructions and those of its inner loops
+    (``tools.sass``), and for the snap, straight-line code a centre, its
+    issue time at the card's top SM clock.  Returns each kernel's record."""
+    import torch
+
+    from cl_multiview_stereo_tpu_torch.kernels import build
+    from cl_multiview_stereo_tpu_torch.ops import slic
+    from cl_multiview_stereo_tpu_torch.tools import sass
+    from cl_multiview_stereo_tpu_torch.tools.roofline import (
+        ITERS,
+        bound,
+        edge_snap_work,
+        fusion_case,
+        fusion_inputs,
+        in_turns,
+        issue_ms,
+        snap_inputs,
+        vote_counts,
+    )
+
+    s, rgb = _scene(FULL_H, FULL_W)
+    disp_full, disp_proj, geo = fusion_inputs(s, rgb, "cuda")
+    lab, spmap = snap_inputs(rgb, s, "cuda")
+    v, h, w = disp_full.shape
+    cases = {name: fusion_case(name, disp_full, disp_proj, geo) for name in ("fuse_warp", "fuse_vote")}
+    cases["edge_snap"] = (lambda: slic.edge_snap(lab, spmap), lambda: slic.edge_snap_reference(lab, spmap),
+                          edge_snap_work(lab, spmap, slic.edge_snap(lab, spmap)))
+    code = {r["kernel"]: r for src in ("crosscheck", "slic") for r in sass.report(src, build.CSRC)}
+    looked, lookups = vote_counts(disp_proj, disp_full, *geo)
+    seeds = spmap.center.numel() // 2
+    snap_issue = issue_ms(code["edge_snap_kernel"]["sass_instructions"], seeds, _max_sm_clock_ghz())
+    recs = {}
+    for name, (kern, plain, work) in cases.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if name == "edge_snap" else [(got, want)]
+        for i, (g, p) in enumerate(pairs):
+            _require_same_bits(f"[2] {name} output {i}", g, p)
+        nan = sum(int(torch.isnan(g).sum()) for g, _ in pairs)
+        k_ms, p_ms = in_turns(kern, plain, *ITERS[name])
+        b_ms, by = bound(*work)
+        sass_rec = code[f"{name}_kernel"]
+        note = (f"{sass_rec['sass_instructions']} SASS instructions, inner loops "
+                f"{[lp['instructions'] for lp in sass_rec['inner_loops']]}")
+        if name == "fuse_vote":
+            extra = (f"; {looked} of {v * v * h * w} (candidate, output) pairs looked at, {lookups} lookups of "
+                     f"{v * looked}")
+        elif name == "edge_snap":
+            extra = f"; {int((got.center != spmap.center).any(-1).sum())} of {seeds} centres moved"
+            note += f"; issue {snap_issue:.4f} ms (a centre each)"
+        else:
+            extra = ""
+        print(f"[2] {name} on {tuple(pairs[0][0].shape)}: bitwise (NaN {nan}){extra}; kernel {k_ms:.4f} ms, bound "
+              f"{b_ms:.4g} ms ({by}), share {b_ms / k_ms:.3f}, plain {p_ms:.3f} ms; {note} ({card})")
+        recs[name] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        del got, want, pairs
+    return recs
+
+
 def phase_slice(card: str):
     import numpy as np
     import torch
@@ -777,7 +875,7 @@ def phase_slice(card: str):
     # the consistency kernel: the init state's launch and two a sweep
     cons_per_run = 1 + 2 * s.no_prop
     # SLIC: an assignment, then no_iter x (update, assignment); no vote
-    slic_per_run = {"slic_assign": s.no_iter + 1, "slic_update": s.no_iter, "slic_vote": 0}
+    slic_per_run = {"slic_assign": s.no_iter + 1, "slic_update": s.no_iter, "slic_vote": 0, "edge_snap": 0}
     # smoothness: the init's cache and state, and a cache and two phases a sweep
     smooth_per_run = {"smooth_cache": 1 + s.no_prop, "smooth_moves": 1 + 2 * s.no_prop}
     slic_runs, smooth_runs, chain_runs = [], [], []
@@ -787,6 +885,7 @@ def phase_slice(card: str):
         _reset_slic()
         _reset_smoothness()
         _reset_counts()
+        _reset_off_defaults()
         t0 = time.perf_counter()
         art = pipe.run(rgb_dev, timer=timer)
         torch.cuda.synchronize()
@@ -810,6 +909,8 @@ def phase_slice(card: str):
     if chain_runs != [PER_RUN] * 2:
         raise AssertionError(f"the main path launched the Lab, extent, raster and chain kernels {chain_runs} a "
                              f"run, expected {PER_RUN}")
+    if any(_off_defaults().values()):
+        raise AssertionError(f"the slice at the defaults launched {_off_defaults()}, expected none")
 
     d = art.disp_full
     if not bool(torch.isfinite(d).all()):
@@ -1060,32 +1161,42 @@ def _disp_checks(npz: str, tag: str):
 
 
 def _timed_cli(argv: list[str], tag: str, card: str) -> dict:
-    """One warm-up and two timed CLI runs; the cost-volume launches and the
-    peak memory of the timed runs."""
+    """One warm-up and two timed CLI runs; the cost-volume launches, the
+    peak memory and each run's launches of OFF_DEFAULTS' kernels of the
+    timed runs; then one more run under torch.profiler, for each stage's
+    device ms (``tools.profile_stages.stage_device_ms``)."""
     import torch
 
     from cl_multiview_stereo_tpu_torch.ops import cost_volume
+    from cl_multiview_stereo_tpu_torch.tools.profile_stages import stage_device_ms, whole_profile
 
     dt, _ = _cli(argv, tag)
     print(f"{tag} warm-up run {dt:.3f} s ({card})")
     torch.cuda.reset_peak_memory_stats()
     cost_volume.LAUNCHES = 0
-    times, stages = [], {}
+    times, stages, off = [], {}, []
     for _ in range(2):
+        _reset_off_defaults()
         dt, stages = _cli(argv, tag)
         times.append(dt)
+        off.append(_off_defaults())
     launches = cost_volume.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     if launches < 1:
         raise AssertionError(f"{tag}: the CLI path never launched the cost-volume kernel")
-    return dict(times=times, stages=stages, launches=launches, peak=peak)
+    t0 = time.perf_counter()
+    device_ms = stage_device_ms(whole_profile(lambda: _cli(argv, f"{tag} (profiled)")))
+    print(f"{tag} device ms by stage, one more run under torch.profiler ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps({k: round(v, 4) for k, v in device_ms.items()}) + f" ({card})")
+    return dict(times=times, stages=stages, launches=launches, peak=peak, off=off, device_ms=device_ms)
 
 
-def phase_cli(card: str, art3, root: str, lst: str) -> tuple[int, int]:
+def phase_cli(card: str, art3, root: str, lst: str) -> tuple[int, int, dict]:
     """Phase 5 on the scene's PNGs ``lst`` in ``root``; ``art3`` is phase
     3's artifacts (strips depth init, packed layout).  Returns the
-    cost-volume launches of 5a's timed runs and the SLIC vote's of 5c's
-    runs."""
+    cost-volume launches of 5a's timed runs, the SLIC vote's of 5c's runs,
+    and the launches of the cross-check's kernels in 5a's timed runs and of
+    the edge snap in 5c's."""
     import numpy as np
     import torch
 
@@ -1106,6 +1217,11 @@ def phase_cli(card: str, art3, root: str, lst: str) -> tuple[int, int]:
           f"disp_full near GT {near:.6f}; vote rejected {rejected:.6f}; "
           f"cost_volume launches {r['launches']} ({card})")
     print("[5a] stage ms (last run): " + json.dumps(r["stages"]))
+    want = {"fuse_warp": 1, "fuse_vote": 1, "edge_snap": 0}
+    if r["off"] != [want] * 2:
+        raise AssertionError(f"[5a] the cross-check runs launched {r['off']}, expected {want} a run")
+    print(f"[5a] cross-check fusion: fuse_warp and fuse_vote launched once a run ({r['off']}); the fusion stage "
+          f"{r['device_ms']['fusion']:.4f} device ms, slic {r['device_ms']['slic']:.4f} ({card})")
 
     out_b = os.path.join(root, "b")
     dt, stages = _cli(base + ["--out", out_b, "--resume", os.path.join(out_a, "pipeline_state.npz")],
@@ -1121,14 +1237,19 @@ def phase_cli(card: str, art3, root: str, lst: str) -> tuple[int, int]:
     r_c = _timed_cli(base + ["--out", out_c, "--set", "enforce_connectivity=true",
                              "--set", "edge_enable=true"], "[5c]", card)
     votes = slic.LAUNCHES["slic_vote"]
-    if votes != 2 * 3:  # warm-up and two timed runs, two rounds each
-        raise AssertionError(f"[5c] the SLIC flags' runs launched the vote {votes} times, expected 6")
+    if votes != 2 * 4:  # warm-up, two timed and one profiled run, two rounds each
+        raise AssertionError(f"[5c] the SLIC flags' runs launched the vote {votes} times, expected 8")
     _, near_c, rejected_c = _disp_checks(os.path.join(out_c, "pipeline_state.npz"), "[5c]")
     t = min(r_c["times"])
     print(f"[5c] SLIC flags: CLI runs {[round(x, 4) for x in r_c['times']]} s; best {t:.4f} s "
           f"per scene; peak {r_c['peak'] / 2**30:.3f} GiB; disp_full near GT {near_c:.6f}; "
           f"vote rejected {rejected_c:.6f}; slic_vote launches {votes} ({card})")
     print("[5c] stage ms (last run): " + json.dumps(r_c["stages"]))
+    want = {"fuse_warp": 1, "fuse_vote": 1, "edge_snap": 1}
+    if r_c["off"] != [want] * 2:
+        raise AssertionError(f"[5c] the SLIC flags' runs launched {r_c['off']}, expected {want} a run")
+    print(f"[5c] SLIC flags: edge_snap launched once a run ({r_c['off']}); the slic stage "
+          f"{r_c['device_ms']['slic']:.4f} device ms, fusion {r_c['device_ms']['fusion']:.4f} ({card})")
 
     rgb_dev = torch.as_tensor(rgb, device="cuda")
     view = MVSPipeline.create(FULL_W, FULL_H, s, depth_method="strips", pair_layout="view",
@@ -1151,7 +1272,9 @@ def phase_cli(card: str, art3, root: str, lst: str) -> tuple[int, int]:
                           lambda: cost_volume.initial_depth_estimation(*args, method="gather"), 5, 2)
     print(f"[5d] depth init at 9x{FULL_H}x{FULL_W}: kernel (dense) {k_ms:.3f} ms, gather form "
           f"{g_ms:.3f} ms, WTA agreement {agree:.6f} ({card})")
-    return r["launches"], votes
+    off = {"fuse_warp": sum(o["fuse_warp"] for o in r["off"]), "fuse_vote": sum(o["fuse_vote"] for o in r["off"]),
+           "edge_snap": sum(o["edge_snap"] for o in r_c["off"])}
+    return r["launches"], votes, off
 
 
 def _sfm_run(argv: list[str], tag: str) -> dict:
@@ -1756,7 +1879,7 @@ def phase_tools(card: str, phase2: dict) -> dict:
     d = SystemSettings()
     per_run = {"cost_volume": 1, "consistency": 1 + 2 * d.no_prop, "slic_assign": d.no_iter + 1,
                "slic_update": d.no_iter, "slic_vote": 0, "smooth_cache": 1 + d.no_prop,
-               "smooth_moves": 1 + 2 * d.no_prop, **PER_RUN}
+               "smooth_moves": 1 + 2 * d.no_prop, **PER_RUN, **dict.fromkeys(OFF_DEFAULTS, 0)}
     if (rec["metric"] != "depth_mp_per_s" or len(rec["runs_s"]) != BENCH_RUNS or rec["card"] != card
             or any(launches[k] != BENCH_RUNS * n for k, n in per_run.items())):
         raise AssertionError(f"[9a] bench: {rec}")
@@ -1894,13 +2017,14 @@ def main() -> int:
     sm = phase_smoothness_vs_plain(card)
     ch = phase_chain_vs_plain(card)
     le = phase_lab_extent_vs_plain(card)
+    cs = phase_crosscheck_snap_vs_plain(card)
     _, cons_launches, slic_launches, refine_launches, pipe, rgb_dev, art = phase_slice(card)
     cons_launches += phase_strips(card, pipe, rgb_dev, art.state.d)
     sw_launches = phase_dense_sweep(card, art.lab, pipe.settings)
     phase_card_vs_cpu(card)
     with tempfile.TemporaryDirectory() as root:
         lst = write_scene(root, _scene(FULL_H, FULL_W)[1])
-        cv_launches, slic_launches["slic_vote"] = phase_cli(card, art, root, lst)
+        cv_launches, slic_launches["slic_vote"], off_launches = phase_cli(card, art, root, lst)
         # the cost-volume launches of each main path: 5a's CLI and 6c's run
         # --sfm, and of phase 7's sharded paths
         cv_launches += phase_sfm(card, root, lst)
@@ -1909,7 +2033,7 @@ def main() -> int:
     phase_gloo_two_ranks(card)
     del pipe, rgb_dev, art  # phase 9's tools each want the whole card
     bench_launches = phase_tools(card, {"cost_volume": cv, "sweep": sw, "consistency": cons, **sl, **sm, **ch,
-                                        **le})
+                                        **le, **cs})
     phase_propagate_tools(card)
     # phase 8's graph replays and 9a's launch the cost volume and the
     # consistency kernel from the graph
@@ -1927,10 +2051,13 @@ def main() -> int:
     src = "cl_multiview_stereo_tpu_torch/csrc/{}.cu".format
     # library_ms: no single PyTorch call computes the first three functions,
     # SLIC's assignment and vote, the smoothness cache and scores, the
-    # rasterization, the chain, the Lab conversion or the extent;
-    # index_add_ computes the update's sums.  SLIC's, smoothness's,
-    # raster's, chain's, Lab's and extent's kernels replace XLA functions of
-    # the JAX package, not Pallas
+    # rasterization, the chain, the Lab conversion, the extent, the
+    # cross-check's warp and vote or the edge snap; index_add_ computes the
+    # update's sums.  The kernels after the first three replace XLA
+    # functions of the JAX package, not Pallas; the last three run only
+    # under the CLI's --cross-check and edge_enable (5a, 5c), so their
+    # launches are those runs'; compute_edges (:261) and apply_edge_snap
+    # (:300) are the edge snap's two
     rows = (
         ("cost_volume", "cost_volume", "cl_multiview_stereo_tpu/ops/cost_volume.py:46", cv_launches, cv),
         ("sweep", "sweep", "cl_multiview_stereo_tpu/ops/pallas/sweep.py:93", sw_launches, sw),
@@ -1958,6 +2085,11 @@ def main() -> int:
          le["lab_convert"]),
         ("extent_walk", "extent", "cl_multiview_stereo_tpu/ops/superpixel.py:111", refine_launches["extent_walk"],
          le["extent_walk"]),
+        ("fuse_warp", "crosscheck", "cl_multiview_stereo_tpu/ops/fusion.py:150", off_launches["fuse_warp"],
+         cs["fuse_warp"]),
+        ("fuse_vote", "crosscheck", "cl_multiview_stereo_tpu/ops/fusion.py:186", off_launches["fuse_vote"],
+         cs["fuse_vote"]),
+        ("edge_snap", "slic", "cl_multiview_stereo_tpu/ops/slic.py:261", off_launches["edge_snap"], cs["edge_snap"]),
     )
     if [r[0] for r in rows] != list(KERNELS):
         raise AssertionError("the kernels' record does not list every kernel")

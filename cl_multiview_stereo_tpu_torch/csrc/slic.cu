@@ -1,9 +1,10 @@
 // SLIC superpixel segmentation's three per-pixel loops, for Hopper (sm_90a):
 // the assignment, the cluster update and the connectivity vote of
-// ops/slic.py.
+// ops/slic.py; and the seeds' edge snap.
 //
 // Replaces cl_multiview_stereo_tpu/ops/slic.py: find_center_association
-// (:102), update_cluster_centers (:178) and suppress_local_labels (:340).
+// (:102), update_cluster_centers (:178) and suppress_local_labels (:340),
+// and compute_edges (:261) with apply_edge_snap (:300).
 // Those are XLA, not Pallas: the JAX package shaped them for the TPU (the
 // candidates as upsampled cell maps and the update as nine masked
 // channel-planar block sums, so that nothing gathers), and the port's plain
@@ -91,6 +92,29 @@
 // 5x5 neighbourhood that differ from the pixel's own, rows j outer and
 // columns i inner; at least 16 of them and the pixel takes the last; the
 // 2-pixel border passes through.
+//
+// edge_snap (apply_edge_alternative, clcode.cl:204-248, on the edge image
+// of edge_compute_alternative, :161-195), one thread a seed centre.  The
+// plain form (ops/slic.apply_edge_snap on compute_edges) builds the Sobel
+// magnitude of every pixel from 12 border-replicate copies of the whole Lab
+// image, then reads it at 9 pixels a centre, under 2 % of them.  The
+// kernel computes the magnitude only there: the centre (C truncation, then
+// clamped into the view) and its 8 ring pixels.  Their taps all lie in the
+// 5x5 block around the clamped centre, read once a channel with the rows
+// and columns clamped into the view: a ring pixel in the view lies at most
+// one pixel from the clamped centre, so its taps, clamped, are that
+// block's, as the plain form's border-replicate reads are.  The magnitude
+// keeps compute_edges' order exactly:
+//   DX = ((((-t(-1,-1) + t(1,-1)) - 2 t(-1,0)) + 2 t(1,0)) - t(-1,1)) + t(1,1)
+//   DY = ((((-t(-1,-1) - 2 t(0,-1)) - t(1,-1)) + t(-1,1)) + 2 t(0,1)) + t(1,1)
+//   edge = sqrt((sq_L + sq_a) + sq_b),  sq = DX * DX + DY * DY
+// with the _rn intrinsics and the IEEE square root, so each magnitude is
+// bitwise the whole image's at that pixel.  Then the ring scan in
+// _EDGE_RING order (w, nw, n, ne, e, se, s, sw), a ring pixel in the view
+// taking the centre with a strict < against the running lowest (the first
+// minimum wins); a moved centre takes that pixel's (x, y) and Lab colour,
+// an unmoved one keeps its own.  Bound: the bytes, the Lab sectors of the
+// blocks (about 25 pixels a centre) and the seeds in and out.
 //
 // What bounds them on an NVIDIA H100 80GB HBM3 at 700 W (tools/sass.py for
 // the code, tools/roofline.py and chip_smoke.py for the times, at 9 x 1080p
@@ -441,6 +465,113 @@ __global__ void __launch_bounds__(kThreads) vote_kernel(
   out[idx] = differ >= 16 ? last : own;
 }
 
+constexpr int kSnapThreads = 128;  // edge_snap: one seed centre a thread
+
+// a + b with two's-complement wrap, as torch's int64 add on the card
+__device__ __forceinline__ long long wrap_add(long long a, long long b) {
+  return (long long)((unsigned long long)a + (unsigned long long)b);
+}
+
+// c clamped into [0, n - 1], as torch's clamp of an int64 index
+__device__ __forceinline__ int clamp_index(long long c, int n) { return c < 0 ? 0 : (c >= n ? n - 1 : (int)c); }
+
+// ring slot q's (dx, dy) in the order w, nw, n, ne, e, se, s, sw
+// (_EDGE_RING, clcode.cl:215)
+__device__ __forceinline__ int ring_dx(int q) { return q == 0 || q == 1 || q == 7 ? -1 : (q == 2 || q == 6 ? 0 : 1); }
+__device__ __forceinline__ int ring_dy(int q) { return q == 0 || q == 4 ? 0 : (q < 4 ? -1 : 1); }
+
+// of three values, the one at offset o in {-1, 0, 1}
+__device__ __forceinline__ float pick3(float a, float b, float c, int o) { return o < 0 ? a : (o == 0 ? b : c); }
+
+__global__ void __launch_bounds__(kSnapThreads) edge_snap_kernel(
+    const float* __restrict__ lab,     // (V, H, W, 3)
+    const float* __restrict__ center,  // (V * cells, 2)
+    const float* __restrict__ color,   // (V * cells, 3)
+    float* __restrict__ center_out,    // (V * cells, 2)
+    float* __restrict__ color_out,     // (V * cells, 3)
+    int V, int H, int W, int cells) {
+  const long long idx = (long long)blockIdx.x * kSnapThreads + threadIdx.x;
+  if (idx >= (long long)V * cells) return;
+  const float fx = center[2 * idx], fy = center[2 * idx + 1];
+  const long long cx = (long long)fx, cy = (long long)fy;  // C truncation (cvt.rzi, as torch's .to(int64))
+  const int ccx = clamp_index(cx, W), ccy = clamp_index(cy, H);
+  const float* __restrict__ img = lab + (idx / cells) * H * (long long)W * 3;
+  long long off[5][5];  // the block's pixels, rows and columns clamped into the view
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const long long row = (long long)clamp_index((long long)ccy + k - 2, H) * W;
+#pragma unroll
+    for (int m = 0; m < 5; ++m) off[k][m] = 3 * (row + clamp_index((long long)ccx + m - 2, W));
+  }
+  // the squared gradients of the 3 x 3 pixels around the clamped centre,
+  // summed over the channels in order
+  float acc[3][3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float t[5][5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+#pragma unroll
+      for (int m = 0; m < 5; ++m) t[k][m] = __ldg(img + off[k][m] + ch);
+    }
+#pragma unroll
+    for (int oy = 0; oy < 3; ++oy) {
+#pragma unroll
+      for (int ox = 0; ox < 3; ++ox) {
+        // tap (dx, dy) of the pixel at block offset (ox, oy): t[oy + 1 + dy][ox + 1 + dx]
+        const float(*r)[5] = t + oy;
+        float gx = __fadd_rn(-r[0][ox], r[0][ox + 2]);
+        gx = __fsub_rn(gx, __fmul_rn(2.0f, r[1][ox]));
+        gx = __fadd_rn(gx, __fmul_rn(2.0f, r[1][ox + 2]));
+        gx = __fsub_rn(gx, r[2][ox]);
+        gx = __fadd_rn(gx, r[2][ox + 2]);
+        float gy = __fsub_rn(-r[0][ox], __fmul_rn(2.0f, r[0][ox + 1]));
+        gy = __fsub_rn(gy, r[0][ox + 2]);
+        gy = __fadd_rn(gy, r[2][ox]);
+        gy = __fadd_rn(gy, __fmul_rn(2.0f, r[2][ox + 1]));
+        gy = __fadd_rn(gy, r[2][ox + 2]);
+        const float sq = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
+        acc[oy][ox] = ch == 0 ? sq : __fadd_rn(acc[oy][ox], sq);
+      }
+    }
+  }
+  float edge[3][3];
+#pragma unroll
+  for (int oy = 0; oy < 3; ++oy) {
+#pragma unroll
+    for (int ox = 0; ox < 3; ++ox) edge[oy][ox] = __fsqrt_rn(acc[oy][ox]);
+  }
+  // the ring scan (clcode.cl:215)
+  float best = edge[1][1];
+  long long bx = cx, by = cy;
+  bool changed = false;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const long long nx = wrap_add(cx, ring_dx(q)), ny = wrap_add(cy, ring_dy(q));
+    if (!(nx >= 0 && ny >= 0 && nx < W && ny < H)) continue;
+    // a ring pixel in the view is at most one pixel from the clamped centre
+    const int ox = (int)(nx - ccx), oy = (int)(ny - ccy);
+    const float e = pick3(pick3(edge[0][0], edge[0][1], edge[0][2], ox), pick3(edge[1][0], edge[1][1], edge[1][2], ox),
+                          pick3(edge[2][0], edge[2][1], edge[2][2], ox), oy);
+    if (e < best) {
+      best = e;
+      bx = nx;
+      by = ny;
+      changed = true;
+    }
+  }
+  if (changed) {
+    const float* __restrict__ px = img + 3 * (by * W + bx);
+    center_out[2 * idx] = (float)bx;
+    center_out[2 * idx + 1] = (float)by;
+    for (int q = 0; q < 3; ++q) color_out[3 * idx + q] = __ldg(px + q);
+  } else {
+    center_out[2 * idx] = fx;
+    center_out[2 * idx + 1] = fy;
+    for (int q = 0; q < 3; ++q) color_out[3 * idx + q] = color[3 * idx + q];
+  }
+}
+
 unsigned int blocks_of(long long n, int threads) { return (unsigned int)((n + threads - 1) / threads); }
 
 bool too_many_blocks(long long n, int threads) { return (n + threads - 1) / threads > 0x7fffffffLL; }
@@ -506,5 +637,19 @@ extern "C" int slic_vote_launch(const int* in, int* out, int V, int H, int W, vo
   if (n == 0) return 0;
   if (too_many_blocks(n, kThreads)) return (int)cudaErrorInvalidValue;
   vote_kernel<<<blocks_of(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, V, H, W);
+  return (int)cudaGetLastError();
+}
+
+// center_out (V, cells, 2) and color_out (V, cells, 3): the seeds center
+// (V, cells, 2) and color (V, cells, 3) snapped to the lowest Sobel
+// magnitude of lab (V, H, W, 3) among each centre and its 8 neighbours.
+extern "C" int edge_snap_launch(const float* lab, const float* center, const float* color, float* center_out,
+                                float* color_out, int V, int H, int W, int cells, void* stream) {
+  const long long n = (long long)V * cells;
+  if (V < 0 || H < 0 || W < 0 || cells < 0 || too_many_blocks(n, kSnapThreads)) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  if (H == 0 || W == 0) return (int)cudaErrorInvalidValue;
+  edge_snap_kernel<<<blocks_of(n, kSnapThreads), kSnapThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      lab, center, color, center_out, color_out, V, H, W, cells);
   return (int)cudaGetLastError();
 }

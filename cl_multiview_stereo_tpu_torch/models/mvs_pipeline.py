@@ -34,6 +34,7 @@ from cl_multiview_stereo_tpu_torch.ops import (
     color,
     consistency,
     cost_volume,
+    crosscheck,
     fusion,
     raster,
     refine,
@@ -54,7 +55,8 @@ REPLAYED_LAUNCHES: dict[str, int] = {}
 def launch_counts() -> dict[str, int]:
     """Each hand kernel of ``run``: its launches so far, by name."""
     return {**color.LAUNCHES, "cost_volume": cost_volume.LAUNCHES, "consistency": consistency.LAUNCHES,
-            **slic.LAUNCHES, **superpixel.LAUNCHES, **smoothness.LAUNCHES, **raster.LAUNCHES, **chain.LAUNCHES}
+            **slic.LAUNCHES, **superpixel.LAUNCHES, **smoothness.LAUNCHES, **raster.LAUNCHES, **chain.LAUNCHES,
+            **crosscheck.LAUNCHES}
 
 
 class PipelineArtifacts(NamedTuple):

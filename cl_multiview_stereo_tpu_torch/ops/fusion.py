@@ -11,6 +11,9 @@
 * ``remove_view_inconsistency`` (cl:2037-2101): the stability vote; the
   largest stable candidate disparity wins.
 
+On a card the warp and the vote launch ``csrc/crosscheck.cu``
+(``ops/crosscheck``); their plain forms are the ``*_reference`` functions.
+
 ``cross_check=False`` reproduces what the shipping reference produces;
 ``True`` adds the intended warp + vote, as in the JAX module.
 """
@@ -100,16 +103,13 @@ def view_bounds(view_range: tuple[int, int] | None, v: int) -> tuple[int, int]:
     return v0, nv
 
 
-def project_to_reference_inv(
+def project_to_reference_inv_reference(
     disp_full: torch.Tensor,  # (V, H, W)
     array_width: int,
     bl_ratio: float,
     view_range: tuple[int, int] | None = None,
 ) -> torch.Tensor:
-    """Occlusion-aware inverse warp for every reference view at once
-    (cl:1995-2034): the probe chain runs over the source views in index
-    order and shifts by the evolving maximum.  ``view_range`` (v0, nv):
-    warp only those reference views, (nv, H, W) (default: all V)."""
+    """Plain form of :func:`project_to_reference_inv`, on any device."""
     v, h, w = disp_full.shape
     v0, nv = view_bounds(view_range, v)
     dev = disp_full.device
@@ -129,6 +129,91 @@ def project_to_reference_inv(
     return min_disp
 
 
+def vote_stabilities(
+    disp_proj: torch.Tensor,  # (V, H, W) warped-to-reference maps
+    disp_full: torch.Tensor,  # (V, H, W) unwarped per-view maps
+    array_width: int,
+    bl_ratio: float,
+    fuse: float,
+    view_range: tuple[int, int] | None = None,
+):
+    """The vote's candidates in view order: for each view i, (its candidate
+    ``disp_proj[i]`` broadcast to (nv, H, W), vote 1's stability (H, W),
+    an iterator of vote 2's terms, one (nv, H, W) tensor a view j, made as
+    it is read), as the plain vote computes them; the stability is vote
+    1's plus vote 2's terms in view order.  Read each candidate's terms
+    before the next candidate."""
+    v, h, w = disp_proj.shape
+    v0, nv = view_bounds(view_range, v)
+    dev = disp_proj.device
+    bl = _f32(bl_ratio)
+    fuse = _f32(fuse)
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    ref = torch.arange(v0, v0 + nv, device=dev)[:, None, None]
+    cam_ref_x = (ref % array_width).to(torch.float32)
+    cam_ref_y = (ref // array_width).to(torch.float32)
+    for i in range(v):
+        d = disp_proj[i]  # candidate from view i, the same for every ref
+        # vote 1: agreement among the warped maps at the same pixel (the
+        # votes are small integers, so their order of addition is exact)
+        stab1 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+        for j in range(v):
+            d_check = disp_proj[j]
+            vote = torch.where(torch.abs(d_check - d) > fuse, -1.0, 1.0)
+            stab1 = stab1 + torch.where(d_check != 0, vote, 0.0)
+        d = d.expand(nv, h, w)
+
+        def lookups(d=d):
+            # vote 2: cross-view lookups in the unwarped maps
+            for j in range(v):
+                xj = px - cl_round(d * (float(j % array_width) - cam_ref_x))
+                yj = py - cl_round((bl * d) * (float(j // array_width) - cam_ref_y))
+                d_check, inb = _probe(disp_full[j], xj, yj)
+                diff = torch.abs(d_check - d)
+                vote = torch.where(diff > fuse, -1.0, 0.0) + torch.where(diff < fuse, 1.0, 0.0)
+                yield torch.where(inb, vote, 0.0)
+        yield d, stab1, lookups()
+
+
+def remove_view_inconsistency_reference(
+    disp_proj: torch.Tensor,
+    disp_full: torch.Tensor,
+    array_width: int,
+    bl_ratio: float,
+    fuse: float,
+    view_range: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Plain form of :func:`remove_view_inconsistency`, on any device."""
+    v, h, w = disp_proj.shape
+    nv = view_bounds(view_range, v)[1]
+    d_est = torch.zeros((nv, h, w), dtype=torch.float32, device=disp_proj.device)
+    for d, stab1, votes in vote_stabilities(disp_proj, disp_full, array_width, bl_ratio, fuse, view_range):
+        stability = stab1.expand(nv, h, w)
+        for vote in votes:
+            stability = stability + vote
+        take = (d != 0) & (stability >= 0) & ((d_est == 0) | (d_est < d))
+        d_est = torch.where(take, d, d_est)
+    return d_est
+
+
+def project_to_reference_inv(
+    disp_full: torch.Tensor,  # (V, H, W)
+    array_width: int,
+    bl_ratio: float,
+    view_range: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Occlusion-aware inverse warp for every reference view at once
+    (cl:1995-2034): the probe chain runs over the source views in index
+    order and shifts by the evolving maximum.  ``view_range`` (v0, nv):
+    warp only those reference views, (nv, H, W) (default: all V).  One
+    launch of ``fuse_warp`` on a card, the plain form on the CPU
+    (``ops/crosscheck.warp``)."""
+    from cl_multiview_stereo_tpu_torch.ops import crosscheck
+
+    return crosscheck.warp(disp_full, array_width, bl_ratio, view_range)
+
+
 def remove_view_inconsistency(
     disp_proj: torch.Tensor,  # (V, H, W) warped-to-reference maps
     disp_full: torch.Tensor,  # (V, H, W) unwarped per-view maps
@@ -142,40 +227,11 @@ def remove_view_inconsistency(
     ``> fuse -> -1`` / ``< fuse -> +1`` and abstain on equality.  Candidates
     run in view order; the winner is the largest d with stability >= 0.
     ``view_range`` (v0, nv): vote only for those reference views, (nv, H,
-    W); both inputs still hold all V views."""
-    v, h, w = disp_proj.shape
-    v0, nv = view_bounds(view_range, v)
-    dev = disp_proj.device
-    bl = _f32(bl_ratio)
-    fuse = _f32(fuse)
-    px = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
-    py = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
-    ref = torch.arange(v0, v0 + nv, device=dev)[:, None, None]
-    cam_ref_x = (ref % array_width).to(torch.float32)
-    cam_ref_y = (ref // array_width).to(torch.float32)
-    d_est = torch.zeros((nv, h, w), dtype=torch.float32, device=dev)
-    for i in range(v):
-        d = disp_proj[i]  # candidate from view i, the same for every ref
-        # vote 1: agreement among the warped maps at the same pixel (the
-        # votes are small integers, so their order of addition is exact)
-        stab1 = torch.zeros((h, w), dtype=torch.float32, device=dev)
-        for j in range(v):
-            d_check = disp_proj[j]
-            vote = torch.where(torch.abs(d_check - d) > fuse, -1.0, 1.0)
-            stab1 = stab1 + torch.where(d_check != 0, vote, 0.0)
-        stability = stab1.expand(nv, h, w)
-        d = d.expand(nv, h, w)
-        # vote 2: cross-view lookups in the unwarped maps
-        for j in range(v):
-            xj = px - cl_round(d * (float(j % array_width) - cam_ref_x))
-            yj = py - cl_round((bl * d) * (float(j // array_width) - cam_ref_y))
-            d_check, inb = _probe(disp_full[j], xj, yj)
-            diff = torch.abs(d_check - d)
-            vote = torch.where(diff > fuse, -1.0, 0.0) + torch.where(diff < fuse, 1.0, 0.0)
-            stability = stability + torch.where(inb, vote, 0.0)
-        take = (d != 0) & (stability >= 0) & ((d_est == 0) | (d_est < d))
-        d_est = torch.where(take, d, d_est)
-    return d_est
+    W); both inputs still hold all V views.  One launch of ``fuse_vote`` on
+    a card, the plain form on the CPU (``ops/crosscheck.vote``)."""
+    from cl_multiview_stereo_tpu_torch.ops import crosscheck
+
+    return crosscheck.vote(disp_proj, disp_full, array_width, bl_ratio, fuse, view_range)
 
 
 def fuse_views(

@@ -11,12 +11,13 @@ Same sequence and quirks as the JAX module (``clcode.cl:259-773``):
 * the optional edge snap of the seeds (``edge_enable``) and the twice
   applied connectivity vote (``enforce_connectivity``).
 
-The assignment, the update and the vote route by the device of their
-input (:func:`route`): on CUDA tensors each launches its kernel of
-``csrc/slic.cu`` (or raises), on CPU tensors it runs its plain form, the
-``*_reference`` function beside it; any other device raises.  Nothing
-falls back from one to the other.  The seeds and the edge snap stay plain
-PyTorch on both devices.
+The assignment, the update, the vote and the edge snap route by the
+device of their input (:func:`route`): on CUDA tensors each launches its
+kernel of ``csrc/slic.cu`` (or raises), on CPU tensors it runs its plain
+form, the ``*_reference`` function beside it (for the snap
+``apply_edge_snap`` on ``compute_edges``); any other device raises.
+Nothing falls back from one to the other.  The seeds stay plain PyTorch on
+both devices.
 
 In the plain forms the candidate clusters are read with a direct gather
 instead of the JAX module's upsampled cell maps, which existed only to
@@ -41,13 +42,14 @@ from cl_multiview_stereo_tpu_torch.kernels import build
 # Each kernel's launches since import (or since the caller reset them):
 # chip_smoke.py reads them to show that the main path went through the
 # kernels.  An update is one launch of its C entry (two kernels).
-LAUNCHES = {"slic_assign": 0, "slic_update": 0, "slic_vote": 0}
+LAUNCHES = {"slic_assign": 0, "slic_update": 0, "slic_vote": 0, "edge_snap": 0}
 # pointer and int arguments of each C entry, in order, before its floats
 # and the stream (kernels/build.py's library "slic")
 _ENTRIES = {
     "slic_assign": (4, 6, 3),
     "slic_update": (6, 6, 0),
     "slic_vote": (2, 3, 0),
+    "edge_snap": (5, 4, 0),
 }
 
 
@@ -353,6 +355,35 @@ def apply_edge_snap(lab: torch.Tensor, edges: torch.Tensor, spmap: SuperpixelMap
     return SuperpixelMap(center=center, color=color, count=spmap.count, disp=spmap.disp)
 
 
+def edge_snap_reference(lab: torch.Tensor, spmap: SuperpixelMap) -> SuperpixelMap:
+    """Plain form of :func:`edge_snap`: :func:`apply_edge_snap` on the
+    whole image's :func:`compute_edges`."""
+    return apply_edge_snap(lab, compute_edges(lab), spmap)
+
+
+def edge_snap(lab: torch.Tensor, spmap: SuperpixelMap) -> SuperpixelMap:
+    """The seeds' edge snap (clcode.cl:161-248): each centre moves to the
+    lowest Sobel magnitude of ``lab`` (V, H, W, 3) among itself and its 8
+    neighbours and takes that pixel's colour; count and disp pass through.
+    ``edge_snap`` on a CUDA ``lab`` (the map's centre and colour contiguous
+    float32 on that device), computing the magnitude at those 9 pixels
+    only; the plain form on a CPU one."""
+    if route(lab.device) == "plain":
+        return edge_snap_reference(lab, spmap)
+    if lab.ndim != 4:
+        raise ValueError(f"lab has shape {tuple(lab.shape)}, expected (V, H, W, 3)")
+    v, h, w = lab.shape[:3]
+    build.check_input("lab", lab, torch.float32, (v, h, w, 3), lab.device)
+    cells = spmap.center.shape[1:3]
+    for name, t, c in (("spmap.center", spmap.center, 2), ("spmap.color", spmap.color, 3)):
+        build.check_input(name, t, torch.float32, (v, *cells, c), lab.device)
+    center, color = torch.empty_like(spmap.center), torch.empty_like(spmap.color)
+    if center.numel():
+        _launch("edge_snap", lab.device, lab.data_ptr(), spmap.center.data_ptr(), spmap.color.data_ptr(),
+                center.data_ptr(), color.data_ptr(), v, h, w, cells[0] * cells[1])
+    return spmap._replace(center=center, color=color)
+
+
 def suppress_local_labels_reference(labels: torch.Tensor) -> torch.Tensor:
     """Plain form of :func:`suppress_local_labels`."""
     v, h, w = labels.shape
@@ -388,10 +419,10 @@ def suppress_local_labels(labels: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _segment(lab, geom, p, assign, update, vote) -> tuple[torch.Tensor, SuperpixelMap]:
+def _segment(lab, geom, p, assign, update, vote, snap) -> tuple[torch.Tensor, SuperpixelMap]:
     spmap = init_cluster_centers(lab, geom)
     if p.edge_enable:
-        spmap = apply_edge_snap(lab, compute_edges(lab), spmap)
+        spmap = snap(lab, spmap)
     labels = assign(lab, spmap, geom, p)
     for _ in range(p.no_iter):
         spmap = update(lab, labels, spmap, geom)
@@ -408,7 +439,8 @@ def segment(
 
     Returns (labels (V, H, W) int32, SuperpixelMap).
     """
-    return _segment(lab, geom, p, find_center_association, update_cluster_centers, suppress_local_labels)
+    return _segment(lab, geom, p, find_center_association, update_cluster_centers, suppress_local_labels,
+                    edge_snap)
 
 
 def segment_reference(
@@ -417,4 +449,4 @@ def segment_reference(
     """:func:`segment` through the plain forms on any device: what the
     kernels are held to on the card."""
     return _segment(lab, geom, p, find_center_association_reference, update_cluster_centers_reference,
-                    suppress_local_labels_reference)
+                    suppress_local_labels_reference, edge_snap_reference)

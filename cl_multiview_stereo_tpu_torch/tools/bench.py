@@ -227,6 +227,7 @@ def reset_launches() -> None:
         color,
         consistency,
         cost_volume,
+        crosscheck,
         raster,
         slic,
         smoothness,
@@ -236,7 +237,7 @@ def reset_launches() -> None:
 
     cost_volume.LAUNCHES = sweep.LAUNCHES = consistency.LAUNCHES = 0
     for counts in (color.LAUNCHES, superpixel.LAUNCHES, slic.LAUNCHES, smoothness.LAUNCHES, raster.LAUNCHES,
-                   chain.LAUNCHES):
+                   chain.LAUNCHES, crosscheck.LAUNCHES):
         counts.update(dict.fromkeys(counts, 0))
     REPLAYED_LAUNCHES.clear()
 

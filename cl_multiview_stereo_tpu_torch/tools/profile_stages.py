@@ -4,7 +4,7 @@ time on (port of the JAX package's ``tools/profile_stages.py``).
 Usage:
 
   python -m cl_multiview_stereo_tpu_torch.tools.profile_stages [--cell slice|strips] \\
-      [--hw 1080x1920] [--set key=val ...] [--device cuda|cpu]
+      [--hw 1080x1920] [--set key=val ...] [--cross-check] [--device cuda|cpu]
 
 On ``bench.py``'s scene (:func:`scene`: the synthetic fronto-parallel
 plane at disparity 40 over the settings' camera grid), after one warm-up
@@ -31,8 +31,11 @@ run:
 
 ``--cell slice`` is ``MVSPipeline.run`` at its defaults; ``--cell strips``
 is :func:`strips_scene`, the same stages with the strips consistency
-engine.  The last line is one JSON object: ``cell``, ``stage_ms``,
-``total_ms``, ``mp_per_s``, ``breakdown``, ``card``, ``settings``, ``hw``.
+engine.  ``--cross-check`` creates the pipeline with ``cross_check=True``,
+as ``cli run --cross-check`` does (the slice cell's fusion then warps and
+votes).  The last line is one JSON object: ``cell``, ``stage_ms``,
+``total_ms``, ``mp_per_s``, ``breakdown``, ``card``, ``settings``,
+``cross_check``, ``hw``.
 With ``--device cpu`` the stages run once and every device field is null.
 """
 
@@ -269,6 +272,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--hw", default="1080x1920", help="image height x width")
     ap.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
                     help="override a SystemSettings field")
+    ap.add_argument("--cross-check", action="store_true", help="the pipeline with cross_check=True")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu (runs, measures nothing)")
     return ap
@@ -288,9 +292,9 @@ def main(argv: list[str] | None = None) -> dict:
     s = SystemSettings().replace(**overrides)
     h, w = parse_hw(args.hw)
     rgb = torch.as_tensor(scene(s, h, w), device=dev)
-    fn = eager(args.cell, MVSPipeline.create(w, h, s, device=dev), rgb)
+    fn = eager(args.cell, MVSPipeline.create(w, h, s, device=dev, cross_check=args.cross_check), rgb)
     rec = {"cell": args.cell, "stage_ms": None, "total_ms": None, "mp_per_s": None, "breakdown": None,
-           "card": "cpu", "settings": overrides, "hw": f"{h}x{w}"}
+           "card": "cpu", "settings": overrides, "cross_check": args.cross_check, "hw": f"{h}x{w}"}
     fn(None)  # warm-up (kernel builds, device tables)
     if dev.type == "cuda":
         ms = stage_ms(fn)

@@ -10,8 +10,10 @@ real inputs: :func:`cost_volume_work`, :func:`sweep_work`,
 for smoothness's two :func:`smooth_cache_work` and :func:`smooth_moves_work`,
 for the plane rasterization :func:`raster_work`, for the move chain's
 three :func:`chain_moves_work`, :func:`chain_update_work` and
-:func:`chain_refit_work`, and for the Lab conversion and the superpixel
-extent :func:`lab_work` and :func:`extent_work`.
+:func:`chain_refit_work`, for the Lab conversion and the superpixel
+extent :func:`lab_work` and :func:`extent_work`, and for the cross-check's
+warp and vote and the seeds' edge snap :func:`fuse_warp_work`,
+:func:`fuse_vote_work` and :func:`edge_snap_work`.
 ``chip_smoke.py`` and this tool both use them, so a kernel's roofline
 share reads the same work whatever implements it.
 :func:`gather_work` counts the row gathers of ``tools.profile_propagate``'s
@@ -21,7 +23,8 @@ Usage:
 
   python -m cl_multiview_stereo_tpu_torch.tools.roofline \\
       [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote|smooth_cache|smooth_moves|
-                raster_planes|chain_moves|chain_update|chain_refit|lab_convert|extent_walk] \\
+                raster_planes|chain_moves|chain_update|chain_refit|lab_convert|extent_walk|fuse_warp|fuse_vote|
+                edge_snap] \\
       [--shapes main|row] [--calls sweep0|path] [--csrc DIR] \\
       [--views 2 --height 480 --width 640 --d 64] [--device cuda|cpu]
 
@@ -32,11 +35,14 @@ SLIC kernels on the scene's converged labels and map; the smoothness kernels
 on sweep 0's cache and its two calls, the main path's launches; the raster
 and chain kernels on sweep 0's table, candidates and two accept walks; the
 Lab conversion on the scene's uint8 views and the extent on its converged
-labels and map).
+labels and map; the cross-check's warp and vote on the slice's refined
+disparity, ``MVSPipeline.run``'s ``disp_full``, the vote on that map's
+warp; the edge snap on the scene's Lab and SLIC's seed centres).
 ``--shapes row`` is the JAX tool's case: ``--views`` views in one row,
 ``--height`` x ``--width``, the ladder 4 .. 3 + ``--d``; the sweep there
 reads random Lab with each view against its right and left neighbour.  Without ``--shapes`` the sweep takes
 ``row`` (2x480x640, D = 64: BASELINE config 1) and the others ``main``.
+``--kernel`` repeats (``--kernel fuse_warp --kernel fuse_vote``).
 ``--calls path`` takes the raster and chain kernels on every call of the
 main path instead of sweep 0's: ``raster_planes`` on the init's table,
 sweeps 0-4's tables and fusion's map (7 launches), each chain kernel on
@@ -100,6 +106,18 @@ RASTER_OPS_PIXEL, CHAIN_OPS_MOVE, CHAIN_OPS_ACCEPT, CHAIN_OPS_GREEDY, CHAIN_OPS_
 # 2, a's 2 and b's 2), each cube root counted as one; the extent walk does
 # no float arithmetic (integer bounds tests and label compares)
 LAB_OPS_PIXEL = 33
+# the cross-check: a warp probe costs 16 (the shift's 3 products, two
+# OpenCL rounds at 3 (the compare, the add, the floor), 2 differences, 4
+# bounds compares, the max's compare); the vote's take tests 4 a (candidate,
+# output), and a candidate it looks at costs 1 (bl * d) and 5 an agreement
+# term (a difference, an absolute, 2 compares, the add), a lookup it makes
+# 23 (2 grid differences, 2 products, 2 rounds, 2 differences, 4 bounds
+# compares, a difference, an absolute, 2 compares, the add, the 2 tests
+# whether the sign is settled); the edge snap's Sobel
+# magnitude costs 60 a pixel (a channel's DX and DY 8 each, its square sum
+# 3; 2 channel adds; the sqrt as one), its ring scan 1 a neighbour in the view
+FUSE_OPS_PROBE, FUSE_OPS_TAKE, FUSE_OPS_AGREE, FUSE_OPS_LOOKUP = 16, 4, 5, 23
+EDGE_OPS_PIXEL, EDGE_OPS_RING = 60, 1
 # the bytes of one device memory sector, the unit a gather reads rows in
 SECTOR = 32
 # the card's SMs, warp schedulers an SM (each issues one warp instruction a
@@ -110,10 +128,12 @@ ITERS = {"cost_volume": (10, 2), "sweep": (3, 1), "consistency": (10, 1),
          "slic_assign": (20, 2), "slic_update": (20, 1), "slic_vote": (20, 2),
          "smooth_cache": (10, 1), "smooth_moves": (10, 1),
          "raster_planes": (20, 2), "chain_moves": (20, 2), "chain_update": (20, 1), "chain_refit": (20, 2),
-         "lab_convert": (20, 1), "extent_walk": (20, 1)}
+         "lab_convert": (20, 1), "extent_walk": (20, 1), "fuse_warp": (20, 1), "fuse_vote": (10, 1),
+         "edge_snap": (20, 2)}
 SLIC_KERNELS = ("slic_assign", "slic_update", "slic_vote")
 SMOOTH_KERNELS = ("smooth_cache", "smooth_moves")
 CHAIN_KERNELS = ("raster_planes", "chain_moves", "chain_update", "chain_refit")
+FUSION_KERNELS = ("fuse_warp", "fuse_vote")
 KERNELS = tuple(ITERS)
 NOT_MEASURED = "not measured"
 # device clock cycles cuda_ms spins before its window: about 5 ms, longer
@@ -377,6 +397,80 @@ def extent_work(labels, centers, geom, out) -> tuple[int, int]:
     return SECTOR * int(touched.sum()) + nbytes(centers, out), 0
 
 
+def fuse_warp_work(disp_full, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``fuse_warp`` launch that wrote ``out``
+    (nv, H, W) from ``disp_full`` (V, H, W): the map read once, ``out``
+    written once; FUSE_OPS_PROBE a (reference pixel, other view)."""
+    return nbytes(disp_full, out), FUSE_OPS_PROBE * out.numel() * (disp_full.shape[0] - 1)
+
+
+def vote_counts(disp_proj, disp_full, array_width: int, bl_ratio: float, fuse: float,
+                view_range=None) -> tuple[int, int]:
+    """(candidates looked at, lookups made) of the vote on these inputs, the
+    running winner following the plain vote (``fusion.vote_stabilities``):
+    a (candidate, output) is looked at where the take rule could still
+    accept it whatever its stability (d != 0, and no earlier winner or one
+    below d); its lookups run in view order while the lookups left could
+    still change the stability's sign (stability - left < 0 <= stability +
+    left)."""
+    from cl_multiview_stereo_tpu_torch.ops.fusion import vote_stabilities
+
+    looked = lookups = 0
+    best = None
+    for d, stab1, votes in vote_stabilities(disp_proj, disp_full, array_width, bl_ratio, fuse, view_range):
+        if best is None:
+            best = torch.zeros_like(d)
+        need = (d != 0) & ((best == 0) | (best < d))
+        looked += int(need.sum())
+        stability = stab1.expand(d.shape)
+        v = disp_proj.shape[0]
+        for j, vote in enumerate(votes):
+            left = v - j
+            lookups += int((need & (stability - left < 0) & (stability + left >= 0)).sum())
+            stability = stability + vote
+        best = torch.where(need & (stability >= 0), d, best)
+    return looked, lookups
+
+
+def fuse_vote_work(disp_proj, disp_full, array_width: int, bl_ratio: float, fuse: float, view_range,
+                   out) -> tuple[int, int]:
+    """(bytes, operations) of one ``fuse_vote`` launch that wrote ``out``
+    (nv, H, W), counted as this run's data needs: both maps read once,
+    ``out`` written once; FUSE_OPS_TAKE a (candidate, output), each
+    candidate the vote looks at (:func:`vote_counts`) its bl * d and V
+    agreement terms, each lookup it makes FUSE_OPS_LOOKUP."""
+    v = disp_proj.shape[0]
+    looked, lookups = vote_counts(disp_proj, disp_full, array_width, bl_ratio, fuse, view_range)
+    ops = FUSE_OPS_TAKE * v * out.numel() + looked * (1 + v * FUSE_OPS_AGREE) + lookups * FUSE_OPS_LOOKUP
+    return nbytes(disp_proj, disp_full, out), ops
+
+
+def edge_snap_work(lab, spmap, out) -> tuple[int, int]:
+    """(bytes, operations) of one ``edge_snap`` launch on ``lab`` (V, H, W,
+    3) and the seeds ``spmap`` that wrote the map ``out``, counted as this
+    run's data needs: the Lab pixels of each centre's 5x5 block around its
+    clamped centre (rows and columns clamped into the view: every tap of the
+    centre's and its ring's magnitudes), in the distinct SECTOR-byte sectors
+    that hold them, each read once; the centres and colours read once and
+    written once; EDGE_OPS_PIXEL a magnitude (the centre's and those of its
+    ring pixels in the view), EDGE_OPS_RING a ring pixel in the view."""
+    from cl_multiview_stereo_tpu_torch.ops.slic import _EDGE_RING
+
+    v, h, w = lab.shape[:3]
+    cx, cy = spmap.center[..., 0].to(torch.int64), spmap.center[..., 1].to(torch.int64)
+    ccx, ccy = cx.clamp(0, w - 1), cy.clamp(0, h - 1)
+    base = (torch.arange(v, dtype=torch.int64, device=lab.device) * h * w).reshape(v, 1, 1)
+    touched = torch.zeros(-(-nbytes(lab) // SECTOR), dtype=torch.bool, device=lab.device)
+    for dy in range(-2, 3):
+        for dx in range(-2, 3):
+            pix = base + (ccy + dy).clamp(0, h - 1) * w + (ccx + dx).clamp(0, w - 1)
+            touched[12 * pix // SECTOR] = True
+            touched[(12 * pix + 11) // SECTOR] = True
+    ring = sum(int(((cx + dx >= 0) & (cy + dy >= 0) & (cx + dx < w) & (cy + dy < h)).sum()) for dx, dy in _EDGE_RING)
+    n_bytes = SECTOR * int(touched.sum()) + nbytes(spmap.center, spmap.color, out.center, out.color)
+    return n_bytes, EDGE_OPS_PIXEL * (cx.numel() + ring) + EDGE_OPS_RING * ring
+
+
 def gather_work(n_rows: int, row_bytes: int, rows, out, *indices) -> tuple[int, int]:
     """(bytes, operations) of a row gather ``out`` from a contiguous table
     of ``n_rows`` rows of ``row_bytes`` each (``tools.profile_propagate``'s
@@ -458,6 +552,48 @@ def slic_calls(kernel: str, lab, geom, p, labels, spmap) -> tuple:
         return (lambda: slic.update_cluster_centers(lab, labels, spmap, geom),
                 lambda: slic.update_cluster_centers_reference(lab, labels, spmap, geom))
     return (lambda: slic.suppress_local_labels(labels), lambda: slic.suppress_local_labels_reference(labels))
+
+
+def fusion_inputs(settings, rgb, device) -> tuple:
+    """The cross-check's inputs on scene ``rgb``: the slice's refined
+    disparity (``MVSPipeline.run``'s ``disp_full`` at the defaults), its
+    warp, and the geometry (array_width, bl_ratio, fuse) the pipeline's
+    fusion passes."""
+    from cl_multiview_stereo_tpu_torch.config import RefinementSchedule
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+    from cl_multiview_stereo_tpu_torch.ops import crosscheck
+
+    s = settings
+    h, w = rgb.shape[1:3]
+    disp_full = MVSPipeline.create(w, h, s, device=device).run(rgb).disp_full
+    geo = (s.array_width, s.bl_ratio, RefinementSchedule.create(s).fuse_eff)
+    return disp_full, crosscheck.warp(disp_full, *geo[:2]), geo
+
+
+def fusion_case(kernel: str, disp_full, disp_proj, geo) -> tuple:
+    """(kernel fn, plain fn, (bytes, operations)) of the cross-check's warp
+    or vote on :func:`fusion_inputs`."""
+    from cl_multiview_stereo_tpu_torch.ops import crosscheck, fusion
+
+    aw, bl, fuse = geo
+    if kernel == "fuse_warp":
+        return (lambda: crosscheck.warp(disp_full, aw, bl), lambda: fusion.project_to_reference_inv_reference(
+            disp_full, aw, bl), fuse_warp_work(disp_full, crosscheck.warp(disp_full, aw, bl)))
+    args = (disp_proj, disp_full, aw, bl, fuse)
+    return (lambda: crosscheck.vote(*args), lambda: fusion.remove_view_inconsistency_reference(*args),
+            fuse_vote_work(*args, None, crosscheck.vote(*args)))
+
+
+def snap_inputs(rgb, settings, device) -> tuple:
+    """The edge snap's inputs on scene ``rgb`` as SLIC takes them: (Lab,
+    the seed map)."""
+    from cl_multiview_stereo_tpu_torch.config import DerivedGeometry
+    from cl_multiview_stereo_tpu_torch.ops import slic
+    from cl_multiview_stereo_tpu_torch.ops.color import rgb_to_lab
+
+    h, w = rgb.shape[1:3]
+    lab = rgb_to_lab(torch.as_tensor(rgb, device=device)).contiguous()
+    return lab, slic.init_cluster_centers(lab, DerivedGeometry.create(w, h, settings))
 
 
 def sweep0_state(settings, rgb, device):
@@ -679,6 +815,17 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
         return label, [(lambda: superpixel.superpixel_extent(*ex),
                         lambda: superpixel.superpixel_extent_reference(*ex),
                         extent_work(*ex, superpixel.superpixel_extent(*ex)))]
+    if kernel in FUSION_KERNELS:
+        disp_full, disp_proj, geo = fusion_inputs(s, rgb, device)
+        label = f"{tuple(disp_full.shape)} refined disparity, array_width {geo[0]}, fuse {geo[2]}"
+        return label, [fusion_case(kernel, disp_full, disp_proj, geo)]
+    if kernel == "edge_snap":
+        from cl_multiview_stereo_tpu_torch.ops import slic
+
+        lab, spmap = snap_inputs(rgb, s, device)
+        label = f"{tuple(lab.shape)} Lab, {tuple(spmap.center.shape[:3])} seeds"
+        return label, [(lambda: slic.edge_snap(lab, spmap), lambda: slic.edge_snap_reference(lab, spmap),
+                        edge_snap_work(lab, spmap, slic.edge_snap(lab, spmap)))]
     if kernel == "cost_volume":
         lab, centers, step = depth_inputs(rgb, s, device)
         levels = torch.as_tensor(build_disp_levels(s), device=device)
@@ -754,7 +901,8 @@ def measure(kernel: str, shapes: str, args, device, card: str) -> dict:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="roofline")
-    ap.add_argument("--kernel", default="all", choices=("all",) + KERNELS)
+    ap.add_argument("--kernel", action="append", choices=("all",) + KERNELS,
+                    help="a kernel, repeatable (default: all)")
     ap.add_argument("--shapes", choices=("main", "row"),
                     help="the slice's shapes, or the JAX tool's row of views "
                          "(default: row for the sweep, main for the others)")
@@ -787,7 +935,7 @@ def main(argv: list[str] | None = None) -> list[dict]:
     dev = resolve_device(args.device)
     card = card_name() if dev.type == "cuda" else "cpu"
     recs = []
-    for kernel in KERNELS if args.kernel == "all" else (args.kernel,):
+    for kernel in KERNELS if not args.kernel or "all" in args.kernel else args.kernel:
         shapes = args.shapes or ("row" if kernel == "sweep" else "main")
         recs.append(measure(kernel, shapes, args, dev, card))
         print(json.dumps(recs[-1]), flush=True)

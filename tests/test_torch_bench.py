@@ -51,7 +51,7 @@ def test_bench_record_on_the_cpu(cell, capsys):
     assert rec["launches"] == {"lab_convert": 0, "cost_volume": 0, "sweep": 0, "consistency": 0, "slic_assign": 0,
                                "slic_update": 0, "slic_vote": 0, "extent_walk": 0, "smooth_cache": 0,
                                "smooth_moves": 0, "raster_planes": 0, "chain_moves": 0, "chain_update": 0,
-                               "chain_refit": 0}
+                               "chain_refit": 0, "edge_snap": 0, "fuse_warp": 0, "fuse_vote": 0}
 
 
 def test_bench_slice_cell_equals_run(tmp_path):
@@ -80,6 +80,15 @@ def test_profile_stages_and_memcheck_on_the_cpu(capsys):
     mem = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert mem["card"] == "cpu" and mem["views"] == 4 and mem["pair_layout"] == "view"
     assert mem["fits"] is None and mem["peak_allocated_gib"] is None and mem["total_gib"] is None
+
+
+def test_profile_stages_cross_check_on_the_cpu():
+    """``--cross-check`` runs the slice cell's pipeline with the
+    cross-check fusion (the CLI's ``run --cross-check``) and says so."""
+    argv = ["--device", "cpu", "--cell", "slice", "--hw", f"{H}x{W}"] + [w for kv in SMALL for w in ("--set", kv)]
+    rec = profile_stages.main(argv + ["--cross-check"])
+    assert rec["cross_check"] is True and rec["card"] == "cpu" and rec["stage_ms"] is None
+    assert profile_stages.main(argv)["cross_check"] is False
 
 
 def test_idle_gaps_named_by_the_innermost_range():

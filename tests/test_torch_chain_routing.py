@@ -443,3 +443,14 @@ def test_turns_runs_each_tool_in_each_tree(tmp_path):
     assert run["tree"] == "this" and run["tool"] == tool and run["record"]["kernel"] == "chain_refit"
     assert run["record"]["ms"] == "not measured"
     assert json.loads((tmp_path / "t.json").read_text()) == res
+
+
+def test_turns_same_tools_runs_this_trees_tool_source(tmp_path):
+    """``--same-tools`` runs this tree's tool file (not ``-m``) on the
+    tree's package; without ``--parent`` the tree is this one."""
+    from cl_multiview_stereo_tpu_torch.tools import turns
+
+    tool = "roofline --device cpu --shapes row --views 2 --height 24 --width 40 --d 4 --kernel fuse_warp"
+    res = turns.main(["--same-tools", "--tool", tool])
+    assert res["same_tools"] is True and res["order"] == ["this"]
+    assert res["runs"][0]["record"]["kernel"] == "fuse_warp" and res["runs"][0]["record"]["bound_ms"] > 0

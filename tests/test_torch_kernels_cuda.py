@@ -29,6 +29,7 @@ from cl_multiview_stereo_tpu_torch.ops import (
     color,
     consistency,
     cost_volume,
+    crosscheck,
     fusion,
     raster,
     refine,
@@ -1747,3 +1748,215 @@ def test_lab_and_extent_wrappers_reject_bad_input(cuda):
         superpixel.superpixel_extent(labels, centers[:, :-1], geom)
     with pytest.raises(ValueError):
         superpixel.superpixel_extent(labels, centers.cpu(), geom)
+
+
+# ---------------------------------------------------------------------------
+# Fusion's cross-check (csrc/crosscheck.cu) and the seeds' edge snap
+# (csrc/slic.cu)
+# ---------------------------------------------------------------------------
+
+# view ranges of the cross-check: every view, a block of 3 (the sharded
+# path's rank 1 of 3), the last view alone, and none (no launch)
+VIEW_RANGES = {"all": None, "3..5": (3, 3), "last": (8, 1), "none": (0, 0)}
+
+
+def _seeded_maps(device, v=9, h=53, w=131, seed=0):
+    """Piecewise disparities on a half-pixel grid with zeros, NaN, +inf and
+    -inf: differences of exactly 0.5 and 1.0, the vote's ``fuse`` below,
+    tie with it."""
+    rng = np.random.default_rng(seed)
+    d = rng.choice([0.0, 4.0, 7.0, 12.0], size=(v, h, w), p=[0.1, 0.4, 0.3, 0.2]) + rng.integers(0, 3, (v, h, w)) * 0.5
+    d = d.astype(np.float32)
+    u = rng.random((v, h, w))
+    d[u < 0.01] = np.nan
+    d[(u >= 0.01) & (u < 0.015)] = np.inf
+    d[(u >= 0.015) & (u < 0.02)] = -np.inf
+    return torch.as_tensor(d, device=device)
+
+
+def _fuse_bitwise(disp, aw, bl, fuse, view_range):
+    """fuse_warp and fuse_vote on ``disp`` against their plain forms, each
+    launching once (none for an empty range); returns the vote."""
+    before = dict(crosscheck.LAUNCHES)
+    proj = crosscheck.warp(disp, aw, bl, view_range)
+    _same_bits(proj, fusion.project_to_reference_inv_reference(disp, aw, bl, view_range), "warp")
+    whole = fusion.project_to_reference_inv_reference(disp, aw, bl)
+    got = crosscheck.vote(whole, disp, aw, bl, fuse, view_range)
+    _same_bits(got, fusion.remove_view_inconsistency_reference(whole, disp, aw, bl, fuse, view_range), "vote")
+    n = 0 if got.numel() == 0 else 1
+    assert {k: crosscheck.LAUNCHES[k] - before[k] for k in before} == {"fuse_warp": n, "fuse_vote": n}
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view_range", list(VIEW_RANGES))
+def test_fuse_kernels_bitwise_on_the_refined_disparity(cuda, view_range):
+    """The slice's refined disparity of a 9x270x480 scene at the shipping
+    settings: the warp and the vote bitwise their plain forms."""
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+
+    s = SystemSettings()
+    rgb, _ = synthetic.fronto_parallel_scene(270, 480, 3, 3, disp=10.0, bl_ratio=s.bl_ratio, seed=4)
+    disp = MVSPipeline.create(480, 270, s, device=cuda).run(rgb).disp_full
+    got = _fuse_bitwise(disp, s.array_width, s.bl_ratio, RefinementSchedule.create(s).fuse_eff,
+                        VIEW_RANGES[view_range])
+    if view_range == "all":
+        assert (got == 0).any() and (got != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [0.5, 1.0])
+@pytest.mark.parametrize("view_range", list(VIEW_RANGES))
+def test_fuse_kernels_bitwise_on_seeded_maps(cuda, view_range, fuse):
+    """An odd 9x53x131 map holding NaN, +-inf and differences equal to
+    ``fuse``: NaN in the same places, ties abstaining as in the plain form."""
+    disp = _seeded_maps(cuda)
+    got = _fuse_bitwise(disp, 3, 1.0359, fuse, VIEW_RANGES[view_range])
+    if view_range == "all":
+        assert bool(torch.isnan(got).any()) and (got == 0).any()
+
+
+@pytest.mark.cuda
+def test_fuse_kernels_bitwise_on_a_2x2_grid(cuda):
+    """A 2x2 camera grid at bl_ratio 0.97 (other deltas, other rounding)."""
+    _fuse_bitwise(_seeded_maps(cuda, v=4, h=37, w=64, seed=5), 2, 0.97, 1.0, None)
+
+
+@pytest.mark.cuda
+def test_crosscheck_fusion_launches_the_kernels(cuda):
+    """fuse_views with cross_check on the card: one warp and one vote."""
+    disp_seed = _seeded_maps(cuda, v=4, h=24, w=32, seed=1)
+    labels = torch.arange(24 * 32, dtype=torch.int32, device=cuda).reshape(1, 24, 32).expand(4, 24, 32) % 12
+    centers = torch.rand((4, 3, 4, 2), device=cuda) * 20
+    d = torch.nan_to_num(disp_seed[:, :3, :4], posinf=9.0, neginf=4.0, nan=5.0).contiguous()
+    nrm = torch.zeros((4, 3, 4, 3), device=cuda)
+    nrm[..., 2] = 1.0
+    before = dict(crosscheck.LAUNCHES)
+    got = fusion.fuse_views(labels.contiguous(), centers, d, nrm, array_width=2, bl_ratio=1.0, fuse=0.5,
+                            cross_check=True)
+    assert {k: crosscheck.LAUNCHES[k] - before[k] for k in before} == {"fuse_warp": 1, "fuse_vote": 1}
+    plain = fusion.rasterize_planes_reference(labels, centers, d, nrm)
+    want = fusion.remove_view_inconsistency_reference(
+        fusion.project_to_reference_inv_reference(plain, 2, 1.0), plain, 2, 1.0, 0.5)
+    _same_bits(got, want, "fuse_views")
+
+
+def _snap_inputs(case, device):
+    """(lab, seeds) of a scene at the case's size and cell: SLIC's seed
+    centres, or centres moved onto and past the image's border, or random
+    ones reaching 2 pixels past it on every side."""
+    kind, (h, w, cell) = case
+    s = SystemSettings(array_width=3, array_height=3, spixl_size=cell)
+    rgb, _ = synthetic.fronto_parallel_scene(h, w, 3, 3, disp=5.0, bl_ratio=1.0, seed=3)
+    lab = rgb_to_lab(torch.as_tensor(rgb, device=device)).contiguous()
+    seeds = slic.init_cluster_centers(lab, DerivedGeometry.create(w, h, s))
+    c = seeds.center.clone()
+    gen = torch.Generator().manual_seed(7)
+    if kind == "border":
+        xs = torch.tensor([0.0, w - 1.0, float(w), -1.0, 0.7, w - 0.2])
+        ys = torch.tensor([0.0, h - 1.0, float(h), -1.0, 0.3, h - 0.5])
+        c[..., 0] = xs[torch.randint(0, 6, c.shape[:3], generator=gen)].to(device)
+        c[..., 1] = ys[torch.randint(0, 6, c.shape[:3], generator=gen)].to(device)
+    elif kind == "random":
+        c[..., 0] = (torch.rand(c.shape[:3], generator=gen) * (w + 4) - 2).to(device)
+        c[..., 1] = (torch.rand(c.shape[:3], generator=gen) * (h + 4) - 2).to(device)
+    return lab, seeds._replace(center=c.contiguous())
+
+
+# (centres, (H, W, cell)): the seeds at 8-pixel cells, on a ragged image
+# whose last seed column lies on x = W (past the image), at 4-pixel cells;
+# centres on the border, random centres
+SNAP_CASES = {
+    "seeds-54x96": ("init", (54, 96, 8)),
+    "seeds-60x60": ("init", (60, 60, 8)),
+    "seeds-61x45": ("init", (61, 45, 8)),
+    "seeds-37x53-S4": ("init", (37, 53, 4)),
+    "border-54x96": ("border", (54, 96, 8)),
+    "border-61x45": ("border", (61, 45, 8)),
+    "random-54x96": ("random", (54, 96, 8)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SNAP_CASES))
+def test_edge_snap_bitwise(cuda, case):
+    lab, seeds = _snap_inputs(SNAP_CASES[case], cuda)
+    before = slic.LAUNCHES["edge_snap"]
+    got = slic.edge_snap(lab, seeds)
+    want = slic.edge_snap_reference(lab, seeds)
+    assert slic.LAUNCHES["edge_snap"] == before + 1
+    _same_bits(got.center, want.center, "center")
+    _same_bits(got.color, want.color, "color")
+    assert got.count is seeds.count and got.disp is seeds.disp
+    assert (want.center != seeds.center).any()
+    if case == "seeds-60x60":  # the last seed column lies on x = 60, outside the view
+        assert float(seeds.center[..., 0].max()) == 60.0
+
+
+@pytest.mark.cuda
+def test_run_sharded_crosscheck_bitwise_run(nccl_world1):
+    """The view-sharded pipeline with the cross-check (one rank: the warp
+    and the vote over its view range, the warped maps all-gathered between
+    them) bitwise MVSPipeline.run."""
+    from cl_multiview_stereo_tpu_torch.models.mvs_pipeline import MVSPipeline
+    from cl_multiview_stereo_tpu_torch.parallel.mesh import make_mesh
+    from cl_multiview_stereo_tpu_torch.parallel.sharded_pipeline import run_sharded
+
+    s = SystemSettings(**JIT_SETTINGS)
+    pipe = MVSPipeline.create(96, 72, s, device=nccl_world1, cross_check=True)
+    rgb = _jit_scene(7.0, 1)
+    want = pipe.run(rgb).disp_full
+    before = dict(crosscheck.LAUNCHES)
+    got = run_sharded(pipe, torch.as_tensor(rgb, device=nccl_world1), make_mesh())
+    torch.cuda.synchronize()
+    assert {k: crosscheck.LAUNCHES[k] - before[k] for k in before} == {"fuse_warp": 1, "fuse_vote": 1}
+    _same_bits(got, want, "run_sharded")
+
+
+@pytest.mark.cuda
+def test_jitted_crosscheck_and_edge_snap_bitwise_run(cuda):
+    """cross_check and edge_enable through the graph of ``jitted()``: each
+    replay launches the warp, the vote and the snap once and gives run()'s
+    bits."""
+    from cl_multiview_stereo_tpu_torch.models import mvs_pipeline
+
+    s = SystemSettings(**JIT_SETTINGS, edge_enable=True)
+    pipe = mvs_pipeline.MVSPipeline.create(96, 72, s, device=cuda, cross_check=True)
+    fwd = pipe.jitted()
+    a, b = _jit_scene(7.0, 1), _jit_scene(5.0, 2)
+    fwd(a)
+    replayed = dict(mvs_pipeline.REPLAYED_LAUNCHES)
+    got_a, got_b = fwd(a), fwd(b)
+    want_a, want_b = pipe.run(a), pipe.run(b)
+    torch.cuda.synchronize()
+    for got, want in ((got_a, want_a), (got_b, want_b)):
+        for name, x, y in _leaf_pairs(got, want):
+            assert torch.equal(x, y), name
+    assert {k: mvs_pipeline.REPLAYED_LAUNCHES.get(k, 0) - replayed.get(k, 0)
+            for k in ("fuse_warp", "fuse_vote", "edge_snap")} == {"fuse_warp": 2, "fuse_vote": 2, "edge_snap": 2}
+
+
+@pytest.mark.cuda
+def test_crosscheck_and_snap_wrappers_reject_bad_input(cuda):
+    disp = _seeded_maps(cuda, v=4, h=8, w=8)
+    with pytest.raises(ValueError):
+        crosscheck.warp(disp[0], 2, 1.0)
+    with pytest.raises(TypeError):
+        crosscheck.warp(disp.double(), 2, 1.0)
+    with pytest.raises(ValueError):
+        crosscheck.warp(disp, 2, 1.0, (3, 2))
+    with pytest.raises(ValueError):
+        crosscheck.vote(disp, disp[:, :4], 2, 1.0, 0.5)
+    with pytest.raises(ValueError):
+        crosscheck.vote(disp, disp.cpu(), 2, 1.0, 0.5)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        crosscheck.warp(disp, 0, 1.0)
+    lab, seeds = _snap_inputs(SNAP_CASES["seeds-54x96"], cuda)
+    with pytest.raises(ValueError):
+        slic.edge_snap(lab[0], seeds)
+    with pytest.raises(TypeError):
+        slic.edge_snap(lab, seeds._replace(center=seeds.center.double()))
+    with pytest.raises(ValueError):
+        slic.edge_snap(lab, seeds._replace(color=seeds.color[:, :1]))
+    with pytest.raises(ValueError):
+        slic.edge_snap(lab[..., ::2, :], seeds)

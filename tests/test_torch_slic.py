@@ -1,4 +1,5 @@
-"""SLIC: the port against the JAX package, fed JAX's own Lab image."""
+"""SLIC: the port against the JAX package, fed JAX's own Lab image; the
+edge snap's routing on the CPU and what its wrapper hands the C entry."""
 
 import numpy as np
 import pytest
@@ -121,3 +122,89 @@ def test_segment_with_flags_matches_jax(scene, flags):
     # tests/test_slic.py's bound for JAX against its scalar mirror
     assert agree > 0.995, f"label agreement {agree}"
     np.testing.assert_allclose(n(spmap.center), np.asarray(jspmap.center), rtol=1e-4, atol=1e-3)
+
+
+# -- the edge snap's routing (``slic.edge_snap``; the kernel against the
+# plain form on the card is in test_torch_kernels_cuda.py)
+
+def test_edge_snap_on_the_cpu_is_the_plain_form(scene):
+    """On CPU tensors the routed snap is ``apply_edge_snap`` on
+    ``compute_edges``, bit for bit; count and disp pass through."""
+    lab = t(scene["lab"])
+    seeds = slic.init_cluster_centers(lab, scene["geom"])
+    got = slic.edge_snap(lab, seeds)
+    want = slic.apply_edge_snap(lab, slic.compute_edges(lab), seeds)
+    for f in ("center", "color"):
+        assert torch.equal(getattr(got, f).view(torch.int32), getattr(want, f).view(torch.int32)), f
+    assert got.count is seeds.count and got.disp is seeds.disp
+    ref = slic.edge_snap_reference(lab, seeds)
+    assert torch.equal(ref.center, want.center) and torch.equal(ref.color, want.color)
+    assert (got.center != seeds.center).any()
+
+
+def test_segment_reference_with_the_edge_snap_is_segment_on_the_cpu(scene):
+    s = scene["s"].replace(edge_enable=True, enforce_connectivity=True)
+    p = SlicParams.create(s)
+    labels, spmap = slic.segment(t(scene["lab"]), scene["geom"], p)
+    want_labels, want_map = slic.segment_reference(t(scene["lab"]), scene["geom"], p)
+    assert torch.equal(labels, want_labels)
+    for f in ("center", "color", "count"):
+        assert torch.equal(getattr(spmap, f), getattr(want_map, f)), f
+
+
+def test_edge_snap_routes_by_device(monkeypatch):
+    from cl_multiview_stereo_tpu_torch.kernels import build
+
+    def refuse(name):
+        raise AssertionError(f"a CPU call built {name}")
+
+    monkeypatch.setattr(build, "load", refuse)
+    lab = torch.zeros((2, 16, 16, 3))
+    seeds = slic.init_cluster_centers(lab, DerivedGeometry.create(16, 16, small_settings()))
+    before = slic.LAUNCHES["edge_snap"]
+    slic.edge_snap(lab, seeds)
+    assert slic.LAUNCHES["edge_snap"] == before
+    with pytest.raises(ValueError, match="no SLIC kernel"):
+        slic.edge_snap(lab.to("meta"), seeds)
+
+
+@pytest.mark.parametrize("cells", [(6, 8), (0, 8)], ids=["6x8", "none"])
+def test_edge_snap_wrapper_passes_the_c_entrys_arguments(monkeypatch, cells):
+    """What the card's wrapper hands ``edge_snap_launch``, the launch itself
+    replaced (CPU tensors routed to the kernel): lab, the seeds' centre and
+    colour, fresh outputs of their shapes, the shape and the cell count; no
+    launch for no cell."""
+    calls = []
+    monkeypatch.setattr(slic, "route", lambda dev: "plain" if dev == "never" else "kernel")
+    monkeypatch.setattr(slic, "_launch", lambda name, dev, *a: calls.append((name, a)))
+    v, h, w = 2, 45, 61
+    lab = torch.rand((v, h, w, 3))
+    mh, mw = cells
+    seeds = slic.SuperpixelMap(center=torch.rand((v, mh, mw, 2)), color=torch.rand((v, mh, mw, 3)),
+                               count=torch.zeros((v, mh, mw)), disp=torch.zeros((v, mh, mw)))
+    got = slic.edge_snap(lab, seeds)
+    assert got.center.shape == seeds.center.shape and got.color.shape == seeds.color.shape
+    assert got.count is seeds.count and got.disp is seeds.disp
+    if mh == 0:
+        assert calls == []
+        return
+    (name, args), = calls
+    assert name == "edge_snap" and len(args) == sum(slic._ENTRIES[name])
+    assert args == (lab.data_ptr(), seeds.center.data_ptr(), seeds.color.data_ptr(), got.center.data_ptr(),
+                    got.color.data_ptr(), v, h, w, mh * mw)
+
+
+def test_edge_snap_work_counts_the_blocks_sectors():
+    """``tools.roofline.edge_snap_work`` on one 1x4x4 view with a seed in
+    the middle and one on the corner: the 5x5 block clamped into the view
+    is the whole view (16 pixels, 192 bytes, 6 sectors), read once."""
+    from cl_multiview_stereo_tpu_torch.tools import roofline
+
+    lab = torch.rand((1, 4, 4, 3))
+    seeds = slic.SuperpixelMap(center=torch.tensor([[[[1.5, 2.0], [0.0, 0.0]]]]), color=torch.rand((1, 1, 2, 3)),
+                               count=torch.zeros((1, 1, 2)), disp=torch.zeros((1, 1, 2)))
+    out = slic.edge_snap(lab, seeds)
+    n_bytes, ops = roofline.edge_snap_work(lab, seeds, out)
+    assert n_bytes == 6 * 32 + 2 * 4 * (2 * 2 + 2 * 3)
+    ring = 8 + 3  # all 8 neighbours of (1, 2) lie in the view, 3 of (0, 0)'s
+    assert ops == 60 * (2 + ring) + ring

@@ -244,12 +244,12 @@ def test_vote_bitwise_jax(scene, source):
 
 
 def _c_entries() -> dict[str, list[str]]:
-    """Each ``extern "C"`` ``slic_*_launch`` of ``csrc/slic.cu``: its
-    parameters' kinds in order, "ptr", "int", "float" or "stream" (the
-    trailing ``void* stream``)."""
+    """Each ``extern "C"`` ``*_launch`` of ``csrc/slic.cu`` (``slic_*`` and
+    ``edge_snap``): its parameters' kinds in order, "ptr", "int", "float" or
+    "stream" (the trailing ``void* stream``)."""
     src = (Path(slic.__file__).parent.parent / "csrc" / "slic.cu").read_text()
     out = {}
-    for name, params in re.findall(r'extern "C" int (slic_\w+)_launch\(([^)]*)\)', src):
+    for name, params in re.findall(r'extern "C" int (\w+)_launch\(([^)]*)\)', src):
         kinds = []
         for param in " ".join(params.split()).split(","):
             param = param.strip()
