@@ -58,7 +58,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    scene's Lab and SLIC's seed centres (``tools.roofline.fusion_inputs``,
    ``snap_inputs``), each bitwise its plain form (NaN at the same places),
    with its SASS instruction counts (and the snap's issue time) beside its
-   bound;
+   bound; the vote's bound from the lesser of its two walks' counts (in
+   view order and in descending order), the view order's beside it;
 3. the slice at full size: ``MVSPipeline(depth_method="strips")`` on a
    synthetic 9-view 1920x1080 fronto-parallel scene (31 hypotheses, 5 SLIC
    iterations, 5 propagation sweeps): one warm-up and two timed runs, the
@@ -227,6 +228,10 @@ PER_RUN = {"lab_convert": 1, "extent_walk": 1, "raster_planes": 1 + 5 + 1, "chai
 # (cross_check) and the seeds' edge snap (edge_enable); 0 launches a run of
 # the slice, 1 a run of the CLI with --cross-check or edge_enable=true
 OFF_DEFAULTS = ("fuse_warp", "fuse_vote", "edge_snap")
+# the cross-check's kernel entries the main path's 9x1080x1920 launches run
+# (tools.sass names): 32-bit offsets, the warp's 2 rows of 3 views a thread,
+# the vote's 9 candidates in registers
+MAIN_ENTRIES = {"fuse_warp": "fuse_warp_kernel<2, 3, int>", "fuse_vote": "fuse_vote_kernel<9, int>"}
 # the sweeps whose raster and chain calls phase 2 holds to their plain
 # forms (each from the initial state at that sweep's reach)
 SWEEPS = (0, 1, 2, 3, 4)
@@ -791,8 +796,10 @@ def phase_crosscheck_snap_vs_plain(card: str) -> dict:
     ``tools.roofline.fusion_inputs``, the roofline tool's inputs too),
     ``fuse_vote`` on that map and its warp, ``edge_snap`` on the scene's Lab
     and SLIC's seed centres (``tools.roofline.snap_inputs``); each output
-    bitwise (NaN at the same places); the vote's candidates looked at and
-    lookups made (``tools.roofline.vote_counts``).  Beside each bound, the
+    bitwise (NaN at the same places); the vote's work under both walks, in
+    view order (candidates looked at, lookups made) and in descending order
+    (values scored, lookups made), and the bound from the lesser, the view
+    order's beside it (``tools.roofline.fuse_vote_work``).  Beside each bound, the
     kernel's static SASS instructions and those of its inner loops
     (``tools.sass``), and for the snap, straight-line code a centre, its
     issue time at the card's top SM clock.  Returns each kernel's record."""
@@ -810,9 +817,9 @@ def phase_crosscheck_snap_vs_plain(card: str) -> dict:
         in_turns,
         issue_ms,
         snap_inputs,
-        vote_counts,
     )
 
+    t_phase = time.perf_counter()
     s, rgb = _scene(FULL_H, FULL_W)
     disp_full, disp_proj, geo = fusion_inputs(s, rgb, "cuda")
     lab, spmap = snap_inputs(rgb, s, "cuda")
@@ -821,7 +828,6 @@ def phase_crosscheck_snap_vs_plain(card: str) -> dict:
     cases["edge_snap"] = (lambda: slic.edge_snap(lab, spmap), lambda: slic.edge_snap_reference(lab, spmap),
                           edge_snap_work(lab, spmap, slic.edge_snap(lab, spmap)))
     code = {r["kernel"]: r for src in ("crosscheck", "slic") for r in sass.report(src, build.CSRC)}
-    looked, lookups = vote_counts(disp_proj, disp_full, *geo)
     seeds = spmap.center.numel() // 2
     snap_issue = issue_ms(code["edge_snap_kernel"]["sass_instructions"], seeds, _max_sm_clock_ghz())
     recs = {}
@@ -833,13 +839,18 @@ def phase_crosscheck_snap_vs_plain(card: str) -> dict:
             _require_same_bits(f"[2] {name} output {i}", g, p)
         nan = sum(int(torch.isnan(g).sum()) for g, _ in pairs)
         k_ms, p_ms = in_turns(kern, plain, *ITERS[name])
-        b_ms, by = bound(*work)
-        sass_rec = code[f"{name}_kernel"]
+        b_ms, by = bound(*work[:2])
+        sass_rec = code[MAIN_ENTRIES.get(name, f"{name}_kernel")]
         note = (f"{sass_rec['sass_instructions']} SASS instructions, inner loops "
                 f"{[lp['instructions'] for lp in sass_rec['inner_loops']]}")
         if name == "fuse_vote":
-            extra = (f"; {looked} of {v * v * h * w} (candidate, output) pairs looked at, {lookups} lookups of "
-                     f"{v * looked}")
+            walks = work[2]
+            (looked, lookups), (scored, made), (nan_looked, nan_lookups, nan_px) = (
+                walks["counts"][k] for k in ("view_order", "descending", "nan"))
+            extra = (f"; view order: {looked} of {v * v * h * w} (candidate, output) pairs looked at, {lookups} "
+                     f"lookups, bound {walks['view_order_bound_ms']:.4g} ms; descending: {scored} values scored, "
+                     f"{made} lookups (+ {nan_looked} and {nan_lookups} on {nan_px} NaN pixels), bound "
+                     f"{walks['descending_bound_ms']:.4g} ms; bound from the lesser")
         elif name == "edge_snap":
             extra = f"; {int((got.center != spmap.center).any(-1).sum())} of {seeds} centres moved"
             note += f"; issue {snap_issue:.4f} ms (a centre each)"
@@ -848,7 +859,10 @@ def phase_crosscheck_snap_vs_plain(card: str) -> dict:
         print(f"[2] {name} on {tuple(pairs[0][0].shape)}: bitwise (NaN {nan}){extra}; kernel {k_ms:.4f} ms, bound "
               f"{b_ms:.4g} ms ({by}), share {b_ms / k_ms:.3f}, plain {p_ms:.3f} ms; {note} ({card})")
         recs[name] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by)
+        if name == "fuse_vote":
+            recs[name]["view_order_bound_ms"] = walks["view_order_bound_ms"]
         del got, want, pairs
+    print(f"[2] the cross-check and edge snap checks took {time.perf_counter() - t_phase:.1f} s")
     return recs
 
 
@@ -2097,7 +2111,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src(source), "replaces": replaces,
          "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r.get("library_ms"), **{k: r[k] for k in ("map_ms", "map_bound_ms") if k in r}}
+         "library_ms": r.get("library_ms"),
+         **{k: r[k] for k in ("map_ms", "map_bound_ms", "view_order_bound_ms") if k in r}}
         for name, source, replaces, launches, r in rows
     ]}
     print(card)

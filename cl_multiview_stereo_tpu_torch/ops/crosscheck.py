@@ -6,8 +6,14 @@ The JAX package computes them with XLA (``ops/fusion.py``
 plain forms are ``fusion.project_to_reference_inv_reference`` and
 ``fusion.remove_view_inconsistency_reference``: Python loops over the views,
 each probe a dozen passes over a (V, H, W) tensor.  ``fuse_warp`` and
-``fuse_vote`` take a thread a (reference view, pixel) and are bitwise the
-plain forms on the card, NaN in the same places.
+``fuse_vote`` take a thread a pixel for all the launch's reference views
+and are bitwise the plain forms on the card, NaN in the same places: the
+warp runs a thread's probe chains side by side (those of all reference
+views, or of a group of them, and for one or two views those of several
+rows); the vote loads a pixel's candidates once and walks their distinct
+values in descending order, vote 1 once a value for every reference view,
+each view taking the first value whose stability is >= 0 (a pixel with a
+NaN candidate walks in view order, as the plain form does).
 
 :func:`warp` and :func:`vote` launch them on CUDA tensors (or raise) and
 run the plain forms on CPU tensors (:func:`route`); nothing falls back from

@@ -25,7 +25,7 @@ Usage:
       [--kernel all|cost_volume|sweep|consistency|slic_assign|slic_update|slic_vote|smooth_cache|smooth_moves|
                 raster_planes|chain_moves|chain_update|chain_refit|lab_convert|extent_walk|fuse_warp|fuse_vote|
                 edge_snap] \\
-      [--shapes main|row] [--calls sweep0|path] [--csrc DIR] \\
+      [--shapes main|row] [--calls sweep0|path] [--csrc DIR] [--view-range FIRST,COUNT] \\
       [--views 2 --height 480 --width 640 --d 64] [--device cuda|cpu]
 
 ``--shapes main`` is the slice's scene: 9 views of 1080x1920 at
@@ -50,13 +50,17 @@ sweeps 0-4 (5), each sweep run from the initial state.  ``--csrc DIR``
 builds every kernel from the sources in DIR (e.g. an unpacked parent
 commit's ``cl_multiview_stereo_tpu_torch/csrc``, whose C entries must be
 this tree's), so two kernels' versions are timed on the same calls.
+``--view-range FIRST,COUNT`` runs ``fuse_warp`` and ``fuse_vote`` on those
+reference views only, as a rank of the view-sharded path does.
 
 Each kernel and its plain twin run once, then their times are taken with
 CUDA events in turns (kernel, plain, kernel, plain).  Prints one JSON line
 per kernel: ``kernel``, ``shape``, ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``share`` (= bound_ms / ms) and ``card`` (nvidia-smi's name
 and power limit), the sums over the kernel's launches, and ``calls``: each
-launch's ``call``, ``ms``, ``plain_ms`` and ``bound_ms``.  With ``--device
+launch's ``call``, ``ms``, ``plain_ms`` and ``bound_ms`` (``fuse_vote``'s
+also each walk's operations and bound and the counts of
+:func:`fuse_vote_work`; its ``bound_ms`` is the lesser).  With ``--device
 cpu`` nothing is timed: ``ms``, ``plain_ms`` and ``share`` read "not
 measured" and ``card`` "cpu".
 """
@@ -405,44 +409,114 @@ def fuse_warp_work(disp_full, out) -> tuple[int, int]:
 
 
 def vote_counts(disp_proj, disp_full, array_width: int, bl_ratio: float, fuse: float,
-                view_range=None) -> tuple[int, int]:
-    """(candidates looked at, lookups made) of the vote on these inputs, the
-    running winner following the plain vote (``fusion.vote_stabilities``):
-    a (candidate, output) is looked at where the take rule could still
-    accept it whatever its stability (d != 0, and no earlier winner or one
-    below d); its lookups run in view order while the lookups left could
-    still change the stability's sign (stability - left < 0 <= stability +
-    left)."""
+                view_range=None) -> dict:
+    """The work of the stability vote's two walks on these inputs, on the
+    plain vote's stabilities (``fusion.vote_stabilities``), and the
+    descending walk's result.
+
+    ``view_order``: (candidates looked at, lookups made) of the walk over
+    the candidates in view order, one reference view at a time: a
+    (candidate, output) is looked at (vote 1 scored) where the take rule
+    could still accept it whatever its stability (d != 0, and no earlier
+    winner or one below d); its lookups run in view order while the lookups
+    left could still change the stability's sign (stability - left < 0 <=
+    stability + left).
+
+    ``descending``: (values scored, lookups made) of the walk over each
+    pixel's distinct nonzero candidates in descending order, for all its
+    reference views at once: a value is scored (vote 1 once) while a view
+    is still open, each open view makes its lookups under the same stop, and
+    a view closes on the first value whose stability is >= 0 (or with 0 when
+    the values run out).  A pixel whose candidates hold a NaN walks in view
+    order instead; ``nan`` holds those pixels' (looked at, lookups,
+    pixels).  ``pixels``: H x W.  ``winners`` (nv, H, W): the descending
+    walk's result, the view-order walk's on the NaN pixels."""
     from cl_multiview_stereo_tpu_torch.ops.fusion import vote_stabilities
 
-    looked = lookups = 0
+    v, h, w = disp_proj.shape
+    dev = disp_proj.device
+    looked = torch.zeros((h, w), dtype=torch.int64, device=dev)
+    lookups = torch.zeros_like(looked)
     best = None
+    valid, made = [], []
     for d, stab1, votes in vote_stabilities(disp_proj, disp_full, array_width, bl_ratio, fuse, view_range):
         if best is None:
             best = torch.zeros_like(d)
         need = (d != 0) & ((best == 0) | (best < d))
-        looked += int(need.sum())
         stability = stab1.expand(d.shape)
-        v = disp_proj.shape[0]
+        n = torch.zeros(d.shape, dtype=torch.int16, device=dev)
         for j, vote in enumerate(votes):
             left = v - j
-            lookups += int((need & (stability - left < 0) & (stability + left >= 0)).sum())
+            n += ((stability - left < 0) & (stability + left >= 0)).to(torch.int16)
             stability = stability + vote
+        looked += need.sum(0)
+        lookups += (need * n).sum(0)
         best = torch.where(need & (stability >= 0), d, best)
-    return looked, lookups
+        valid.append((d != 0) & (stability >= 0))
+        made.append(n)
+    valid, made = torch.stack(valid), torch.stack(made)  # (V, nv, H, W)
+    nan = torch.isnan(disp_proj).any(0)
+    open_ = (~nan).expand(best.shape).clone()
+    winners = torch.zeros_like(best)
+    prev = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    below = torch.ones((v, h, w), dtype=torch.bool, device=dev)  # the first step takes any value
+    scored = made_desc = 0
+    for _ in range(v):
+        cond = (disp_proj != 0) & below & ~nan
+        d = torch.where(cond, disp_proj, float("-inf")).max(0).values
+        found = cond.any(0)
+        live = found & open_.any(0)
+        if not bool(live.any()):
+            break
+        # the first view holding the value: equal values score alike
+        at = ((cond & (disp_proj == d)).to(torch.int8).argmax(0))[None, None].expand(1, *best.shape)
+        active = open_ & live
+        scored += int(live.sum())
+        made_desc += int((made.gather(0, at)[0] * active).sum())
+        take = active & valid.gather(0, at)[0]
+        winners = torch.where(take, d.expand_as(winners), winners)
+        open_ = open_ & ~take & found
+        prev = d
+        below = disp_proj < prev
+    return {"view_order": (int(looked.sum()), int(lookups.sum())), "descending": (scored, made_desc),
+            "nan": (int(looked[nan].sum()), int(lookups[nan].sum()), int(nan.sum())), "pixels": h * w,
+            "winners": torch.where(nan, best, winners)}
+
+
+def vote_ops(counts: dict, v: int, nv: int) -> tuple[int, int]:
+    """f32 operations of the vote's (view-order, descending) walk on
+    :func:`vote_counts`' counts: FUSE_OPS_TAKE a candidate each time a
+    walk tests V candidates (the view-order walk for each output, the
+    descending one for each value it scores, to pick it, and for each
+    output of a NaN pixel), 1 + V FUSE_OPS_AGREE a candidate scored (bl * d
+    and vote 1), FUSE_OPS_LOOKUP a lookup."""
+    looked, lookups = counts["view_order"]
+    scored, made = counts["descending"]
+    nan_looked, nan_lookups, nan_pixels = counts["nan"]
+    score = 1 + v * FUSE_OPS_AGREE
+    view_order = FUSE_OPS_TAKE * v * nv * counts["pixels"] + looked * score + lookups * FUSE_OPS_LOOKUP
+    descending = (FUSE_OPS_TAKE * v * (scored + nv * nan_pixels) + (scored + nan_looked) * score
+                  + (made + nan_lookups) * FUSE_OPS_LOOKUP)
+    return view_order, descending
 
 
 def fuse_vote_work(disp_proj, disp_full, array_width: int, bl_ratio: float, fuse: float, view_range,
-                   out) -> tuple[int, int]:
-    """(bytes, operations) of one ``fuse_vote`` launch that wrote ``out``
-    (nv, H, W), counted as this run's data needs: both maps read once,
-    ``out`` written once; FUSE_OPS_TAKE a (candidate, output), each
-    candidate the vote looks at (:func:`vote_counts`) its bl * d and V
-    agreement terms, each lookup it makes FUSE_OPS_LOOKUP."""
-    v = disp_proj.shape[0]
-    looked, lookups = vote_counts(disp_proj, disp_full, array_width, bl_ratio, fuse, view_range)
-    ops = FUSE_OPS_TAKE * v * out.numel() + looked * (1 + v * FUSE_OPS_AGREE) + lookups * FUSE_OPS_LOOKUP
-    return nbytes(disp_proj, disp_full, out), ops
+                   out) -> tuple[int, int, dict]:
+    """(bytes, operations, the two walks' counts) of one ``fuse_vote``
+    launch that wrote ``out`` (nv, H, W), counted as this run's data needs:
+    both maps read once, ``out`` written once; the operations of whichever
+    walk needs fewer (:func:`vote_ops`).  The dict holds each walk's
+    operations and bound (``view_order_ops``, ``view_order_bound_ms``,
+    ``descending_ops``, ``descending_bound_ms``) and :func:`vote_counts`'
+    counts (``counts``)."""
+    v, nv = disp_proj.shape[0], out.shape[0]
+    counts = vote_counts(disp_proj, disp_full, array_width, bl_ratio, fuse, view_range)
+    n_bytes = nbytes(disp_proj, disp_full, out)
+    ops = dict(zip(("view_order", "descending"), vote_ops(counts, v, nv)))
+    extra = {f"{walk}_{key}": val for walk, n in ops.items()
+             for key, val in (("ops", n), ("bound_ms", bound(n_bytes, n)[0]))}
+    extra["counts"] = {k: c for k, c in counts.items() if k != "winners"}
+    return n_bytes, min(ops.values()), extra
 
 
 def edge_snap_work(lab, spmap, out) -> tuple[int, int]:
@@ -570,18 +644,20 @@ def fusion_inputs(settings, rgb, device) -> tuple:
     return disp_full, crosscheck.warp(disp_full, *geo[:2]), geo
 
 
-def fusion_case(kernel: str, disp_full, disp_proj, geo) -> tuple:
-    """(kernel fn, plain fn, (bytes, operations)) of the cross-check's warp
-    or vote on :func:`fusion_inputs`."""
+def fusion_case(kernel: str, disp_full, disp_proj, geo, view_range=None) -> tuple:
+    """(kernel fn, plain fn, (bytes, operations[, the vote's counts])) of the
+    cross-check's warp or vote on :func:`fusion_inputs`, for the reference
+    views ``view_range`` (first, count; None: all)."""
     from cl_multiview_stereo_tpu_torch.ops import crosscheck, fusion
 
     aw, bl, fuse = geo
     if kernel == "fuse_warp":
-        return (lambda: crosscheck.warp(disp_full, aw, bl), lambda: fusion.project_to_reference_inv_reference(
-            disp_full, aw, bl), fuse_warp_work(disp_full, crosscheck.warp(disp_full, aw, bl)))
-    args = (disp_proj, disp_full, aw, bl, fuse)
+        warp = (disp_full, aw, bl, view_range)
+        return (lambda: crosscheck.warp(*warp), lambda: fusion.project_to_reference_inv_reference(*warp),
+                fuse_warp_work(disp_full, crosscheck.warp(*warp)))
+    args = (disp_proj, disp_full, aw, bl, fuse, view_range)
     return (lambda: crosscheck.vote(*args), lambda: fusion.remove_view_inconsistency_reference(*args),
-            fuse_vote_work(*args, None, crosscheck.vote(*args)))
+            fuse_vote_work(*args, crosscheck.vote(*args)))
 
 
 def snap_inputs(rgb, settings, device) -> tuple:
@@ -818,7 +894,9 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
     if kernel in FUSION_KERNELS:
         disp_full, disp_proj, geo = fusion_inputs(s, rgb, device)
         label = f"{tuple(disp_full.shape)} refined disparity, array_width {geo[0]}, fuse {geo[2]}"
-        return label, [fusion_case(kernel, disp_full, disp_proj, geo)]
+        if args.view_range:
+            label += f", reference views {args.view_range[0]}..{sum(args.view_range) - 1}"
+        return label, [fusion_case(kernel, disp_full, disp_proj, geo, args.view_range)]
     if kernel == "edge_snap":
         from cl_multiview_stereo_tpu_torch.ops import slic
 
@@ -880,10 +958,10 @@ def measure(kernel: str, shapes: str, args, device, card: str) -> dict:
     bound_by = ""
     calls = []
     for i, (kern, plain, work, *name) in enumerate(launches):
-        b, bound_by = bound(*work)
+        b, bound_by = bound(*work[:2])
         bound_ms += b
         call = {"call": name[0] if name else f"launch {i}", "ms": NOT_MEASURED, "plain_ms": NOT_MEASURED,
-                "bound_ms": b}
+                "bound_ms": b, **(work[2] if len(work) > 2 else {})}
         if device.type == "cuda":
             kern()
             plain()
@@ -913,6 +991,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--calls", choices=("sweep0", "path"), default="sweep0",
                     help="the raster and chain kernels on sweep 0's calls, or on every call of the main path")
     ap.add_argument("--csrc", help="build the kernels from this directory's sources")
+    ap.add_argument("--view-range", type=lambda a: tuple(int(n) for n in a.split(",")), metavar="FIRST,COUNT",
+                    help="the cross-check's kernels on these reference views only (default: all)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu (counts only)")
     return ap

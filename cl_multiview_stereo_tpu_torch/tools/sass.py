@@ -41,7 +41,8 @@ _BRANCH = re.compile(r"^BRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)")
 
 
 # Itanium codes of the builtin types a kernel template takes
-_TYPE_CODES = {"h": "unsigned char", "f": "float", "i": "int", "j": "unsigned int", "d": "double"}
+_TYPE_CODES = {"h": "unsigned char", "f": "float", "i": "int", "j": "unsigned int", "x": "long long",
+               "d": "double"}
 
 
 # an integer or bool template argument: L, its type's code, its value, E

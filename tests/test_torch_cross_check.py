@@ -197,41 +197,166 @@ def test_wrappers_pass_the_c_entries_arguments(monkeypatch, view_range):
     assert va[9:] == (float(np.float32(1.1)), float(np.float32(0.3)))
 
 
-def test_vote_counts_follow_the_kernels_rule():
-    """``tools.roofline.vote_counts``: the (candidate, output) pairs the
-    vote looks at and the lookups it makes, counted one output at a time:
-    the take rule, then vote 2's lookups in view order while the lookups
-    left could change the stability's sign, on the plain form's votes."""
+def _seeded_maps(v=9, h=24, w=40, seed=0) -> torch.Tensor:
+    """Piecewise disparities on a half-pixel grid with zeros, NaN, +inf and
+    -inf (test_torch_kernels_cuda.py's card maps at a smaller size):
+    differences of exactly 0.5 and 1.0, and equal values in many views."""
+    rng = np.random.default_rng(seed)
+    d = rng.choice([0.0, 4.0, 7.0, 12.0], size=(v, h, w), p=[0.1, 0.4, 0.3, 0.2]) + rng.integers(0, 3, (v, h, w)) * 0.5
+    d = d.astype(np.float32)
+    u = rng.random((v, h, w))
+    d[u < 0.01] = np.nan
+    d[(u >= 0.01) & (u < 0.015)] = np.inf
+    d[(u >= 0.015) & (u < 0.02)] = -np.inf
+    return t(d)
+
+
+def _walks_one_output_at_a_time(proj, d, aw, view_range):
+    """Both walks of the vote, one output at a time on the plain form's
+    votes: the view-order walk's (looked at, lookups) and the descending
+    walk's (values scored, lookups), each pixel's NaN-free values in
+    descending order for all its reference views, with its winners."""
+    v, h, w = proj.shape
+    cands = [(c, stab1, list(votes)) for c, stab1, votes in fusion.vote_stabilities(proj, d, aw, BL, FUSE,
+                                                                                      view_range)]
+    nv = cands[0][0].shape[0]
+
+    def score(i, r, y, x):
+        """(stability >= 0, lookups made) of candidate i for output (r, y, x)."""
+        _, stab1, votes = cands[i]
+        stability, made = int(stab1[y, x]), 0
+        for j, vote in enumerate(votes):
+            left = len(votes) - j
+            if stability - left >= 0 or stability + left < 0:
+                break
+            made += 1
+            stability += int(vote[r, y, x])
+        return stability >= 0, made
+
+    looked = lookups = scored = desc_lookups = 0
+    winners = torch.zeros((nv, h, w))
+    for y in range(h):
+        for x in range(w):
+            values = [float(c[0, y, x]) for c, _, _ in cands]
+            nan = any(np.isnan(values))
+            for r in range(nv):
+                best = 0.0
+                for i, c in enumerate(values):
+                    if not (c != 0 and (best == 0 or best < c)):
+                        continue
+                    ok, made = score(i, r, y, x)
+                    looked += 1
+                    lookups += made
+                    if nan:
+                        scored, desc_lookups = scored + 1, desc_lookups + made
+                    if ok:
+                        best = c
+                winners[r, y, x] = best
+            if nan:
+                continue
+            open_ = set(range(nv))
+            for c in sorted({c for c in values if c != 0}, reverse=True):
+                if not open_:
+                    break
+                scored += 1
+                for r in sorted(open_):
+                    ok, made = score(values.index(c), r, y, x)
+                    desc_lookups += made
+                    if ok:
+                        open_.discard(r)
+                        assert winners[r, y, x] == c  # the view-order walk's winner
+            for r in open_:
+                assert winners[r, y, x] == 0
+    return (looked, lookups), (scored, desc_lookups), winners
+
+
+@pytest.mark.parametrize("view_range", [None, (2, 4)], ids=str)
+def test_vote_counts_follow_the_kernels_rule(view_range):
+    """``tools.roofline.vote_counts``: the work of both walks counted one
+    output at a time: the view-order walk's (candidate, output) pairs
+    looked at and lookups, the descending walk's values scored and lookups
+    (the view-order walk's on a pixel with a NaN candidate), vote 2's
+    lookups in view order while the lookups left could change the
+    stability's sign, on the plain form's votes; and the operations and
+    bytes of both, the lesser the bound's."""
     from cl_multiview_stereo_tpu_torch.tools import roofline
 
     aw, d = FIXTURES["3x3"]
     d = t(d)
+    d[4, 3, 5] = d[7, 9, 2] = float("nan")
     proj = fusion.project_to_reference_inv_reference(d, aw, BL)
-    cands = [(c, stab1, list(votes)) for c, stab1, votes in fusion.vote_stabilities(proj, d, aw, BL, FUSE, (2, 4))]
-    looked = lookups = 0
-    for r in range(4):
-        for y in range(d.shape[1]):
-            for x in range(d.shape[2]):
-                best = 0.0
-                for c, stab1, votes in cands:
-                    c = float(c[r, y, x])
-                    if not (c != 0 and (best == 0 or best < c)):
-                        continue
-                    looked += 1
-                    stability = int(stab1[y, x])
-                    for j, vote in enumerate(votes):
-                        left = len(votes) - j
-                        if stability - left >= 0 or stability + left < 0:
-                            break
-                        lookups += 1
-                        stability += int(vote[r, y, x])
-                    if stability >= 0:
-                        best = c
-    assert roofline.vote_counts(proj, d, aw, BL, FUSE, (2, 4)) == (looked, lookups)
-    assert 0 < looked < 9 * 4 * d.shape[1] * d.shape[2] and 0 < lookups < 9 * looked
-    out = fusion.remove_view_inconsistency_reference(proj, d, aw, BL, FUSE, (2, 4))
-    n_bytes, ops = roofline.fuse_vote_work(proj, d, aw, BL, FUSE, (2, 4), out)
+    view_order, descending, winners = _walks_one_output_at_a_time(proj, d, aw, view_range)
+    counts = roofline.vote_counts(proj, d, aw, BL, FUSE, view_range)
+    nan_looked, nan_lookups, nan_pixels = counts["nan"]
+    assert counts["view_order"] == view_order
+    assert (counts["descending"][0] + nan_looked, counts["descending"][1] + nan_lookups) == descending
+    assert nan_pixels == int(torch.isnan(proj).any(0).sum()) > 0 and counts["pixels"] == d.shape[1] * d.shape[2]
+    assert torch.equal(counts["winners"].view(torch.int32), winners.view(torch.int32))
+    looked, lookups = view_order
+    nv = winners.shape[0]
+    assert 0 < looked < 9 * nv * d.shape[1] * d.shape[2] and 0 < lookups < 9 * looked
+    out = fusion.remove_view_inconsistency_reference(proj, d, aw, BL, FUSE, view_range)
+    n_bytes, ops, extra = roofline.fuse_vote_work(proj, d, aw, BL, FUSE, view_range, out)
     assert n_bytes == 4 * (2 * d.numel() + out.numel())
-    assert ops == 4 * 9 * out.numel() + looked * (1 + 9 * 5) + lookups * 23
+    assert extra["view_order_ops"] == 4 * 9 * out.numel() + looked * (1 + 9 * 5) + lookups * 23
+    scored = descending[0] - nan_looked
+    assert extra["descending_ops"] == (4 * 9 * (scored + nv * nan_pixels) + descending[0] * (1 + 9 * 5)
+                                       + descending[1] * 23)
+    assert ops == min(extra["view_order_ops"], extra["descending_ops"])
+    for walk in ("view_order", "descending"):
+        assert extra[f"{walk}_bound_ms"] == roofline.bound(n_bytes, extra[f"{walk}_ops"])[0]
     warped = fusion.project_to_reference_inv_reference(d, aw, BL, (2, 4))
     assert roofline.fuse_warp_work(d, warped) == (4 * (d.numel() + warped.numel()), 16 * warped.numel() * 8)
+
+
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_descending_rule_matches_jax_and_the_plain_vote(name):
+    """The vote's candidates walked in descending order (the ``fuse_vote``
+    kernel's rule, ``tools.roofline.vote_counts``): within RTOL of JAX's
+    vote and bitwise the port's plain vote, with no more candidates scored
+    and no more lookups than the walk in view order."""
+    from cl_multiview_stereo_tpu_torch.tools import roofline
+
+    aw, d = FIXTURES[name]
+    proj = mirror.project_to_reference_inv(d, aw, BL).astype(np.float32)
+    counts = roofline.vote_counts(t(proj), t(d), aw, BL, FUSE)
+    got = counts["winners"]
+    np.testing.assert_allclose(n(got), np.asarray(jfusion.remove_view_inconsistency(proj, d, aw, BL, FUSE)),
+                               rtol=RTOL)
+    want = fusion.remove_view_inconsistency_reference(t(proj), t(d), aw, BL, FUSE)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got == 0).any() and (got != 0).any()
+    _assert_fewer(counts)
+
+
+def _assert_fewer(counts):
+    """The descending walk scores no more candidates and makes no more
+    lookups than the walk in view order, and fewer of either."""
+    (looked, lookups), (scored, made), (nan_looked, nan_lookups, _) = (
+        counts["view_order"], counts["descending"], counts["nan"])
+    assert scored + nan_looked <= looked and made + nan_lookups <= lookups
+    assert scored + nan_looked < looked or made + nan_lookups < lookups
+
+
+@pytest.mark.parametrize("view_range", [None, (3, 3), (8, 1)], ids=str)
+@pytest.mark.parametrize("fuse", [0.5, 1.0])
+def test_descending_rule_bitwise_on_nan_inf_and_ties(fuse, view_range):
+    """On a seeded map holding NaN, +-inf, differences exactly equal to
+    ``fuse`` and equal candidates from several views, the descending rule
+    gives the plain vote's bits (NaN where it puts NaN); its NaN-free
+    pixels include some whose largest candidate loses for a view."""
+    from cl_multiview_stereo_tpu_torch.tools import roofline
+
+    d = _seeded_maps()
+    proj = fusion.project_to_reference_inv_reference(d, 3, BL)
+    counts = roofline.vote_counts(proj, d, 3, BL, fuse, view_range)
+    want = fusion.remove_view_inconsistency_reference(proj, d, 3, BL, fuse, view_range)
+    got = counts["winners"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    nan = torch.isnan(proj).any(0)
+    assert bool(nan.any()) and bool(torch.isnan(got).any()) and bool(torch.isinf(proj[:, ~nan]).any())
+    top = torch.where(proj == 0, float("-inf"), proj).amax(0)
+    assert bool(((got != top) & ~nan).any())
+    # several views share a pixel's largest candidate
+    assert bool(((proj == top).sum(0) > 1)[~nan].any())
+    _assert_fewer(counts)

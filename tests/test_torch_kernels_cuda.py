@@ -1756,8 +1756,9 @@ def test_lab_and_extent_wrappers_reject_bad_input(cuda):
 # ---------------------------------------------------------------------------
 
 # view ranges of the cross-check: every view, a block of 3 (the sharded
-# path's rank 1 of 3), the last view alone, and none (no launch)
-VIEW_RANGES = {"all": None, "3..5": (3, 3), "last": (8, 1), "none": (0, 0)}
+# path's rank 1 of 3), two views and one (a warp thread's chains on 4 and 9
+# rows), the last view alone, and none (no launch)
+VIEW_RANGES = {"all": None, "3..5": (3, 3), "4..5": (4, 2), "first": (0, 1), "last": (8, 1), "none": (0, 0)}
 
 
 def _seeded_maps(device, v=9, h=53, w=131, seed=0):
@@ -1817,9 +1818,103 @@ def test_fuse_kernels_bitwise_on_seeded_maps(cuda, view_range, fuse):
 
 
 @pytest.mark.cuda
-def test_fuse_kernels_bitwise_on_a_2x2_grid(cuda):
+@pytest.mark.parametrize("view_range", [None, (2, 2)], ids=["all", "2..3"])
+def test_fuse_kernels_bitwise_on_a_2x2_grid(cuda, view_range):
     """A 2x2 camera grid at bl_ratio 0.97 (other deltas, other rounding)."""
-    _fuse_bitwise(_seeded_maps(cuda, v=4, h=37, w=64, seed=5), 2, 0.97, 1.0, None)
+    _fuse_bitwise(_seeded_maps(cuda, v=4, h=37, w=64, seed=5), 2, 0.97, 1.0, view_range)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [0.5, 1.0])
+@pytest.mark.parametrize("view_range", ["all", "4..5", "first"])
+def test_fuse_vote_bitwise_where_nan_mixes_with_finite_candidates(cuda, view_range, fuse):
+    """A NaN in a fifth of the map: most pixels' candidates mix NaN with
+    finite values and take the view-order walk, whose result is NaN only
+    where the first valid candidate is; the others walk in descending
+    order."""
+    disp = _seeded_maps(cuda, h=29, w=70, seed=11)
+    disp[torch.rand(disp.shape, generator=torch.Generator().manual_seed(3)).to(cuda) < 0.2] = float("nan")
+    got = _fuse_bitwise(disp, 3, 1.0359, fuse, VIEW_RANGES[view_range])
+    proj = fusion.project_to_reference_inv_reference(disp, 3, 1.0359)
+    mixed = torch.isnan(proj).any(0) & ~torch.isnan(proj).all(0)
+    assert bool(mixed.any()) and bool((~torch.isnan(proj).any(0)).any())
+    assert bool(torch.isnan(got[:, mixed]).any()) and bool((~torch.isnan(got[:, mixed])).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view_range", ["all", "3..5", "first"])
+def test_fuse_vote_bitwise_on_many_equal_candidates(cuda, view_range):
+    """Four values shared by every view, the largest rare: most pixels'
+    candidates repeat their largest value in several views (each value
+    scored once), and most outputs take a value below the largest."""
+    rng = np.random.default_rng(13)
+    d = rng.choice(np.float32([0.0, 6.0, 6.5, 9.0]), size=(9, 31, 77), p=[0.05, 0.6, 0.3, 0.05])
+    disp = torch.as_tensor(d, device=cuda)
+    got = _fuse_bitwise(disp, 3, 1.0359, 0.5, VIEW_RANGES[view_range])
+    proj = fusion.project_to_reference_inv_reference(disp, 3, 1.0359)
+    top = proj.amax(0)
+    assert float(((proj == top).sum(0) >= 3).float().mean()) > 0.5
+    assert float((got != top).float().mean()) > 0.5
+
+
+# (views, cameras a row, view range): the vote's kernel for any view count
+# (candidates read from memory), a ragged last camera row, two passes of
+# 32 reference views and four warp view groups
+VIEW_COUNTS = {"6v-3": (6, 3, None), "5v-3": (5, 3, (1, 4)), "36v-6": (36, 6, None), "36v-6-2..34": (36, 6, (2, 33))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VIEW_COUNTS))
+def test_fuse_kernels_bitwise_on_other_view_counts(cuda, case):
+    v, aw, view_range = VIEW_COUNTS[case]
+    _fuse_bitwise(_seeded_maps(cuda, v=v, h=16, w=40, seed=v), aw, 1.0359, 0.5, view_range)
+
+
+# (height, width, cameras a row) of two views 2^23 + 37 pixels wide or high:
+# every coordinate takes the exact float path
+HUGE_VIEWS = {"wide": (1, (1 << 23) + 37, 2), "high": ((1 << 23) + 37, 1, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view_range", ["all", "first"])
+@pytest.mark.parametrize("case", list(HUGE_VIEWS))
+def test_fuse_kernels_bitwise_on_views_2_23_wide_or_high(cuda, case, view_range):
+    """Views of 2^23 + 37 columns (or rows), 32-bit offsets: the warp and
+    the vote on the exact float coordinates, NaN and +-inf included."""
+    h, w, aw = HUGE_VIEWS[case]
+    _fuse_bitwise(_seeded_maps(cuda, v=2, h=h, w=w, seed=h), aw, 1.0359, 0.5, VIEW_RANGES[view_range])
+
+
+# (height, width) of two views, a camera row, with 2^31 elements or more:
+# 64-bit offsets, with integer coordinates (32768 x 32832) and with the
+# exact float ones (128 rows of 2^23 + 37)
+WIDE_INDEX = {"integer": (32768, 32832), "exact": (128, (1 << 23) + 37)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WIDE_INDEX))
+def test_fuse_kernels_bitwise_with_64_bit_offsets(cuda, case):
+    """Maps of 2 x H x W >= 2^31 elements.  Two cameras in a row shift only
+    along x, so each row's outputs depend on that row alone: the first and
+    the last two rows of both views (the latter at offsets past 2^31) are
+    held bitwise against the plain forms on those rows."""
+    h, w = WIDE_INDEX[case]
+    g = torch.Generator(device=cuda).manual_seed(h)
+    disp = torch.randint(0, 17, (2, h, w), generator=g, dtype=torch.float32, device=cuda).mul_(0.5)
+    assert disp.numel() >= 1 << 31
+    before = dict(crosscheck.LAUNCHES)
+    proj = crosscheck.warp(disp, 2, 1.0359)
+    got = crosscheck.vote(proj, disp, 2, 1.0359, 0.5)
+    assert {k: crosscheck.LAUNCHES[k] - before[k] for k in before} == {"fuse_warp": 1, "fuse_vote": 1}
+    for rows in (slice(0, 2), slice(h - 2, h)):
+        part = disp[:, rows].contiguous()
+        want = fusion.project_to_reference_inv_reference(part, 2, 1.0359)
+        _same_bits(proj[:, rows].contiguous(), want, f"warp rows {rows}")
+        want = fusion.remove_view_inconsistency_reference(want, part, 2, 1.0359, 0.5)
+        _same_bits(got[:, rows].contiguous(), want, f"vote rows {rows}")
+    assert (got[:, -2:] == 0).any() and (got[:, -2:] != 0).any()
+    del disp, proj, got
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

@@ -230,3 +230,17 @@ def test_roofline_calls_path_on_the_cpu(tmp_path):
     with pytest.raises(SystemExit):
         roofline.main(row + ["--kernel", "chain_update", "--csrc", str(tmp_path)])
 
+
+
+def test_roofline_view_range_on_the_cpu():
+    """``--view-range``: the cross-check's kernels on one reference view of
+    two, as a rank of the sharded path runs them: the warp writes half the
+    maps and the vote makes at most half the walks' work."""
+    row = ["--device", "cpu", "--shapes", "row", "--views", "2", "--height", "24", "--width", "40", "--d", "4",
+           "--kernel", "fuse_warp", "--kernel", "fuse_vote"]
+    warp, vote = roofline.main(row)
+    warp1, vote1 = roofline.main(row + ["--view-range", "1,1"])
+    assert warp1["shape"] == warp["shape"] + ", reference views 1..1"
+    assert warp1["bound_ms"] < warp["bound_ms"] and vote1["bound_ms"] <= vote["bound_ms"]
+    for walk in ("view_order", "descending"):
+        assert 0 < vote1["calls"][0][f"{walk}_ops"] < vote["calls"][0][f"{walk}_ops"]

@@ -57,6 +57,10 @@ compile_size = 64bit
     ("_ZN40_GLOBAL__N__8f2e47ec_8_color_cu_30fcb7b710lab_kernelIfEEvPKT_Pfii", "lab_kernel<float>"),
     ("_ZN12_GLOBAL__N_113raster_kernelILi4ELi4ELb0EEEvPKiPKfS4_S4_S4_Pfiiiii", "raster_kernel<4, 4, false>"),
     ("_ZN12_GLOBAL__N_113raster_kernelILi1ELi1ELb1EEEvPKiPKfS4_S4_S4_Pfiiiii", "raster_kernel<1, 1, true>"),
+    ("_ZN46_GLOBAL__N__84e836c1_13_crosscheck_cu_fe5ccc4a16fuse_vote_kernelILi9EiEEvPKfS2_Pfiiiiiiff",
+     "fuse_vote_kernel<9, int>"),
+    ("_ZN46_GLOBAL__N__84e836c1_13_crosscheck_cu_fe5ccc4a16fuse_warp_kernelILi2ELi3ExEEvPKfPfiiiiiif",
+     "fuse_warp_kernel<2, 3, long long>"),
 ])
 def test_short_name(sym, want):
     assert sass.short_name(sym) == want
