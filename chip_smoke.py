@@ -29,10 +29,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    update phase: the row window of tile 1 of 3 with the "auto" halo and
    views 3..5 with their own pairs against the whole table (bitwise the
    whole launch's rows); SLIC's three kernels on the 9-view 1080p scene's
-   converged labels and map: the assignment, the vote and the update
-   (centre, count and colour) bitwise, with ``index_add_``'s time beside
-   the update's; the smoothness kernels, bitwise (NaN at the same places),
-   on the main path's calls at 9x135x240 cells: ``smooth_cache``'s cell
+   converged labels and map: the assignment and the update (centre, count
+   and colour) bitwise, with ``index_add_``'s time beside the update's,
+   and the vote on both of ``segment``'s rounds under
+   ``enforce_connectivity`` (``tools.roofline.vote_rounds``) and on noisy
+   labels, bitwise, each round's time and share beside the bound and
+   ``vote_kernel``'s registers, spills and SASS instructions
+   (``tools.sass``); the smoothness kernels, bitwise (NaN at the same
+   places), on the main path's calls at 9x135x240 cells: ``smooth_cache``'s cell
    table and ring at the init's and sweep 0's reach (T = 60) and sweep 4's
    (T = 16), with no T-wide field allocated, and ``smooth_moves`` on the
    init state (M = 1), sweep 0's update and refit phases (M = 8) and sweep
@@ -145,7 +149,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    --cell slice --runs 5 --profile`` (the graph's replays: median, spread,
    peak memory, launches, the breakdown by device op and idle gap); 9b
    ``tools.roofline --kernel all --shapes main``, each kernel's bound equal
-   to phase 2's; 9c ``tools.memcheck`` at BASELINE's config 4 (49 views of
+   to phase 2's (the vote's to its two rounds' sum); 9c ``tools.memcheck`` at BASELINE's config 4 (49 views of
    2048x2048, 256 hypotheses, the view pair layout), which exits 0 when it
    fits and 3 when the allocator refuses a request; 9a's replays must
    launch the cost volume once, the consistency kernel 11 times, the SLIC
@@ -176,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import gc
 import io
 import json
@@ -230,8 +235,10 @@ PER_RUN = {"lab_convert": 1, "extent_walk": 1, "raster_planes": 1 + 5 + 1, "chai
 OFF_DEFAULTS = ("fuse_warp", "fuse_vote", "edge_snap")
 # the cross-check's kernel entries the main path's 9x1080x1920 launches run
 # (tools.sass names): 32-bit offsets, the warp's 2 rows of 3 views a thread,
-# the vote's 9 candidates in registers
-MAIN_ENTRIES = {"fuse_warp": "fuse_warp_kernel<2, 3, int>", "fuse_vote": "fuse_vote_kernel<9, int>"}
+# the vote's 9 candidates in registers; SLIC's vote: a run of 4 pixels in
+# each of 4 rows a thread from the L1 window
+MAIN_ENTRIES = {"fuse_warp": "fuse_warp_kernel<2, 3, int>", "fuse_vote": "fuse_vote_kernel<9, int>",
+                "slic_vote": "vote_kernel<4>"}
 # the sweeps whose raster and chain calls phase 2 holds to their plain
 # forms (each from the initial state at that sweep's reach)
 SWEEPS = (0, 1, 2, 3, 4)
@@ -487,6 +494,15 @@ def phase_consistency_vs_plain(card: str) -> dict:
                 max_abs_err=max(r["max_abs_err"] for r in recs.values()))
 
 
+@functools.cache
+def _sass_report(src: str) -> list[dict]:
+    """``tools.sass``'s records of ``csrc/<src>.cu``, compiled once a run."""
+    from cl_multiview_stereo_tpu_torch.kernels import build
+    from cl_multiview_stereo_tpu_torch.tools import sass
+
+    return sass.report(src, build.CSRC)
+
+
 def _reset_slic() -> None:
     from cl_multiview_stereo_tpu_torch.ops import slic
 
@@ -496,13 +512,15 @@ def _reset_slic() -> None:
 def phase_slic_vs_plain(card: str) -> dict:
     """SLIC's three kernels against their plain forms on the 9-view 1080p
     scene's converged labels and map (``tools.roofline.slic_inputs``, the
-    roofline tool's inputs too), and the vote also on labels with 40 %
-    flipped, where it fires.  Returns each kernel's record."""
+    roofline tool's inputs too): the vote on both of ``segment``'s rounds
+    under ``enforce_connectivity`` (``tools.roofline.vote_rounds``), and
+    also on labels with 40 % flipped, where it fires often.  Returns each
+    kernel's record, one launch; the vote's round 1, each round's in
+    ``rounds``."""
     import torch
 
     from cl_multiview_stereo_tpu_torch.tools.roofline import (
         ITERS,
-        SLIC_KERNELS,
         bound,
         cuda_ms,
         in_turns,
@@ -510,13 +528,14 @@ def phase_slic_vs_plain(card: str) -> dict:
         slic_inputs,
         slic_members,
         slic_work,
+        vote_rounds,
     )
 
     s, rgb = _scene(FULL_H, FULL_W)
     lab, geom, p, labels, spmap = slic_inputs(rgb, s, "cuda")
     v, h, w = labels.shape
     recs = {}
-    for name in SLIC_KERNELS:
+    for name in ("slic_assign", "slic_update"):
         kern, plain = slic_calls(name, lab, geom, p, labels, spmap)
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -551,6 +570,30 @@ def phase_slic_vs_plain(card: str) -> dict:
         print(f"[2] slic {name[5:]} at {v}x{h}x{w} S{geom.spixl_size} (converged map): {verdict}; kernel "
               f"{k_ms:.3f} ms, bound {b_ms:.4g} ms ({by}), plain {p_ms:.3f} ms ({card})")
         recs[name] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms)
+    t0 = time.perf_counter()
+    code = {r["kernel"]: r for r in _sass_report("slic")}[MAIN_ENTRIES["slic_vote"]]
+    note = (f"{MAIN_ENTRIES['slic_vote']}: {code['registers']} registers, {code['spill_bytes']} spill bytes, "
+            f"{code['sass_instructions']} SASS instructions")
+    parts = {"SASS report": time.perf_counter() - t0}
+    rounds = []
+    for call, x in vote_rounds(labels).items():
+        t0 = time.perf_counter()
+        kern, plain = slic_calls("slic_vote", lab, geom, p, x, spmap)
+        got = kern()
+        _require_equal(f"[2] slic vote {call}", got, plain())
+        k_ms, p_ms = in_turns(kern, plain, *ITERS["slic_vote"])
+        b_ms, by = bound(*slic_work("slic_vote", lab, x, geom))
+        print(f"[2] slic vote {call} at {v}x{h}x{w}: bitwise, {int((got != x).sum())} labels changed; kernel "
+              f"{k_ms:.4f} ms, bound {b_ms:.4g} ms ({by}), share {b_ms / k_ms:.3f}, plain {p_ms:.3f} ms; {note} "
+              f"({card})")
+        rounds.append(dict(call=call, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, share=b_ms / k_ms))
+        parts[call] = time.perf_counter() - t0
+    # one launch, round 1's, as every kernel's record is one launch; both
+    # rounds' times beside it (9b holds their bounds' sum to the roofline
+    # tool's record)
+    recs["slic_vote"] = dict(rounds[0], max_abs_err=0.0, bound_by=by, library_ms=None, rounds=rounds,
+                             round_ms=[r["ms"] for r in rounds])
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cpu").manual_seed(2)
     flip = (torch.rand(labels.shape, generator=gen) < 0.4).cuda()
     other = torch.randint(0, geom.map_h * geom.map_w, labels.shape, generator=gen, dtype=torch.int32).cuda()
@@ -560,6 +603,9 @@ def phase_slic_vs_plain(card: str) -> dict:
     _require_equal("[2] slic vote on noisy labels", got, plain())
     print(f"[2] slic vote on 40 % flipped labels: bitwise, {float((got != noisy).float().mean()):.4f} of the "
           f"labels changed ({card})")
+    parts["noisy labels"] = time.perf_counter() - t0
+    print(f"[2] the vote's checks took {sum(parts.values()):.2f} s: "
+          + ", ".join(f"{k} {t:.2f} s" for k, t in parts.items()))
     return recs
 
 
@@ -805,9 +851,7 @@ def phase_crosscheck_snap_vs_plain(card: str) -> dict:
     issue time at the card's top SM clock.  Returns each kernel's record."""
     import torch
 
-    from cl_multiview_stereo_tpu_torch.kernels import build
     from cl_multiview_stereo_tpu_torch.ops import slic
-    from cl_multiview_stereo_tpu_torch.tools import sass
     from cl_multiview_stereo_tpu_torch.tools.roofline import (
         ITERS,
         bound,
@@ -827,7 +871,7 @@ def phase_crosscheck_snap_vs_plain(card: str) -> dict:
     cases = {name: fusion_case(name, disp_full, disp_proj, geo) for name in ("fuse_warp", "fuse_vote")}
     cases["edge_snap"] = (lambda: slic.edge_snap(lab, spmap), lambda: slic.edge_snap_reference(lab, spmap),
                           edge_snap_work(lab, spmap, slic.edge_snap(lab, spmap)))
-    code = {r["kernel"]: r for src in ("crosscheck", "slic") for r in sass.report(src, build.CSRC)}
+    code = {r["kernel"]: r for src in ("crosscheck", "slic") for r in _sass_report(src)}
     seeds = spmap.center.numel() // 2
     snap_issue = issue_ms(code["edge_snap_kernel"]["sass_instructions"], seeds, _max_sm_clock_ghz())
     recs = {}
@@ -1909,9 +1953,10 @@ def phase_tools(card: str, phase2: dict) -> dict:
         raise AssertionError(f"[9b] roofline printed {recs}")
     for r in recs:
         print(f"[9b] python -m cl_multiview_stereo_tpu_torch.tools.roofline {' '.join(argv)}: {json.dumps(r)}")
-        if r["bound_ms"] != phase2[r["kernel"]]["bound_ms"] or r["card"] != card:
-            raise AssertionError(f"[9b] {r['kernel']}: bound {r['bound_ms']} ms, phase 2's "
-                                 f"{phase2[r['kernel']]['bound_ms']} ms")
+        # the tool's record sums its calls: the vote's two rounds
+        want = sum(c["bound_ms"] for c in phase2[r["kernel"]].get("rounds", [phase2[r["kernel"]]]))
+        if r["bound_ms"] != want or r["card"] != card:
+            raise AssertionError(f"[9b] {r['kernel']}: bound {r['bound_ms']} ms, phase 2's {want} ms")
     print(f"[9b] each kernel's bound_ms equals phase 2's ({dt:.1f} s)")
 
     rc, out, err, dt = _tool("memcheck", CONFIG4)
@@ -2112,7 +2157,7 @@ def main() -> int:
          "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r.get("library_ms"),
-         **{k: r[k] for k in ("map_ms", "map_bound_ms", "view_order_bound_ms") if k in r}}
+         **{k: r[k] for k in ("map_ms", "map_bound_ms", "view_order_bound_ms", "round_ms") if k in r}}
         for name, source, replaces, launches, r in rows
     ]}
     print(card)

@@ -88,10 +88,24 @@
 // Writing only the partials of classes with members, and reading them
 // only there, was slower in a trial build.
 //
-// slic_vote (clcode.cl:676-711), one thread per pixel: the labels of the
-// 5x5 neighbourhood that differ from the pixel's own, rows j outer and
-// columns i inner; at least 16 of them and the pixel takes the last; the
-// 2-pixel border passes through.
+// slic_vote (clcode.cl:676-711), one round a launch: the labels of the 5x5
+// neighbourhood that differ from the pixel's own, rows j outer and columns
+// i inner; at least 16 of them and the pixel takes the last; the 2-pixel
+// border passes through.  A 3-D grid (column bands, row bands, views), a
+// thread a patch of 4 x 4 pixels, its row and column from the grid, so
+// nothing is divided a pixel; the patch's 8 x 8 window sits in registers,
+// each of its rows in by three 16-byte loads through L1 (the vectors left
+// and right of the run give their inner two labels), 1.5 loads a pixel
+// against 25, and each row of the patch leaves by one 16-byte store.  A
+// tap is one compare and one predicated add in place (PTX; C++ gave a
+// select between two registers, 3 instructions a tap); the last differing
+// label comes from the scan's last 9 taps alone (at >= 16 of 24 differing
+// at most 8 are equal), so 9 predicated moves, not 24.  A width that is
+// not a multiple of 4 or a base off 16-byte alignment takes the same
+// arithmetic a pixel a thread from 4-byte loads, in the same kernel
+// template.  The window staged by cp.async in shared memory was slower.
+// Offsets are 64-bit at every size: a copy with 32-bit offsets below 2^31
+// elements timed the same at 9 x 1080p.
 //
 // edge_snap (apply_edge_alternative, clcode.cl:204-248, on the edge image
 // of edge_compute_alternative, :161-195), one thread a seed centre.  The
@@ -129,17 +143,23 @@
 // is left is the four exact distances a pixel, about 100 instructions with
 // the IEEE sqrt, not all hidden under the loads.  The update moves its
 // pixels' bytes, the partials' 63 MB out and back and the finalize's own
-// launch: its bound counts only the first.  The vote (0.144 ms against
-// 0.045) keeps its first form.  Every output depends only on its own
-// view's inputs, in an order fixed by the shapes, so a block of views gives
-// the bits of the same views in a larger launch.
+// launch: its bound counts only the first.  The vote's first form (a
+// thread a pixel: a 64-bit remainder and a division, 25 scalar loads;
+// 0.139-0.144 ms against the 0.0446 ms byte bound) became this one (1,196
+// SASS instructions for 16 pixels, 80 registers, no spill): 0.064 ms,
+// share 0.69, on the converged labels and on round 1's output alike,
+// where 37 % and 24 % of the pixels take another label.  What is left is
+// issue: about 60 instructions a pixel, 0.034 ms at one warp instruction
+// a clock on every scheduler, not all of it under the loads.  Every output
+// depends only on its own view's inputs, in an order fixed by the shapes,
+// so a block of views gives the bits of the same views in a larger launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 256;    // finalize and vote: one item a thread
+constexpr int kThreads = 256;    // finalize: one cluster a thread
 constexpr int kClasses = 9;      // (dy, dx) in {-1, 0, 1}^2, dy outer
 constexpr int kSums = 6;         // L, a, b, x, y, count
 constexpr int kStaged = 5;       // a column's sums: L, a, b, y, count
@@ -150,6 +170,10 @@ constexpr int kUpdateBatch = 4;  // update: rows of a column loaded together
 constexpr int kInterleave = 4;   // update: (cell, class, sum) sums a thread adds side by side
 constexpr int kMinBlocks = 6;    // assign and update blocks an SM holds: at most 80 registers a thread
 constexpr int kMaxGrid = 65535;  // gridDim.y and gridDim.z
+constexpr int kVoteX = 32;       // vote: threads a block along a row (a warp)
+constexpr int kVoteY = 4;        // vote: rows of threads a block
+constexpr int kVoteRun = 4;      // vote: pixels of a row a thread where rows are 16-byte aligned
+constexpr int kVoteRows = 4;     // vote: rows a thread
 
 __device__ __forceinline__ float sq(float x) { return __fmul_rn(x, x); }
 
@@ -436,33 +460,113 @@ __global__ void __launch_bounds__(kThreads) update_finalize_kernel(
   count[idx] = nz ? n : 0.0f;
 }
 
-__global__ void __launch_bounds__(kThreads) vote_kernel(
+// One tap of the vote: differ += q != own, and with ``take``, last = q where
+// q != own (``take`` is constant once the taps' loop is unrolled).  In PTX,
+// so that a tap is one compare and one or two adds or moves predicated on
+// it, in place (C++ compiles each tap to a compare and a select between
+// two registers: 3 instructions a tap).
+__device__ __forceinline__ void vote_tap(int q, int own, int& differ, int& last, bool take) {
+  if (take)
+    asm("{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %2, %3;\n\t@p add.s32 %0, %0, 1;\n\t@p mov.b32 %1, %2;\n\t}"
+        : "+r"(differ), "+r"(last)
+        : "r"(q), "r"(own));
+  else
+    asm("{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %1, %2;\n\t@p add.s32 %0, %0, 1;\n\t}"
+        : "+r"(differ)
+        : "r"(q), "r"(own));
+}
+
+// One pixel's vote from its 5x5 window w[r..r+4][c..c+4] around
+// w[r+2][c+2]: the labels that differ from its own, counted over the 24
+// taps, and the last of them in the plain form's scan (rows j outer,
+// columns i inner), taken from the scan's last 9 taps alone: where 16 or
+// more of the 24 differ, at most 8 are equal, so one of the last 9 differs.
+template <int kR, int kC>
+__device__ __forceinline__ int vote_at(const int (&w)[kR][kC], int r, int c) {
+  const int own = w[r + 2][c + 2];
+  int differ = 0, last = own;
+#pragma unroll
+  for (int k = 0; k < 25; ++k) vote_tap(w[r + k / 5][c + k % 5], own, differ, last, k >= 25 - 9);
+  return differ >= 16 ? last : own;
+}
+
+// Columns x0 - 2 .. x0 + kRun + 1 of one row into w, ``row`` at column x0,
+// 16-byte aligned, through L1: the vector left of the run (its last two),
+// the run's kRun / 4, the vector right of it (its first two).  A side
+// vector outside the view (``left``, ``right`` false) reads as 0; only
+// border pixels, which pass through, see it.
+template <int kRun>
+__device__ __forceinline__ void load_run(const int* row, bool left, bool right, int (&w)[kRun + 4]) {
+  const int4 a = left ? __ldg(reinterpret_cast<const int4*>(row - 4)) : make_int4(0, 0, 0, 0);
+  w[0] = a.z, w[1] = a.w;
+#pragma unroll
+  for (int k = 0; k < kRun / 4; ++k) {
+    const int4 b = __ldg(reinterpret_cast<const int4*>(row + 4 * k));
+    w[2 + 4 * k] = b.x, w[3 + 4 * k] = b.y, w[4 + 4 * k] = b.z, w[5 + 4 * k] = b.w;
+  }
+  const int4 c = right ? __ldg(reinterpret_cast<const int4*>(row + kRun)) : make_int4(0, 0, 0, 0);
+  w[kRun + 2] = c.x, w[kRun + 3] = c.y;
+}
+
+// Grid (bands of kVoteX * kRun columns, bands of kVoteY * kVoteRows rows,
+// views), looping past kMaxGrid on y and z; a thread the kVoteRows x kRun
+// pixels at (y0, x0), its row and column from the grid, and their
+// (kVoteRows + 4) x (kRun + 4) window in registers.  kRun = 4: the
+// window's rows in by 16-byte loads and the run out by a 16-byte store (W
+// a multiple of 4, both bases 16-byte aligned); kRun = 1: any width and
+// alignment, the window's columns clamped into the view, 4-byte loads.
+// Rows are clamped into the view; only border rows see a clamped one.
+// Offsets are 64-bit; rows, columns and views are compared and clamped as
+// distances to the view's end, so none of them wraps at any int size.
+template <int kRun>
+__global__ void __launch_bounds__(kVoteX * kVoteY) vote_kernel(
     const int* __restrict__ in,  // (V, H, W)
     int* __restrict__ out,       // (V, H, W)
     int V, int H, int W) {
+  static_assert(kRun == 1 || kRun % 4 == 0, "a run is one pixel or whole 16-byte vectors");
+  constexpr int kBand = kVoteY * kVoteRows;
+  const unsigned ux0 = (blockIdx.x * kVoteX + threadIdx.x) * kRun;
+  if (ux0 >= (unsigned)W) return;
+  const int x0 = (int)ux0;
+  bool col_in[kRun];
+#pragma unroll
+  for (int c = 0; c < kRun; ++c) col_in[c] = x0 >= 2 - c && c < W - 2 - x0;
   const long long hw = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= V * hw) return;
-  const int p = (int)(idx % hw);
-  const int row = p / W, col = p - row * W;
-  const int own = in[idx];
-  if (row < 2 || col < 2 || row >= H - 2 || col >= W - 2) {
-    out[idx] = own;
-    return;
-  }
-  int differ = 0, last = -1;
+  const int y_step = (int)gridDim.y * kBand, v_step = (int)gridDim.z;
+  for (int v = blockIdx.z; v < V; v = V - v > v_step ? v + v_step : V) {
+    const int* __restrict__ plane = in + v * hw;
+    int* __restrict__ dst = out + v * hw;
+    for (int y0 = blockIdx.y * kBand + threadIdx.y * kVoteRows; y0 < H; y0 = H - y0 > y_step ? y0 + y_step : H) {
+      int w[kVoteRows + 4][kRun + 4];
 #pragma unroll
-  for (int j = -2; j <= 2; ++j) {
+      for (int r = 0; r < kVoteRows + 4; ++r) {
+        const int dy = r < 2 ? max(r - 2, -y0) : min(r - 2, H - 1 - y0);
+        const int* row = plane + (long long)(y0 + dy) * W + x0;
+        if constexpr (kRun == 1) {
 #pragma unroll
-    for (int i = -2; i <= 2; ++i) {
-      const int nl = __ldg(in + idx + (long long)j * W + i);
-      if (nl != own) {
-        ++differ;
-        last = nl;
+          for (int i = 0; i < 5; ++i) w[r][i] = __ldg(row + (i < 2 ? max(i - 2, -x0) : min(i - 2, W - 1 - x0)));
+        } else {
+          load_run<kRun>(row, x0 > 0, kRun < W - x0, w[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kVoteRows; ++r) {
+        if (r >= H - y0) break;
+        const bool row_in = y0 >= 2 - r && r < H - 2 - y0;
+        int res[kRun];
+#pragma unroll
+        for (int c = 0; c < kRun; ++c) res[c] = row_in && col_in[c] ? vote_at(w, r, c) : w[r + 2][c + 2];
+        int* o = dst + (long long)(y0 + r) * W + x0;
+        if constexpr (kRun == 1) {
+          o[0] = res[0];
+        } else {
+#pragma unroll
+          for (int k = 0; k < kRun / 4; ++k)
+            reinterpret_cast<int4*>(o)[k] = make_int4(res[4 * k], res[4 * k + 1], res[4 * k + 2], res[4 * k + 3]);
+        }
       }
     }
   }
-  out[idx] = differ >= 16 ? last : own;
 }
 
 constexpr int kSnapThreads = 128;  // edge_snap: one seed centre a thread
@@ -582,6 +686,16 @@ int cells_per_block(int S) { return S >= kRunWidth ? 1 : kRunWidth / S; }
 
 dim3 run_threads(int S) { return dim3((unsigned int)(S < kRunWidth ? S : kRunWidth), (unsigned int)cells_per_block(S)); }
 
+template <int kRun>
+void vote_launch(const int* in, int* out, int V, int H, int W, cudaStream_t st) {
+  constexpr int kBand = kVoteY * kVoteRows;
+  constexpr long long kCols = kVoteX * kRun;
+  const long long bands = ((long long)H + kBand - 1) / kBand;
+  const dim3 grid((unsigned int)((W + kCols - 1) / kCols), (unsigned int)(bands < kMaxGrid ? bands : kMaxGrid),
+                  (unsigned int)min(V, kMaxGrid));
+  vote_kernel<kRun><<<grid, dim3(kVoteX, kVoteY), 0, st>>>(in, out, V, H, W);
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on ``stream``,
@@ -633,10 +747,17 @@ extern "C" int slic_update_launch(const float* lab, const int* labels, float* pa
 
 // out (V, H, W) int32: one round of the connectivity vote on ``in``.
 extern "C" int slic_vote_launch(const int* in, int* out, int V, int H, int W, void* stream) {
-  const long long n = (long long)V * H * W;
-  if (n == 0) return 0;
-  if (too_many_blocks(n, kThreads)) return (int)cudaErrorInvalidValue;
-  vote_kernel<<<blocks_of(n, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, V, H, W);
+  if (V < 0 || H < 0 || W < 0) return (int)cudaErrorInvalidValue;
+  if ((long long)V * H * W == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // kVoteRun pixels a thread by 16-byte loads and stores where W is a
+  // multiple of it and both bases are 16-byte aligned; else one a thread
+  const unsigned long long bases =
+      reinterpret_cast<unsigned long long>(in) | reinterpret_cast<unsigned long long>(out);
+  if (W % kVoteRun == 0 && (bases & 15) == 0)
+    vote_launch<kVoteRun>(in, out, V, H, W, st);
+  else
+    vote_launch<1>(in, out, V, H, W, st);
   return (int)cudaGetLastError();
 }
 

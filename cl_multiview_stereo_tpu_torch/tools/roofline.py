@@ -31,11 +31,13 @@ Usage:
 ``--shapes main`` is the slice's scene: 9 views of 1080x1920 at
 ``SystemSettings()`` (31 hypotheses, 40 pairs; the consistency kernel on
 sweep 0's two calls of the gather engine, the main path's launches; the
-SLIC kernels on the scene's converged labels and map; the smoothness kernels
-on sweep 0's cache and its two calls, the main path's launches; the raster
-and chain kernels on sweep 0's table, candidates and two accept walks; the
-Lab conversion on the scene's uint8 views and the extent on its converged
-labels and map; the cross-check's warp and vote on the slice's refined
+SLIC kernels on the scene's converged labels and map, the vote on both of
+``segment``'s launches under ``enforce_connectivity`` (:func:`vote_rounds`:
+round 1 on the converged labels, round 2 on round 1's output); the
+smoothness kernels on sweep 0's cache and its two calls, the main path's
+launches; the raster and chain kernels on sweep 0's table, candidates and
+two accept walks; the Lab conversion on the scene's uint8 views and the
+extent on its converged labels and map; the cross-check's warp and vote on the slice's refined
 disparity, ``MVSPipeline.run``'s ``disp_full``, the vote on that map's
 warp; the edge snap on the scene's Lab and SLIC's seed centres).
 ``--shapes row`` is the JAX tool's case: ``--views`` views in one row,
@@ -58,8 +60,8 @@ CUDA events in turns (kernel, plain, kernel, plain).  Prints one JSON line
 per kernel: ``kernel``, ``shape``, ``ms``, ``plain_ms``, ``bound_ms``,
 ``bound_by``, ``share`` (= bound_ms / ms) and ``card`` (nvidia-smi's name
 and power limit), the sums over the kernel's launches, and ``calls``: each
-launch's ``call``, ``ms``, ``plain_ms`` and ``bound_ms`` (``fuse_vote``'s
-also each walk's operations and bound and the counts of
+launch's ``call``, ``ms``, ``plain_ms``, ``bound_ms`` and ``share``
+(``fuse_vote``'s also each walk's operations and bound and the counts of
 :func:`fuse_vote_work`; its ``bound_ms`` is the lesser).  With ``--device
 cpu`` nothing is timed: ``ms``, ``plain_ms`` and ``share`` read "not
 measured" and ``card`` "cpu".
@@ -628,6 +630,15 @@ def slic_calls(kernel: str, lab, geom, p, labels, spmap) -> tuple:
     return (lambda: slic.suppress_local_labels(labels), lambda: slic.suppress_local_labels_reference(labels))
 
 
+def vote_rounds(labels) -> dict:
+    """The inputs of ``segment``'s two vote launches under
+    ``enforce_connectivity``, by call: round 1 the converged ``labels``,
+    round 2 round 1's output."""
+    from cl_multiview_stereo_tpu_torch.ops import slic
+
+    return {"round 1": labels, "round 2": slic.suppress_local_labels(labels)}
+
+
 def fusion_inputs(settings, rgb, device) -> tuple:
     """The cross-check's inputs on scene ``rgb``: the slice's refined
     disparity (``MVSPipeline.run``'s ``disp_full`` at the defaults), its
@@ -869,6 +880,9 @@ def _cases(kernel: str, shapes: str, args, device) -> tuple[str, list]:
         rgb, _ = fronto_parallel_scene(h, w, s.array_width, s.array_height, disp=disp, bl_ratio=s.bl_ratio)
         lab, geom, p, labels, spmap = slic_inputs(rgb, s, device)
         label = f"{lab.shape[0]}x{h}x{w} S{geom.spixl_size} -> {geom.map_h}x{geom.map_w} cells"
+        if kernel == "slic_vote":
+            return label, [(*slic_calls(kernel, lab, geom, p, x, spmap), slic_work(kernel, lab, x, geom), call)
+                           for call, x in vote_rounds(labels).items()]
         return label, [(*slic_calls(kernel, lab, geom, p, labels, spmap), slic_work(kernel, lab, labels, geom))]
     if kernel == "sweep" and shapes == "row":
         # the JAX tool's inputs: random Lab, each view against its neighbours
@@ -961,14 +975,14 @@ def measure(kernel: str, shapes: str, args, device, card: str) -> dict:
         b, bound_by = bound(*work[:2])
         bound_ms += b
         call = {"call": name[0] if name else f"launch {i}", "ms": NOT_MEASURED, "plain_ms": NOT_MEASURED,
-                "bound_ms": b, **(work[2] if len(work) > 2 else {})}
+                "bound_ms": b, "share": NOT_MEASURED, **(work[2] if len(work) > 2 else {})}
         if device.type == "cuda":
             kern()
             plain()
             k, p = in_turns(kern, plain, k_iters, p_iters)
             ms += k
             plain_ms += p
-            call.update(ms=k, plain_ms=p)
+            call.update(ms=k, plain_ms=p, share=b / k)
         calls.append(call)
     rec = {"kernel": kernel, "shape": label, "ms": NOT_MEASURED, "plain_ms": NOT_MEASURED,
            "bound_ms": bound_ms, "bound_by": bound_by, "share": NOT_MEASURED, "card": card, "calls": calls}

@@ -893,24 +893,121 @@ def test_slic_update_matches_reference(slic_scenes, shape, labels_kind):
         assert float(got.count.sum()) < v * h * w  # the strays were dropped
 
 
+def _vote_bitwise(labels, rounds=1):
+    """``rounds`` chained launches of the vote bitwise as many rounds of
+    its plain form, one launch a round; returns the kernel's labels."""
+    before = slic.LAUNCHES["slic_vote"]
+    got = want = labels
+    for _ in range(rounds):
+        got, want = slic.suppress_local_labels(got), slic.suppress_local_labels_reference(want)
+    torch.cuda.synchronize()
+    assert slic.LAUNCHES["slic_vote"] == before + rounds
+    assert torch.equal(got, want), f"{int((got != want).sum())} labels differ"
+    return got
+
+
+def _vote_labels(shape, seed, values=None):
+    """int32 labels on the card: 3 values (often enough >= 16 neighbours
+    differ for the vote to fire), or ``values`` drawn uniformly."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    if values is None:
+        return torch.randint(0, 3, shape, generator=gen, dtype=torch.int32).cuda()
+    pick = torch.randint(0, len(values), shape, generator=gen)
+    return torch.tensor(values, dtype=torch.int32)[pick].cuda()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", list(SLIC_SHAPES))
 @pytest.mark.parametrize("labels_kind", ["converged", "noisy"])
-def test_slic_vote_bitwise(slic_scenes, shape, labels_kind):
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_slic_vote_bitwise(slic_scenes, shape, labels_kind, rounds):
+    """One launch, or ``segment``'s two chained, bitwise the plain form."""
     _, geom, _, labels, _ = slic_scenes(shape)
     if labels_kind == "noisy":  # flips enough neighbours to trigger the vote often
         gen = torch.Generator(device="cpu").manual_seed(2)
         flip = (torch.rand(labels.shape, generator=gen) < 0.4).to(labels.device)
         other = torch.randint(0, geom.map_h * geom.map_w, labels.shape, generator=gen, dtype=torch.int32)
         labels = torch.where(flip, other.to(labels.device), labels)
+    got = _vote_bitwise(labels, rounds)
+    if labels_kind == "noisy":
+        assert bool((got != labels).any())
+
+
+INT32_MAX = 2**31 - 1
+# (V, H, W) of labels that take the kernel's edges: widths not a multiple
+# of 8 (1916), of 4 (1918) or of 2 (1919), views
+# of 4 rows or columns (all border) and of 5 (one interior row or column),
+# one view, and a height past 65,535 bands of 16 rows (the grid's y loop)
+# at a width of a run and at an odd one
+VOTE_SHAPES = {"w1916": (2, 67, 1916), "w1918": (2, 67, 1918), "w1919": (2, 67, 1919), "h4": (2, 4, 96),
+               "w4": (2, 96, 4), "h5": (2, 5, 96), "w5": (2, 96, 5), "one-view": (1, 1080, 1920),
+               "tall-w8": (1, 65535 * 16 + 37, 8), "tall-w7": (1, 65535 * 16 + 37, 7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VOTE_SHAPES))
+def test_slic_vote_bitwise_on_edge_shapes(cuda, case):
+    labels = _vote_labels(VOTE_SHAPES[case], seed=5)
+    got = _vote_bitwise(labels)
+    _, h, w = labels.shape
+    assert bool((got != labels).any()) == (h >= 5 and w >= 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", [[0], [-1], [INT32_MAX], [0, -1, INT32_MAX]],
+                         ids=["zero", "minus-one", "int32-max", "mixed"])
+@pytest.mark.parametrize("shape", [(2, 40, 64), (2, 40, 63)], ids=["w64", "w63"])
+def test_slic_vote_bitwise_on_extreme_labels(cuda, values, shape):
+    got = _vote_bitwise(_vote_labels(shape, seed=3, values=values))
+    if len(values) == 1:
+        assert bool((got == values[0]).all())
+
+
+@pytest.mark.cuda
+def test_slic_vote_bitwise_on_a_base_off_16_byte_alignment(cuda):
+    """A contiguous view ``labels[1:]`` whose H x W is odd: its base is 4
+    bytes past a 16-byte boundary (12 past when H x W is 3 mod 4)."""
+    whole = _vote_labels((4, 37, 63), seed=4)
+    labels = whole[1:]
+    assert labels.is_contiguous() and labels.data_ptr() % 16 != 0
+    _vote_bitwise(labels)
+
+
+@pytest.mark.cuda
+def test_slic_vote_64_bit_offsets(cuda):
+    """V x H x W >= 2**31 (64-bit offsets; 8.6 GB in and out): the first,
+    a middle and the last 64 rows bitwise the plain form on those rows
+    with a 2-row halo."""
+    v, h, w = 1, 65600, 32768
+    assert v * h * w >= 2**31
+    labels = torch.randint(0, 3, (v, h, w), dtype=torch.int32, device=cuda)
     before = slic.LAUNCHES["slic_vote"]
     got = slic.suppress_local_labels(labels)
     torch.cuda.synchronize()
     assert slic.LAUNCHES["slic_vote"] == before + 1
-    want = slic.suppress_local_labels_reference(labels)
-    assert torch.equal(got, want), f"{int((got != want).sum())} labels differ"
-    if labels_kind == "noisy":
-        assert bool((got != labels).any())
+    for y0 in (0, h // 2, h - 64):
+        lo, hi = max(y0 - 2, 0), min(y0 + 66, h)
+        want = slic.suppress_local_labels_reference(labels[:, lo:hi].contiguous())[:, y0 - lo:y0 - lo + 64]
+        assert torch.equal(got[:, y0:y0 + 64], want), f"rows {y0}..{y0 + 63}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2**31 - 3, 1), (1, 1, 2**31 - 3)], ids=["high", "wide"])
+def test_slic_vote_on_a_view_near_the_int_limit(cuda, shape):
+    """A view 2**31 - 3 high or wide (8.6 GB in and out): the grid's last
+    row or column steps stop at the view's end instead of wrapping.  Such a
+    view is all border, so the plain form passes it through; its first and
+    last 64 pixels are also held to the plain form on them."""
+    labels = torch.randint(-2, 3, shape, dtype=torch.int32, device=cuda)
+    before = slic.LAUNCHES["slic_vote"]
+    got = slic.suppress_local_labels(labels)
+    torch.cuda.synchronize()
+    assert slic.LAUNCHES["slic_vote"] == before + 1
+    assert torch.equal(got, labels)
+    for part in (slice(0, 64), slice(-64, None)):
+        x = labels[:, part] if shape[1] > 1 else labels[:, :, part]
+        y = got[:, part] if shape[1] > 1 else got[:, :, part]
+        assert torch.equal(y, slic.suppress_local_labels_reference(x.contiguous()))
 
 
 @pytest.mark.cuda

@@ -187,6 +187,22 @@ def test_slic_work_counted_one_pixel_at_a_time():
         roofline.slic_work("slic", lab, lab_t, geom)
 
 
+def test_vote_rounds_on_the_cpu():
+    """``vote_rounds``: round 1 on the labels, round 2 on round 1's output;
+    the tool's ``slic_vote`` record holds each as a call."""
+    from cl_multiview_stereo_tpu_torch.ops import slic
+
+    labels = torch.from_numpy(np.random.default_rng(7).integers(0, 3, (2, 12, 14)).astype(np.int32))
+    rounds = roofline.vote_rounds(labels)
+    assert list(rounds) == ["round 1", "round 2"] and rounds["round 1"] is labels
+    assert torch.equal(rounds["round 2"], slic.suppress_local_labels_reference(labels))
+    rec, = roofline.main(["--device", "cpu", "--shapes", "row", "--views", "2", "--height", "24", "--width", "40",
+                          "--kernel", "slic_vote"])
+    assert [c["call"] for c in rec["calls"]] == ["round 1", "round 2"]
+    assert rec["bound_ms"] == pytest.approx(sum(c["bound_ms"] for c in rec["calls"]), rel=1e-12)
+    assert all(c["ms"] == c["share"] == "not measured" for c in rec["calls"])
+
+
 @pytest.mark.parametrize("n_bytes, n_ops, want", [
     (3.35e9, 1.0, (1.0, "bytes")),
     (1.0, 67e9, (1.0, "operations")),

@@ -53,6 +53,7 @@ compile_size = 64bit
     (GATHER, "consistency_kernel<true>"),
     ("_ZN12_GLOBAL__N_118consistency_kernelILb0EEEvPKf", "consistency_kernel<false>"),
     ("vote_kernel", "vote_kernel"),
+    ("_ZN39_GLOBAL__N__90fbc643_7_slic_cu_4ee610eb11vote_kernelILi4EEEvPKiPiiii", "vote_kernel<4>"),
     ("_ZN40_GLOBAL__N__8f2e47ec_8_color_cu_30fcb7b710lab_kernelIhEEvPKT_Pfii", "lab_kernel<unsigned char>"),
     ("_ZN40_GLOBAL__N__8f2e47ec_8_color_cu_30fcb7b710lab_kernelIfEEvPKT_Pfii", "lab_kernel<float>"),
     ("_ZN12_GLOBAL__N_113raster_kernelILi4ELi4ELb0EEEvPKiPKfS4_S4_S4_Pfiiiii", "raster_kernel<4, 4, false>"),
