@@ -132,6 +132,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
 8. host streaming and the one-program forward: 8a phase 5's PNGs decoded
    by the native loader (``io/native_loader``, g++ built from this
    checkout) bitwise the PIL loader, both timed, and the decode backend;
+   then, in a fresh process of this script whose loader build directory
+   holds a file that does not open under the cached library's name (as a
+   library built where libpng exists, copied to a host without it), the
+   same decode: PIL's bytes with the loader's "decoding with PIL" warning
+   where the headers are missing, or the native bytes from the library
+   rebuilt in place where the toolchain is present;
    8b ``MVSPipeline.jitted()`` (one CUDA graph of ``run``, the cost-volume
    and consistency kernels inside it) at 9x1080x1920 with the default
    knobs: its capture timed, scene A and a second scene B
@@ -244,6 +250,8 @@ MAIN_ENTRIES = {"fuse_warp": "fuse_warp_kernel<2, 3, int>", "fuse_vote": "fuse_v
 SWEEPS = (0, 1, 2, 3, 4)
 # phase 8's scene B: the scene generator at another disparity and seed
 STREAM_B_DISP, STREAM_B_SEED = 36.0, 7
+# phase 8a's process with a stale cached loader library: seconds it may take
+STALE_LOADER_TIMEOUT_S = 180
 # phase 8's stream tool, seconds it may take
 STREAM_TOOL_TIMEOUT_S = 300
 # phase 7f's two gloo ranks on the one card: seconds they may take
@@ -1681,6 +1689,37 @@ def gloo_worker(rank: int, init: str, out: str) -> None:
         dist.destroy_process_group()
 
 
+def stale_loader_worker(lst: str, tmp: str) -> None:
+    """Phase 8a's fresh process: the loader's build directory in ``tmp``
+    holds a file that does not open under the cached library's name; decode
+    the scene list ``lst`` and write the array to ``tmp``/rgb.npy, and the
+    backend, the seconds and the warnings as a JSON line on stdout."""
+    import warnings
+    from pathlib import Path
+
+    import numpy as np
+
+    from cl_multiview_stereo_tpu_torch.io.native_loader import load_image_array_native, native_available
+    from cl_multiview_stereo_tpu_torch.native import build
+
+    build.BUILD_DIR = Path(tmp) / "build"
+    build.BUILD_DIR.mkdir()
+    stale = build.library_path()
+    stale.write_bytes(b"not a shared library\n")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        rgb = load_image_array_native(lst, 9)
+        seconds = time.perf_counter() - t0
+    np.save(os.path.join(tmp, "rgb.npy"), rgb)
+    backend = "native" if native_available() else "pil"
+    rebuilt = stale.read_bytes().startswith(b"\x7fELF")
+    if rebuilt:
+        ctypes.CDLL(str(stale))  # the cached name opens now
+    print(json.dumps({"backend": backend, "seconds": seconds, "library": stale.name, "rebuilt": rebuilt,
+                      "warnings": [str(w.message) for w in caught]}))
+
+
 def phase_gloo_two_ranks(card: str) -> None:
     """Phase 7f: two processes of this script on the one card."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -1796,6 +1835,29 @@ def phase_stream(card: str, root: str, lst: str) -> dict:
     print(f"[8a] decode of 9 {FULL_W}x{FULL_H} PNGs: load_image_array_native {[round(x, 4) for x in nat_s]} "
           f"s, load_image_array (PIL) {[round(x, 4) for x in pil_s]} s, bitwise equal; backend {backend}"
           + (f" (toolchain missing: {missing})" if missing else "") + f" ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--stale-loader", lst, tmp],
+                              capture_output=True, text=True, timeout=STALE_LOADER_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[8a] the stale-library process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        rec = json.loads(proc.stdout.splitlines()[-1])
+        stale = np.load(os.path.join(tmp, "rgb.npy"))
+    if not np.array_equal(stale, pil):
+        raise AssertionError(f"[8a] with a stale cached library the decode differs from PIL's at "
+                             f"{int((stale != pil).sum())} bytes")
+    if rec["backend"] != backend:
+        raise AssertionError(f"[8a] with a stale cached library the backend is {rec['backend']}, not {backend}")
+    fell_back = any("decoding with PIL" in w for w in rec["warnings"])
+    if missing and not fell_back:
+        raise AssertionError(f"[8a] PIL decoded a stale cached library's scene without the warning: {rec}")
+    if not missing and not (rec["rebuilt"] and not fell_back):
+        raise AssertionError(f"[8a] the stale cached library was not rebuilt in place: {rec}")
+    print(f"[8a] a stale cached library (a file that does not open under {rec['library']}) in a fresh process: "
+          f"load_image_array_native {rec['seconds']:.4f} s (a rebuild included; {wall:.1f} s with the process's "
+          f"start), bitwise PIL's; backend {rec['backend']}; "
+          + (f"warned: {rec['warnings'][0]}" if missing else "rebuilt in place, and opens") + f" ({card})")
 
     # 8b: the graph at full width, default knobs, on two scenes
     s, rgb_a = _scene(FULL_H, FULL_W)
@@ -2053,6 +2115,9 @@ def main() -> int:
 
     if len(sys.argv) == 5 and sys.argv[1] == "--gloo-rank":
         gloo_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--stale-loader":
+        stale_loader_worker(sys.argv[2], sys.argv[3])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)

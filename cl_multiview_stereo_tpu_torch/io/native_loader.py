@@ -4,9 +4,11 @@
 ``load_image_array_native`` is a drop-in replacement for
 ``images.load_image_array`` that decodes the whole camera array with a C++
 thread pool (PNG via libpng, JPEG via libjpeg), from the port's own copy of
-``native/loader.cc``.  Where ``g++`` or the libpng/libjpeg headers are
-absent it decodes with PIL, as the JAX module does, and warns; any other
-failure to build or load the library raises.
+``native/loader.cc``.  A cached library that does not open on this host is
+built again (``native/build.load``).  Where ``g++`` or the libpng/libjpeg
+headers are absent, for a first build or for that rebuild, it decodes with
+PIL, as the JAX module does, and warns; any other failure to build or load
+the library raises.
 """
 
 from __future__ import annotations

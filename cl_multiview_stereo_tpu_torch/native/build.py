@@ -8,10 +8,17 @@ builds the CUDA kernels: the file name carries a hash of the source and the
 flags, and the library is written under a temporary name and renamed into
 place, so that concurrent builds (test workers) never load half a file.
 
+A cached library that does not open (one built on a host with libpng and
+libjpeg, copied to a host without them) is not a build: :func:`load` builds
+it again in place, through the same host checks, as the JAX package rebuilds
+a stale library.
+
 One absence is not an error: without ``g++`` or the libpng/libjpeg headers
-:func:`load` raises :class:`ToolchainMissing`, and the loaders decode with
-PIL instead, saying so.  Any other failure to build or load raises with the
-compiler's log.
+:func:`load` raises :class:`ToolchainMissing` (naming, after a cached library
+failed to open, the loader's message too), and the loaders decode with PIL
+instead, saying so.  Any other failure raises: a compile error with the
+compiler's log, and a freshly built library that does not open with
+``OSError``, its path and the loader's message.
 """
 
 from __future__ import annotations
@@ -54,12 +61,18 @@ def _check_headers(gxx: str) -> None:
         raise ToolchainMissing(f"libpng/libjpeg headers not found ({first.strip()})")
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``loader.cc`` unless a build of the same source and flags
-    exists.  Returns (library path, compiler log; empty when cached)."""
+def library_path() -> Path:
+    """Where the build of this source and these flags lives."""
     digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS + LIBS).encode()).hexdigest()
-    out = BUILD_DIR / f"libmvsloader-{digest[:16]}.so"
-    if out.exists():
+    return BUILD_DIR / f"libmvsloader-{digest[:16]}.so"
+
+
+def build(cached: bool = True) -> tuple[Path, str]:
+    """Compile ``loader.cc`` unless ``cached`` and a build of the same
+    source and flags exists.  Returns (library path, compiler log; empty
+    when cached)."""
+    out = library_path()
+    if cached and out.exists():
         return out, ""
     gxx = _gxx()
     _check_headers(gxx)
@@ -73,12 +86,32 @@ def build() -> tuple[Path, str]:
     return out, proc.stderr
 
 
+def _open_fresh(path: Path) -> ctypes.CDLL:
+    try:
+        return ctypes.CDLL(str(path))
+    except OSError as e:
+        raise OSError(f"the freshly built {path} does not open: {e}") from e
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """Build if needed and load the library (once per process), with every
-    entry point's argument and result types declared."""
+    entry point's argument and result types declared.  A cached library
+    that does not open is built again."""
+    from_cache = library_path().exists()
     path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    if not from_cache:
+        lib = _open_fresh(path)
+    else:
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as stale:
+            first = (str(stale).splitlines() or [repr(stale)])[0]
+            try:
+                path, _ = build(cached=False)
+            except ToolchainMissing as e:
+                raise ToolchainMissing(f"{e}; the cached {path.name} does not open ({first})") from stale
+            lib = _open_fresh(path)
     u8p, intp = ctypes.POINTER(ctypes.c_ubyte), ctypes.POINTER(ctypes.c_int)
     strs = ctypes.POINTER(ctypes.c_char_p)
     signatures = {

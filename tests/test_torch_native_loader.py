@@ -113,3 +113,73 @@ def test_compile_error_raises_with_the_log(monkeypatch, tmp_path):
     assert not isinstance(err.value, build.ToolchainMissing)
     assert "error" in str(err.value)
     assert not list((tmp_path / "out").glob("*.so"))
+
+
+@pytest.fixture()
+def stale_library(tmp_path, monkeypatch):
+    """A ``BUILD_DIR`` holding, under the cached name, a file that does not
+    open (as a library built against libpng, on a host without it); the
+    loader's caches cleared before and after."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    build.BUILD_DIR.mkdir()
+    stale = build.library_path()
+    stale.write_bytes(b"not a shared library\n")
+    build.load.cache_clear()
+    native_loader._library.cache_clear()
+    yield stale
+    build.load.cache_clear()
+    native_loader._library.cache_clear()
+
+
+def _require_toolchain():
+    try:
+        build._check_headers(build._gxx())
+    except build.ToolchainMissing as e:
+        pytest.skip(f"needs g++ and the libpng/libjpeg headers: {e}")
+
+
+@pytest.mark.parametrize("host", ["headers_missing", "toolchain_present", "fresh_build_will_not_open"])
+def test_cached_library_that_will_not_open(stale_library, scene_list, monkeypatch, host):
+    """A cached library that does not open is built again through the host
+    checks: without the headers the decode is PIL's, with a warning (as the
+    JAX loader's); with them the rebuilt library decodes natively; a fresh
+    build that still does not open raises ``OSError``, never
+    ``ToolchainMissing``."""
+    from cl_multiview_stereo_tpu_torch.io.images import read_image_list
+    from cl_multiview_stereo_tpu_torch.io.prefetcher import ScenePrefetcher
+
+    pil = load_image_array(scene_list)
+    if host == "headers_missing":
+        def no_headers(gxx):
+            raise build.ToolchainMissing("libpng/libjpeg headers not found (png.h: No such file)")
+
+        monkeypatch.setattr(build, "_check_headers", no_headers)
+        with pytest.warns(UserWarning, match="decoding with PIL") as caught:
+            got = native_loader.load_image_array_native(scene_list)
+        message = str(caught[0].message)
+        assert "png.h" in message and f"the cached {stale_library.name} does not open" in message
+        np.testing.assert_array_equal(got, pil)
+        with ScenePrefetcher([read_image_list(scene_list)], 30, 40) as pf:
+            assert pf.backend == "pil"
+            (idx, rgb), = list(pf)
+        assert idx == 0
+        np.testing.assert_array_equal(rgb, pil)
+        assert stale_library.read_bytes() == b"not a shared library\n"  # not deleted, not replaced
+        return
+    _require_toolchain()
+    if host == "toolchain_present":
+        got = native_loader.load_image_array_native(scene_list)
+        assert native_loader.native_available()
+        np.testing.assert_array_equal(got, pil)
+        assert stale_library.read_bytes().startswith(b"\x7fELF")  # rebuilt in place
+        build.ctypes.CDLL(str(stale_library))  # the cached name now opens
+        return
+
+    def will_not_open(path, *args, **kwargs):
+        raise OSError(f"{path}: cannot open shared object file")
+
+    monkeypatch.setattr(build.ctypes, "CDLL", will_not_open)
+    with pytest.raises(OSError, match="the freshly built .* does not open") as err:
+        native_loader.load_image_array_native(scene_list)
+    assert not isinstance(err.value, build.ToolchainMissing)
+    assert str(stale_library) in str(err.value)
